@@ -11,17 +11,27 @@ Phases, each printing one JSON line (``"phase": ...``):
              sm_90a (registers and spills from ``-Xptxas -v``).
 3. quantizer — the kernels' shared device quantiser against the torch and
              numpy quantisers, bit for bit, on 1M probe values per format.
-4. kernels — each kernel against its plain PyTorch version on the card at
-             every BraggNN(s=1, img=11) shape of the serving path, at
-             batch 256 and at a ragged 100, in fp32 and at (5,4); per-call
-             device times of kernel, plain version and one PyTorch library
-             call, beside the least time the card could take.
-5. slice   — ``hls.compile(braggnn.build(1, 11))`` with seeded weights,
-             then ``Design.serve`` over 8 batches of 256 and one of 100
-             through ``backend="cuda"`` (fp32 and (5,4)) and
-             ``backend="tensor"``.  The plan, the kernels' launch counts and
-             the outputs (against the numpy functional model, and against
-             the same backend run on the CPU) are asserted.
+4. compile — ``hls.compile(braggnn.build(1, 11))`` with seeded weights.
+5. kernels — each kernel against its plain PyTorch version on the card at
+             the shapes its serving path gives it, at batch 256 and at a
+             ragged 100: K1-K3 at every BraggNN(s=1, img=11) call in fp32
+             and at (5,4); K4, the design's DFG segment, value for value in
+             fp32 and at (5,4); K5 at the NLB shape and at one transformer
+             case (causal, window, soft-cap).  Per-call device times of
+             kernel, plain version and one PyTorch library call, beside the
+             least time the card could take.
+6. slice   — ``Design.serve`` over 8 batches of 256 and one of 100 through
+             ``backend="cuda"`` (fp32 and (5,4)), ``backend="tensor"`` and
+             the NLB flash mode (``cuda_kw={"nlb_flash": True}``); over two
+             batches of 256 and one of 100 through the generic DFG tier
+             (``cuda_kw={"mode": "dfg"}``, fp32 and (5,4)) and
+             ``backend="simd"``; then ``design.verify()`` on the card.  The
+             plans, the kernels' launch counts and the outputs (against the
+             numpy functional model, and against the same backend run on
+             the CPU) are asserted.
+7. profile — ``torch.profiler`` over a few batches of the nest tier (fp32,
+             (5,4)), of its NLB flash mode (fp32) and of the DFG tier
+             (fp32, (5,4)).
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 the last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -60,6 +70,14 @@ N_CHECKED = 16          # samples per batch held against ``Design.run``
 #: most one (5,4) ulp); a missing or extra rounding moves far more
 MAX_DIFFER_SHARE = 0.01
 TIMED_RUNS = 120
+#: K5 vs its plain version: the reference's own kernel-vs-oracle tolerance
+FLASH_RTOL = FLASH_ATOL = 1e-4
+#: the NLB flash mode (true exp) vs the Taylor functional model
+FLASH_VS_TAYLOR_ATOL = 5e-2
+#: batches for the DFG tier and simd: two of 256 and the ragged 100
+DFG_BATCHES = (0, 1, -1)
+#: the DFG tier's plan at img 11: segments, groups, elided scatters
+DFG_PLAN = (1, 138, 68)
 
 
 class SmokeFailure(Exception):
@@ -79,14 +97,24 @@ def check(ok: bool, msg: str) -> None:
 # Timing
 # ---------------------------------------------------------------------------
 
-def device_ms(torch, fn, runs: int = TIMED_RUNS, chunk: int = 20) -> float:
+#: timing method per label where ``device_ms`` could not queue the calls
+#: behind a spin (the function waits for the card)
+TIMING_NOTES: dict = {}
+
+
+def device_ms(torch, fn, runs: int = TIMED_RUNS, chunk: int = 20,
+              label: str = "") -> float:
     """Median device time of ``fn()`` over ``runs`` CUDA-event-timed calls.
 
     The calls are queued in chunks behind a spin kernel that outlasts the
     host's enqueueing of the chunk, so the card runs them back to back and
     each pair of events brackets one call's device work, not the host's
-    launch gaps.  Chunks keep each queue within the CUDA launch queue's
-    depth.
+    launch gaps.  A spin that ends too soon is lengthened in proportion to
+    the host's time and the chunk is timed again.  Chunks keep each queue
+    within the CUDA launch queue's depth.  A function that waits for the
+    card (the host's time then follows the spin's) cannot be queued: it
+    is timed call by call between events, host gaps included, and the
+    operation that waits is recorded in ``TIMING_NOTES``.
     """
     for _ in range(5):
         fn()
@@ -109,12 +137,50 @@ def device_ms(torch, fn, runs: int = TIMED_RUNS, chunk: int = 20) -> float:
             b.record()
         host_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-        if s0.elapsed_time(s1) > host_ms:
+        spin_ms = s0.elapsed_time(s1)
+        if spin_ms > host_ms:
             times.extend(a.elapsed_time(b) for a, b in zip(starts, ends))
             continue
         tries += 1
-        check(tries < 8, "the host could not keep the card's queue full")
-        cycles *= 2
+        if tries >= 2 and spin_ms > 0.9 * host_ms:
+            return _blocking_ms(torch, fn, runs, label)
+        check(tries < 6, f"{label}: the host could not keep the card's "
+                         f"queue full (spin {spin_ms:.3f} ms, host "
+                         f"{host_ms:.3f} ms per chunk of {chunk})")
+        cycles = int(cycles * 2.0 * host_ms / max(spin_ms, 1e-3)) + 1
+    return statistics.median(times)
+
+
+def _blocking_ms(torch, fn, runs: int, label: str) -> float:
+    """Per-call event timing of a function that waits for the card, and
+    where it waits (``torch.cuda.set_sync_debug_mode``)."""
+    import traceback
+    torch.cuda.synchronize()
+    where = "not found"
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError:
+        frames = traceback.extract_tb(sys.exc_info()[2])
+        where = " <- ".join(f"{Path(f.filename).name}:{f.lineno}"
+                            for f in reversed(frames[-3:]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    TIMING_NOTES[label] = {"method": "events per call, host gaps "
+                                     "included: the host's enqueueing "
+                                     "follows the card (a wait, or more "
+                                     "launches than the queue holds)",
+                           "waits_at": where}
     return statistics.median(times)
 
 
@@ -214,7 +280,53 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
         "operations"
 
 
-def phase_kernels(torch) -> dict:
+def value_diff(torch, a, b) -> int:
+    """Values of ``a`` and ``b`` that differ, NaN equal to NaN and a zero's
+    sign not counted."""
+    return int(((a != b) & ~(torch.isnan(a) & torch.isnan(b))).sum())
+
+
+def dfg_segment_case(torch, design, x, fmt) -> dict:
+    """The design's DFG segment as the DFG tier's runner launches it on
+    batch ``x``: the runner's own prologue buffer, index vector and
+    descriptor table (and the table on the host, for the plain version),
+    and the least traffic the segment needs: each slot it reads and no
+    group of it writes read once, each slot it scatters written once, the
+    indices and the table read once."""
+    import numpy as np
+    from repro_torch.core.precision import FORMATS
+    from repro_torch.kernels.dfg_segment.dfg_segment import SEGMENT_OPCODES
+
+    fn = design.torch_fn(backend="cuda", mode="dfg", fmt=fmt)
+    check(len(fn.segments) == 1 and not fn.plan.fallbacks,
+          f"the DFG tier's plan is {fn.plan.summary()}, not one segment")
+    idx, desc = fn.segments[0]
+    buf, b = fn.prologue({"input": x[:, None]})
+    rows = desc.cpu().numpy()
+    idx_np = idx.cpu().numpy()
+    n_values = buf.shape[0]
+    reads, writes, flops = [], [], 0
+    for op, arity, o0, o1, o2, roff, n, _flags in rows.tolist():
+        reads += [idx_np[o:o + n] for o in (o0, o1, o2)[:arity]]
+        writes.append(idx_np[roff:roff + n])
+        oc = SEGMENT_OPCODES[op]
+        if oc not in ("load", "store", "copy"):
+            flops += b * n * (2 if oc == "fmac" else 1)
+    out = np.unique(np.concatenate(writes))
+    out = out[out < n_values]
+    read = np.setdiff1d(np.concatenate(reads), out)
+    fo = FORMATS[fmt] if fmt else None
+    return {"buf": buf, "batch": b, "idx": idx, "desc": desc,
+            "desc_host": torch.from_numpy(rows),
+            "fmt": (fo.exp_bits, fo.man_bits) if fo is not None else None,
+            "bytes": 4 * b * (read.size + out.size) + 4 * (idx_np.size
+                                                           + rows.size),
+            "gather_bytes": 4 * b * idx_np.size, "flops": flops,
+            "groups": len(rows), "elided": fn.plan.fused_scatters,
+            "indices": int(idx_np.size)}
+
+
+def phase_kernels(torch, design) -> dict:
     """Hold each kernel against its plain version at the serving path's
     shapes; time kernel, plain version and library call at batch 256."""
     import torch.nn.functional as F
@@ -236,15 +348,18 @@ def phase_kernels(torch) -> dict:
     out = {}
     details = []
 
-    def compare(name, call, b, fmt, got, want):
+    def compare(name, call, b, fmt, got, want, exact=False,
+                rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        ok = bool(torch.allclose(got, want, rtol=KERNEL_RTOL,
-                                 atol=KERNEL_ATOL))
+        err = float((got - want).abs().nan_to_num(0.0).max())
+        n_diff = value_diff(torch, got, want)
+        ok = n_diff == 0 if exact else bool(
+            torch.allclose(got, want, rtol=rtol, atol=atol))
         details.append({"kernel": name, "call": call, "batch": b,
-                        "fmt": fmt, "max_abs_err": err, "ok": ok})
+                        "fmt": fmt, "max_abs_err": err,
+                        "values_differing": n_diff, "ok": ok})
         check(ok, f"{name} {call} batch {b} fmt {fmt}: kernel differs from "
-                  f"its plain version by {err}")
+                  f"its plain version by {err} ({n_diff} values differ)")
         rec = out.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
                                     "plain_ms": 0.0, "library_ms": 0.0,
                                     "bytes": 0.0, "flops": 0.0,
@@ -252,13 +367,22 @@ def phase_kernels(torch) -> dict:
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         return rec
 
-    def timed(rec, call, nbytes, flops, kern, plain, lib):
-        t = {"call": call, "ms": device_ms(torch, kern),
-             "plain_ms": device_ms(torch, plain),
-             "library_ms": device_ms(torch, lib)}
+    def timed(rec, call, nbytes, flops, kern, plain, lib, plain_runs=None,
+              **extra):
+        t = {"call": call, "ms": device_ms(torch, kern, label=call),
+             "plain_ms": device_ms(torch, plain, plain_runs or TIMED_RUNS,
+                                   chunk=10 if plain_runs else 20,
+                                   label=f"{call} plain"),
+             "library_ms": device_ms(torch, lib, label=f"{call} library")
+             if lib else None}
+        t.update({k: device_ms(torch, f, label=f"{call} {k}")
+                  for k, f in extra.items()})
         t["bound_ms"], t["bound_by"] = bound(nbytes, flops)
-        for k in ("ms", "plain_ms", "library_ms"):
+        for k in ("ms", "plain_ms"):
             rec[k] += t[k]
+        rec["library_ms"] = (None if t["library_ms"] is None
+                             or rec["library_ms"] is None
+                             else rec["library_ms"] + t["library_ms"])
         rec["bytes"] += nbytes
         rec["flops"] += flops
         rec["calls"].append(t)
@@ -340,21 +464,83 @@ def phase_kernels(torch) -> dict:
                       lambda: fused_softmax(x, **kw),
                       lambda: fused_softmax_ref(x, **kw),
                       lambda: torch.softmax(x, dim=-1))
+    # K4: the design's DFG segment, value for value with its plain version
+    from repro_torch.kernels.dfg_segment.dfg_segment import dfg_segment
+    from repro_torch.kernels.dfg_segment.ref import dfg_segment_ref
+    from repro_torch.models import braggnn
+    peaks = torch.Generator().manual_seed(7)
+    for b in (BATCH, RAGGED):
+        x = braggnn.synthetic_peaks(b, IMG, peaks)[0]
+        for fmt in (None, "5_4"):
+            c = dfg_segment_case(torch, design, x, fmt)
+            kw = {"fmt": c["fmt"]}
+            rec = compare(
+                "dfg_segment", f"segment[{c['groups']} groups]", b, fmt,
+                dfg_segment(c["buf"].clone(), c["idx"], c["desc"], **kw),
+                dfg_segment_ref(c["buf"].clone(), c["idx"], c["desc_host"],
+                                **kw), exact=True)
+            if b == BATCH and fmt is None:
+                buf, idx, desc = c["buf"], c["idx"], c["desc"]
+                rec["segment"] = {k: c[k] for k in (
+                    "groups", "elided", "indices", "bytes", "gather_bytes",
+                    "flops")}
+                rec["segment"]["gather_bound_ms"] = bound(
+                    c["gather_bytes"], 0)[0]
+                # the kernel updates the buffer in place; a repeat writes
+                # the same values again
+                timed(rec, f"segment[{c['groups']} groups]", c["bytes"],
+                      c["flops"],
+                      lambda: dfg_segment(buf, idx, desc),
+                      lambda: dfg_segment_ref(buf, idx, c["desc_host"]),
+                      None, plain_runs=20,
+                      prologue_zero_ms=lambda: torch.zeros_like(buf))
+            elif b == BATCH:
+                # the kernel alone at the format, beside the fp32 time
+                buf, idx, desc = c["buf"], c["idx"], c["desc"]
+                rec["segment"][f"ms_at_{fmt}"] = device_ms(
+                    torch, lambda: dfg_segment(buf, idx, desc, **kw),
+                    label=f"segment at {fmt}")
+            del c
+    torch.cuda.empty_cache()
+
+    # K5: the NLB attention core, and one transformer case
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    n, c2 = (IMG - 2) ** 2, 8 * S
+    for b in (BATCH, RAGGED):
+        q, k, v = (randn(b, n, c2) for _ in range(3))
+        fkw = {"causal": False}
+        rec = compare("flash_attention", "nlb.attention", b, None,
+                      flash_attention(q, k, v, **fkw),
+                      flash_attention_ref(q, k, v, **fkw),
+                      rtol=FLASH_RTOL, atol=FLASH_ATOL)
+        if b == BATCH:
+            timed(rec, "nlb.attention", 4 * 4 * q.numel(), 4 * b * n * n * c2,
+                  lambda: flash_attention(q, k, v, **fkw),
+                  lambda: flash_attention_ref(q, k, v, **fkw),
+                  lambda: F.scaled_dot_product_attention(q, k, v))
+    q, k, v = (randn(8, 128, 32) for _ in range(3))
+    fkw = {"causal": True, "window": 32, "logit_cap": 10.0}
+    compare("flash_attention", "transformer.causal.window32.cap10", 8, None,
+            flash_attention(q, k, v, **fkw),
+            flash_attention_ref(q, k, v, **fkw),
+            rtol=FLASH_RTOL, atol=FLASH_ATOL)
+
     emit({"phase": "kernels", "tolerance": {"rtol": KERNEL_RTOL,
                                             "atol": KERNEL_ATOL},
           "softmax_taylor_vs_exp_max_gap":
               out["fused_softmax"]["taylor_vs_exp"],
           "checks": len(details), "worst": max(
               details, key=lambda d: d["max_abs_err"]),
-          "per_call_at_batch": BATCH,
+          "per_call_at_batch": BATCH, "timing_notes": TIMING_NOTES,
+          "dfg_segment": out["dfg_segment"]["segment"],
           "calls": {k: v["calls"] for k, v in out.items()}})
     return out
 
 
-def phase_slice(torch) -> dict:
-    import numpy as np
+def phase_compile(torch):
     import repro_torch.hls as hls
-    from repro_torch.kernels import registry
     from repro_torch.models import braggnn
     from repro_torch.nn.module import init_tree
 
@@ -367,6 +553,13 @@ def phase_slice(torch) -> dict:
           "timings": design.timings, "ops": len(design.graph_opt.ops),
           "values": design.graph_opt.n_values,
           "design_hash": design.design_hash[:16]})
+    return design
+
+
+def phase_slice(torch, design) -> dict:
+    import numpy as np
+    from repro_torch.kernels import registry
+    from repro_torch.models import braggnn
 
     gen = torch.Generator().manual_seed(1)
     batches = [braggnn.synthetic_peaks(n, IMG, gen)[0]
@@ -401,7 +594,7 @@ def phase_slice(torch) -> dict:
             fn = design.torch_fn(backend="cuda", fmt=fmt)
             check(fn.plan.kernels == want_plan and not fn.plan.fallbacks,
                   f"{tag}: plan {fn.plan.summary()}")
-            want = {k: v * runs for k, v in per_batch.items()}
+            want = {k: per_batch.get(k, 0) * runs for k in counts}
             check(counts == want, f"{tag}: launches {counts}, want {want}")
             if fmt is None:
                 launches = counts
@@ -452,18 +645,181 @@ def phase_slice(torch) -> dict:
                               "samples_per_batch": N_CHECKED}
         emit(line)
         results[tag] = line
+    launches.update(serve_flash(torch, design, batches, evaluated, out_name,
+                                want_plan, per_batch))
+    dfg_batches = [batches[i] for i in DFG_BATCHES]
+    launches.update(serve_dfg(torch, design, dfg_batches, out_name))
+    serve_simd(torch, design, dfg_batches, out_name)
+    verify_on_card(torch, design)
     for fmt in (None, "5_4"):
         phase_profile(torch, design, batches[0], fmt)
+    phase_profile(torch, design, batches[0], None, {"nlb_flash": True})
+    for fmt in (None, "5_4"):
+        phase_profile(torch, design, batches[0], fmt, {"mode": "dfg"})
     return {"launches": launches, "serve": results}
 
 
-def phase_profile(torch, design, x, fmt, reps: int = 5) -> None:
+def _outputs(torch, tag, rep, batches, out_name):
+    outs = [o[out_name] for o in rep.outputs]
+    check(all(tuple(o.shape[:1]) == (len(x),) and o.is_cuda
+              and bool(torch.isfinite(o).all())
+              for o, x in zip(outs, batches)),
+          f"{tag}: outputs not finite CUDA tensors of the batch size")
+    return outs
+
+
+def _serve_line(rep, backend, fmt, counts, **extra) -> dict:
+    line = {"phase": "serve", "backend": backend, "fmt": fmt,
+            "batches": rep.batches, "samples": rep.samples,
+            "us_per_sample": rep.us_per_sample, "p50_ms": rep.p50_ms,
+            "p99_ms": rep.p99_ms, "warmup_s": rep.warmup_s,
+            "served": rep.served, "launches": counts}
+    line.update(extra)
+    return line
+
+
+def serve_flash(torch, design, batches, evaluated, out_name, nest_plan,
+                per_batch) -> dict:
+    """The NLB flash-attention mode: K5 in place of K2 and the two
+    contractions.  Held against the CPU run of the same backend and, at
+    the true-exp-vs-Taylor tolerance, against ``Design.run``."""
+    import numpy as np
+    from repro_torch.kernels import registry
+
+    tag, kw = "cuda:nlb_flash", {"nlb_flash": True}
+    registry.reset_launch_counts()
+    rep = design.serve(batches, backend="cuda", cuda_kw=kw, collect=True)
+    torch.cuda.synchronize()
+    counts = registry.launch_counts()
+    outs = _outputs(torch, tag, rep, batches, out_name)
+    plan = design.torch_fn(backend="cuda", **kw).plan
+    want_plan = dict(nest_plan)
+    del want_plan["fused_softmax"]
+    want_plan["flash_attention"] = 1
+    check(plan.kernels == want_plan and not plan.fallbacks
+          and any("true-exp softmax" in n for n in plan.notes),
+          f"{tag}: plan {plan.summary()} {plan.notes}")
+    runs = len(batches) + 1
+    want = {k: 0 for k in counts}
+    want.update({k: v * runs for k, v in per_batch.items()
+                 if k != "fused_softmax"})
+    want["flash_attention"] = runs
+    check(counts == want, f"{tag}: launches {counts}, want {want}")
+    cpu = design.serve([x[:N_CHECKED] for x in batches], backend="cuda",
+                       device="cpu", cuda_kw=kw, collect=True)
+    err_cpu = err_run = 0.0
+    for o, c, ref in zip(outs, cpu.outputs, evaluated):
+        c = c[out_name]
+        got = o[:N_CHECKED].cpu().reshape(c.shape)
+        err_cpu = max(err_cpu, float((got - c).abs().max()))
+        check(torch.allclose(got, c, rtol=SLICE_RTOL, atol=SLICE_ATOL),
+              f"{tag}: differs from the CPU run by {err_cpu}")
+        g = got.numpy().reshape(ref[out_name].shape)
+        err_run = max(err_run, float(np.abs(g - ref[out_name]).max()))
+        check(err_run <= FLASH_VS_TAYLOR_ATOL,
+              f"{tag}: differs from Design.run by {err_run}")
+    emit(_serve_line(rep, "cuda", None, counts, cuda_kw=kw,
+                     vs_cpu={"max_abs_err": err_cpu, "rtol": SLICE_RTOL,
+                             "atol": SLICE_ATOL},
+                     vs_evaluate={"max_abs_err": err_run,
+                                  "atol": FLASH_VS_TAYLOR_ATOL,
+                                  "samples_per_batch": N_CHECKED}))
+    return {"flash_attention": counts["flash_attention"]}
+
+
+def serve_dfg(torch, design, batches, out_name) -> dict:
+    """The generic DFG tier: one K4 launch per batch, outputs equal to the
+    numpy functional model value for value, at fp32 and (5,4)."""
+    import numpy as np
+    from repro_torch.core.precision import FORMATS
+    from repro_torch.kernels import registry
+
+    launches = {}
+    for fmt in (None, "5_4"):
+        tag, kw = f"cuda:dfg:{fmt or 'fp32'}", {"mode": "dfg"}
+        plan = design.torch_fn(backend="cuda", fmt=fmt, **kw).plan
+        got_plan = (plan.n_segments, plan.n_groups, plan.fused_scatters)
+        check(got_plan == DFG_PLAN and not plan.fallbacks,
+              f"{tag}: plan {plan.summary()}, want {DFG_PLAN}")
+        registry.reset_launch_counts()
+        rep = design.serve(batches, backend="cuda", fmt=fmt, cuda_kw=kw,
+                           collect=True)
+        torch.cuda.synchronize()
+        counts = registry.launch_counts()
+        outs = _outputs(torch, tag, rep, batches, out_name)
+        want = {k: 0 for k in counts}
+        want["dfg_segment"] = plan.n_segments * (len(batches) + 1)
+        check(counts == want, f"{tag}: launches {counts}, want {want}")
+        n_diff = 0
+        for o, x in zip(outs, batches):
+            ref = design.run(x[:N_CHECKED].numpy(),
+                             fmt=FORMATS[fmt] if fmt else None)[out_name]
+            got = o[:N_CHECKED].cpu().numpy().reshape(ref.shape)
+            n_diff += int(((got != ref)
+                           & ~(np.isnan(got) & np.isnan(ref))).sum())
+        check(n_diff == 0, f"{tag}: {n_diff} outputs differ from Design.run")
+        emit(_serve_line(rep, "cuda", fmt, counts, cuda_kw=kw,
+                         plan={"segments": plan.n_segments,
+                               "groups": plan.n_groups,
+                               "scatters_elided": plan.fused_scatters,
+                               "fallbacks": len(plan.fallbacks)},
+                         vs_evaluate={"outputs_differing": n_diff,
+                                      "samples_per_batch": N_CHECKED}))
+        if fmt is None:
+            launches["dfg_segment"] = counts["dfg_segment"]
+    return launches
+
+
+def serve_simd(torch, design, batches, out_name) -> None:
+    """The emitted SIMD design (plain torch, no kernel): value for value
+    with the numpy functional model."""
+    import numpy as np
+    from repro_torch.kernels import registry
+
+    registry.reset_launch_counts()
+    rep = design.serve(batches, backend="simd", collect=True)
+    torch.cuda.synchronize()
+    counts = registry.launch_counts()
+    check(not any(counts.values()), f"simd launched kernels: {counts}")
+    outs = _outputs(torch, "simd", rep, batches, out_name)
+    n_diff = 0
+    for o, x in zip(outs, batches):
+        ref = design.run(x[:N_CHECKED].numpy())[out_name]
+        got = o[:N_CHECKED].cpu().numpy().reshape(ref.shape)
+        n_diff += int(((got != ref) & ~(np.isnan(got) & np.isnan(ref))).sum())
+    check(n_diff == 0, f"simd: {n_diff} outputs differ from Design.run")
+    emit(_serve_line(rep, "simd", None, counts,
+                     vs_evaluate={"outputs_differing": n_diff,
+                                  "samples_per_batch": N_CHECKED}))
+
+
+def verify_on_card(torch, design) -> None:
+    """``Design.verify`` with the emitted SIMD design on the card, at the
+    feed scale BraggNN's testbench uses (0.2: the Taylor exp of larger
+    random weights overflows)."""
+    import math
+    t0 = time.perf_counter()
+    rep = design.verify(scale=0.2)
+    errs = {k: getattr(rep, k) for k in (
+        "max_abs_err_opt", "max_abs_err_ref", "max_abs_err_quant",
+        "max_abs_err_simd")}
+    emit({"phase": "verify", "summary": rep.summary(), "passed": rep.passed,
+          "seconds": time.perf_counter() - t0, **errs})
+    check(rep.passed and all(math.isfinite(v) for v in errs.values()),
+          f"design.verify failed on the card: {rep.summary()}")
+
+
+def phase_profile(torch, design, x, fmt, cuda_kw=None,
+                  reps: int = 5) -> None:
     """Where one batch's time goes: ``torch.profiler`` over ``reps``
-    batches of the cuda backend at ``fmt``, after the counted runs.  Device
-    time and launches by kernel name, the device's busy and idle share of
-    the host's wall time, and the host time per batch."""
+    batches of the cuda backend at ``fmt`` (nest tier, or what
+    ``cuda_kw`` selects), after the counted runs.  Device time and
+    launches by kernel name, the device's busy and idle share of the
+    host's wall time, and the host time per batch."""
     from torch.profiler import ProfilerActivity, profile
-    fn = design.torch_fn(backend="cuda", fmt=fmt)
+    fn = design.torch_fn(backend="cuda", fmt=fmt, **(cuda_kw or {}))
+    if fn.plan.mode == "dfg":
+        x = {"input": x[:, None]}          # the DFG tier takes feed dicts
     fn(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -489,7 +845,8 @@ def phase_profile(torch, design, x, fmt, reps: int = 5) -> None:
                             "device_us_per_batch": dev_us / reps})
     kernels.sort(key=lambda k: -k["device_us_per_batch"])
     busy = sum(k["device_us_per_batch"] for k in kernels)
-    emit({"phase": "profile", "fmt": fmt, "batch": int(x.shape[0]),
+    emit({"phase": "profile", "fmt": fmt, "mode": fn.plan.mode,
+          "cuda_kw": cuda_kw or {}, "batch": BATCH,
           "reps": reps,
           "device_launches_per_batch": sum(k["calls"] for k in kernels),
           "host_us_per_batch": wall_us / reps,
@@ -502,12 +859,27 @@ def phase_profile(torch, design, x, fmt, reps: int = 5) -> None:
 KERNEL_META = {
     "conv2d_vmem": ("src/repro_torch/csrc/conv2d_vmem.cu",
                     "src/repro/kernels/conv2d_vmem/conv2d_vmem.py:82"),
+    "dfg_segment": ("src/repro_torch/csrc/dfg_segment.cu",
+                    "src/repro/core/emit_pallas.py:269"),
+    "flash_attention": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:93"),
     "fused_softmax": ("src/repro_torch/csrc/fused_softmax.cu",
                       "src/repro/kernels/fused_softmax/fused_softmax.py:52"),
     "smallfloat_matmul": (
         "src/repro_torch/csrc/smallfloat_matmul.cu",
         "src/repro/kernels/smallfloat_matmul/smallfloat_matmul.py:111"),
 }
+
+
+#: how each kernel is held against its plain version, where not at
+#: KERNEL_RTOL / KERNEL_ATOL
+TOLERANCE = {"dfg_segment": "value for value",
+             "flash_attention": {"rtol": FLASH_RTOL, "atol": FLASH_ATOL}}
+#: why a kernel's row has no library time
+NO_LIBRARY = {"dfg_segment": "no single PyTorch call computes a DFG "
+                             "segment (a levelised gather/compute/scatter "
+                             "over an index table)"}
 
 
 def main() -> int:
@@ -525,8 +897,9 @@ def main() -> int:
         dev = phase_device(torch)
         phase_build()
         phase_quantizer(torch)
-        kern = phase_kernels(torch)
-        sl = phase_slice(torch)
+        design = phase_compile(torch)
+        kern = phase_kernels(torch, design)
+        sl = phase_slice(torch, design)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -542,13 +915,15 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": n,
                      "max_abs_err": rec["max_abs_err"],
-                     "tolerance": {"rtol": KERNEL_RTOL,
-                                   "atol": KERNEL_ATOL},
+                     "tolerance": TOLERANCE.get(name, {
+                         "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL}),
                      "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": rec["library_ms"],
                      "per": f"one batch of {BATCH}: the sum over the "
                             f"kernel's {len(rec['calls'])} calls"})
+        if name in NO_LIBRARY:
+            rows[-1]["library_ms_null_because"] = NO_LIBRARY[name]
     emit({"kernels": rows})
     print(dev["nvidia_smi"])
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

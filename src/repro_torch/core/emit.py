@@ -11,9 +11,12 @@ Execution backends for a scheduled DFG:
                         ``(n_values, batch)`` value matrix — bit-identical
                         to a per-op program-order loop.
   * ``to_torch_fn``   — the emitted design as a torch callable.
-                        ``backend='cuda'`` is the compiled rendering on the
-                        hand-written kernels (:mod:`repro_torch.core.emit_cuda`,
-                        the counterpart of the reference's ``'pallas'``).
+                        ``backend='simd'`` renders the levelised DFG as one
+                        gather/compute/scatter per (level, opcode) group
+                        in plain torch; ``backend='cuda'`` is the compiled
+                        rendering on the hand-written kernels
+                        (:mod:`repro_torch.core.emit_cuda`, the counterpart
+                        of the reference's ``'pallas'``).
   * the tensor path   — production inference uses the tensor-level model
                         (``repro_torch.models``) with ``precision.quantize``
                         inserted per the chosen format; the scalar DFG
@@ -116,8 +119,9 @@ def compile_groups(c: GraphCols, n_values: int
 
     Returns ``(level, opcode, [arg index arrays], result index array)``
     tuples in level order — the shared unit of emission for the SIMD
-    rendering and the generic DFG tier, which fuse contiguous runs of
-    them into compiled kernels (both still to be ported).
+    rendering (:func:`to_torch_fn`) and the generic DFG tier
+    (``repro_torch.core.emit_cuda``), which fuses contiguous runs of them
+    into one launch of the DFG segment kernel.
     """
     groups = []
     for lv, oc, rows in _level_groups(c, n_values):
@@ -248,6 +252,97 @@ def evaluate(g: Graph, feeds: dict[str, np.ndarray], *,
 
 
 # ---------------------------------------------------------------------------
+# The value buffer of the vectorised emitters
+# ---------------------------------------------------------------------------
+
+def buffer_io(g: Graph, dev, q=None):
+    """``(prologue, epilogue)`` of a value-major ``(n_values, batch)`` fp32
+    buffer on ``dev``, shared by the ``simd`` backend and the DFG tier.
+
+    ``prologue(feeds) -> (buf, batch)`` zeroes the buffer, then places the
+    constants and every input feed (numpy or tensor; the batch is the
+    leading axis of the first batched feed, and unbatched feeds — usually
+    weights — broadcast on the device, never copied per sample).  ``q``,
+    if given, rounds inputs and constants as ``evaluate`` does.
+    ``epilogue(buf, batch)`` gathers ``{output: (batch,) + shape}``.
+    """
+    import torch
+
+    const_idx, const_val, input_scatter, output_gather = io_tables(g)
+    n_values = max(g.n_values, 1)
+    cidx = torch.from_numpy(const_idx.astype(np.int64)).to(dev)
+    cval = torch.from_numpy(const_val).to(dev)
+    if q is not None:
+        cval = q(cval)
+    places = {}
+    for name, (vids, idxs) in input_scatter.items():
+        rank = len(idxs[0])
+        shape = tuple(max(i[d] for i in idxs) + 1 for d in range(rank))
+        lin = np.ravel_multi_index(tuple(np.array(idxs).T), shape)
+        places[name] = (torch.from_numpy(vids.astype(np.int64)).to(dev),
+                        torch.from_numpy(lin.astype(np.int64)).to(dev),
+                        rank)
+    gathers = {name: (torch.from_numpy(vids.astype(np.int64)).to(dev), shape)
+               for name, (vids, shape) in output_gather.items()}
+
+    def prologue(feeds):
+        missing = [n for n in places if n not in feeds]
+        if missing:
+            raise KeyError(f"missing feed for input memref '{missing[0]}'")
+        arrs = {n: torch.as_tensor(feeds[n], dtype=torch.float32,
+                                   device=dev) for n in places}
+        batch = next((int(a.shape[0]) for n, a in arrs.items()
+                      if a.dim() == places[n][2] + 1), 1)
+        buf = torch.zeros((n_values, batch), dtype=torch.float32,
+                          device=dev)
+        if len(cidx):
+            buf[cidx] = cval[:, None]
+        for name, (vids, lin, rank) in places.items():
+            a = arrs[name]
+            if a.dim() == rank:                  # unbatched: broadcast
+                flat = a.reshape(-1)[lin][:, None]
+            else:
+                flat = a.reshape(a.shape[0], -1)[:, lin].T
+            buf[vids] = q(flat) if q is not None else flat
+        return buf, batch
+
+    def epilogue(buf, batch):
+        return {name: buf[vids].T.reshape((batch,) + shape)
+                for name, (vids, shape) in gathers.items()}
+
+    return prologue, epilogue
+
+
+def _simd_fn(g: Graph, device) -> Callable:
+    import torch
+
+    from repro_torch.core import device as devices
+    from repro_torch.kernels.registry import opcode_compute
+
+    dev = devices.resolve(device)
+    groups = []
+    for _lv, oc, arg_idx, res_idx in compile_groups(g.cols(), g.n_values):
+        keep = res_idx >= 0
+        groups.append((
+            oc, [torch.from_numpy(ai.astype(np.int64)).to(dev)
+                 for ai in arg_idx],
+            torch.from_numpy(res_idx[keep].astype(np.int64)).to(dev),
+            None if keep.all() else torch.from_numpy(keep).to(dev)))
+    prologue, epilogue = buffer_io(g, dev)
+
+    def run(feeds):
+        with torch.inference_mode():
+            buf, batch = prologue(feeds)
+            for oc, args, res, keep in groups:
+                r = opcode_compute(oc, [buf[ai] for ai in args])
+                buf[res] = r if keep is None else r[keep]
+            return epilogue(buf, batch)
+
+    run.device = dev
+    return run
+
+
+# ---------------------------------------------------------------------------
 # Emission front door
 # ---------------------------------------------------------------------------
 
@@ -263,15 +358,23 @@ def to_torch_fn(g: Graph, *, backend: str = "cuda", **cuda_kw
     ``backend='cuda'``: the compiled rendering —
     :func:`repro_torch.core.emit_cuda.to_cuda_fn`, which takes ``module=``
     for the nest-pattern tier (extra keywords are forwarded) and returns a
-    callable carrying its lowering ``.plan``.  ``backend='simd'``, the
-    levelised gather/compute/scatter interpretation, is not ported yet.
+    callable carrying its lowering ``.plan``.
+
+    ``backend='simd'``: the DFG is levelised (ASAP with unit delays) and
+    each (level, opcode) group becomes one gather -> torch op -> scatter
+    over a value-major buffer on ``device`` (default ``"cuda"``, which
+    raises without a GPU), in fp32, exactly as ``evaluate`` rounds.  It
+    takes a feed dict (weights batched or not) and returns
+    ``{output: (batch,) + shape}`` tensors; it takes no other keyword.
     """
     if backend not in EMIT_BACKENDS:
         raise ValueError(f"unknown emission backend {backend!r} "
                          f"(valid: {', '.join(EMIT_BACKENDS)})")
     if backend == "simd":
-        raise NotImplementedError(
-            "the simd emission backend is not ported yet (ROADMAP queue 1, "
-            "item 6); use backend='cuda'")
+        extra = sorted(set(cuda_kw) - {"device"})
+        if extra:
+            raise TypeError(f"backend='simd' takes only device=, got "
+                            f"{extra}")
+        return _simd_fn(g, cuda_kw.get("device"))
     from repro_torch.core.emit_cuda import to_cuda_fn
     return to_cuda_fn(g, **cuda_kw)

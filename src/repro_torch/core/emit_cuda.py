@@ -1,14 +1,16 @@
-"""CUDA emission, nest-pattern tier: compile the bridged module, don't
-interpret it.
+"""CUDA emission: compile the scheduled design, don't interpret it.
 
-The counterpart of the nest-pattern tier of the reference's
-``repro/core/emit_pallas.py`` (``to_pallas_fn``'s ``mode='nests'`` branch,
-``_lower_module``, ``_nlb_step``, ``_normalize_weights``, ``PallasPlan``).
-When the design carries the ``ModuleGraph`` it was bridged from, each node
-lowers through the kernel registry (:mod:`repro_torch.kernels.registry`):
-``Conv2d`` -> the weights-resident conv, ``Linear`` -> the smallfloat
-matmul, ``Softmax`` and the NLB attention softmax -> the fused Taylor
-softmax.  ReLU nodes fuse into the preceding conv/matmul kernel.  Nodes
+The counterpart of the reference's ``repro/core/emit_pallas.py``, with its
+two tiers.
+
+**Nest-pattern tier** (``mode='nests'``; ``_lower_module``, ``_nlb_step``,
+``_normalize_weights``).  When the design carries the ``ModuleGraph`` it
+was bridged from, each node lowers through the kernel registry
+(:mod:`repro_torch.kernels.registry`): ``Conv2d`` -> the weights-resident
+conv, ``Linear`` -> the smallfloat matmul, ``Softmax`` and the NLB
+attention softmax -> the fused Taylor softmax, or, with ``nlb_flash=True``
+at fp32, the NLB attention core -> flash attention.  ReLU nodes fuse into
+the preceding conv/matmul kernel.  Nodes
 without a registered kernel (batch norm, pooling, strided/padded conv,
 RMS norm) run as plain PyTorch and are recorded as fallbacks in the
 :class:`KernelPlan`, exactly as the reference records them.  The two NLB
@@ -22,14 +24,29 @@ out-projection conv's epilogue, the NLB scores as the softmax reads them
 — so the quantised path launches the same kernels as the fp32 one and
 nothing beside them but the two ``torch.bmm``.
 
-On a CUDA device every registry step launches a hand-written kernel; on
-the CPU (only when asked for with ``device="cpu"``) the same steps run the
-kernels' plain versions.  The bound weights are uploaded to the device
-once, when the runner is built; per batch only the input moves.
+**Generic DFG tier** (``mode='dfg'``; ``_plan_segments``,
+``_segment_layout``, ``_lower_dfg``) — works for *any* traced design.  The
+levelised (level, opcode) groups of ``core/emit.py`` are partitioned into
+contiguous runs of groups whose opcode is in ``registry.OPCODE_KERNELS``;
+each run becomes ONE launch of the DFG segment kernel
+(:mod:`repro_torch.kernels.dfg_segment`) over a value-major
+``(n_values, batch)`` buffer.  The planner, carried over verbatim, also
+marks a group's scatter as elided when every read of its results is an
+aligned gather later in the same segment; the plan reports it, but the
+segment kernel still scatters every group (no forwarding yet).  Groups
+whose opcode is missing from the table fall back per group to plain torch
+(``registry.opcode_compute``) and are recorded.  With
+``fmt`` every group result is re-quantised — the per-op FloPoCo functional
+model, equal to ``emit.evaluate`` value for value.
 
-Not ported yet: the generic DFG tier (ROADMAP queue 1 item 8, kernel K4),
-the ``Attention``/``MLP`` steps of the transformer slice (item 12) and the
-flash-attention NLB mode (kernel K5).  Each raises ``NotImplementedError``.
+On a CUDA device every registry step and every segment launches a
+hand-written kernel; on the CPU (only when asked for with
+``device="cpu"``) the same steps run the kernels' plain versions.  Bound
+weights are uploaded to the device once, when the runner is built; per
+batch only the input moves.
+
+Not ported yet: the ``Attention``/``MLP`` steps of the transformer slice
+(ROADMAP queue 1 item 12), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,6 +60,7 @@ import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.core import device as devices
+from repro_torch.core import emit
 from repro_torch.core.ir import Graph
 from repro_torch.core.precision import FORMATS, FloatFormat, quantize
 from repro_torch.kernels import registry as kreg
@@ -71,7 +89,7 @@ class KernelPlan:
     CPU).
     """
 
-    mode: str                                  #: 'nests' (| 'dfg' later)
+    mode: str                                  #: 'nests' | 'dfg'
     use_kernels: bool                          #: CUDA kernels launched?
     fmt: Optional[str] = None                  #: FloPoCo key, None = fp32
     n_groups: int = 0                          #: levelised groups (dfg tier)
@@ -87,6 +105,10 @@ class KernelPlan:
     def summary(self) -> str:
         kern = ", ".join(f"{k}x{v}" for k, v in sorted(self.kernels.items()))
         parts = [f"cuda[{self.mode}]"]
+        if self.mode == "dfg":
+            parts.append(f"{self.n_segments} fused kernels over "
+                         f"{self.n_groups} groups "
+                         f"({self.fused_scatters} scatters elided)")
         if kern:
             parts.append(kern)
         parts.append(f"{len(self.fallbacks)} fallbacks")
@@ -96,10 +118,199 @@ class KernelPlan:
 
 
 # ---------------------------------------------------------------------------
+# Generic tier: fuse levelised op groups into DFG segment kernels
+# ---------------------------------------------------------------------------
+
+def _plan_segments(groups, output_vids: np.ndarray, opcode_table,
+                   plan: KernelPlan):
+    """Partition the level-ordered groups into fused segments + fallbacks.
+
+    Returns ``steps``: a list of ``('segment', [(oc, arg_idx, res_idx,
+    forward_keys, skip_scatter), ...])`` and ``('fallback', (oc, arg_idx,
+    res_idx))`` entries, plus per-group scatter-elision already resolved.
+    """
+    # consumer bookkeeping: how often each value id is read by later groups,
+    # and through which (group, arg-position) gathers
+    refs: dict[int, int] = {}
+    for _lv, _oc, arg_idx, _res in groups:
+        for ai in arg_idx:
+            for v in ai:
+                refs[int(v)] = refs.get(int(v), 0) + 1
+    out_set = set(int(v) for v in output_vids)
+
+    raw_steps: list[tuple[str, Any]] = []
+    cur: list[int] = []          # group indices of the open segment
+    for gi, (lv, oc, arg_idx, res_idx) in enumerate(groups):
+        if oc in opcode_table:
+            cur.append(gi)
+        else:
+            if cur:
+                raw_steps.append(("segment", cur))
+                cur = []
+            raw_steps.append(("fallback", gi))
+            plan.fallbacks.append(f"L{lv}:{oc} ({len(res_idx)} ops)")
+    if cur:
+        raw_steps.append(("segment", cur))
+
+    # scatter elision: a group's scatter is dropped iff its results are not
+    # design outputs and every read of them happens through a later gather
+    # *in the same segment* whose index array matches bit-for-bit (those
+    # gathers can then be served from the forwarded value).
+    steps = []
+    for kind, payload in raw_steps:
+        if kind == "fallback":
+            lv, oc, arg_idx, res_idx = groups[payload]
+            steps.append(("fallback", (oc, arg_idx, res_idx)))
+            continue
+        seg_groups = payload
+        produced: dict[bytes, int] = {}      # res bytes -> group position
+        matched_reads: dict[int, int] = {}   # producer pos -> forwarded reads
+        gathers = []                         # per group: arg keys
+        for pos, gi in enumerate(seg_groups):
+            _lv, oc, arg_idx, res_idx = groups[gi]
+            keys = []
+            for ai in arg_idx:
+                k = ai.tobytes()
+                keys.append(k if k in produced else None)
+                if k in produced:
+                    matched_reads[produced[k]] = \
+                        matched_reads.get(produced[k], 0) + len(ai)
+            gathers.append(keys)
+            produced[res_idx.tobytes()] = pos
+        seg = []
+        for pos, gi in enumerate(seg_groups):
+            _lv, oc, arg_idx, res_idx = groups[gi]
+            valid = res_idx >= 0
+            total_reads = sum(refs.get(int(v), 0) for v in res_idx[valid])
+            is_output = any(int(v) in out_set for v in res_idx[valid])
+            skip = (valid.all() and not is_output
+                    and matched_reads.get(pos, 0) == total_reads
+                    and total_reads > 0)
+            if skip:
+                plan.fused_scatters += 1
+            seg.append((oc, arg_idx, res_idx, gathers[pos], skip))
+        steps.append(("segment", seg))
+    plan.n_segments = sum(1 for k, _ in steps if k == "segment")
+    return steps
+
+
+def _segment_layout(seg, n_values: int, quant: bool
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """One fused segment -> ``(desc, idx_flat)`` for the segment kernel.
+
+    The layout half of the reference's ``_segment_body``: all gather and
+    scatter index arrays of the segment are concatenated into ONE int32
+    vector (``idx_flat``) addressed by per-group offsets, and result slots
+    of ops without a destination are redirected one past the buffer
+    (``n_values``) and dropped.  ``desc`` holds one row per group in the
+    kernel's format (``kernels/dfg_segment/dfg_segment.py``).  The
+    planner's forwarding keys and elided scatters are not used: the kernel
+    scatters every group.
+    """
+    from repro_torch.kernels.dfg_segment.dfg_segment import (
+        DESC_WIDTH, FLAG_DROPS, FLAG_QUANT, SEGMENT_OPCODE_ID)
+
+    desc = np.zeros((len(seg), DESC_WIDTH), np.int32)
+    chunks: list[np.ndarray] = []
+    off = 0
+    for row, (oc, arg_idx, res_idx, _keys, _skip) in zip(desc, seg):
+        if oc not in SEGMENT_OPCODE_ID or not 1 <= len(arg_idx) <= 3:
+            raise ValueError(f"the segment kernel has no opcode {oc!r} of "
+                             f"arity {len(arg_idx)}")
+        row[0], row[1], row[6] = SEGMENT_OPCODE_ID[oc], len(arg_idx), \
+            len(res_idx)
+        for i, ai in enumerate(arg_idx):
+            row[2 + i] = off
+            chunks.append(ai.astype(np.int32))
+            off += len(ai)
+        row[5] = off
+        chunks.append(np.where(res_idx >= 0, res_idx,
+                               n_values).astype(np.int32))
+        off += len(res_idx)
+        row[7] = (FLAG_QUANT if quant and oc not in kreg.NO_QUANT_OPCODES
+                  else 0) | (FLAG_DROPS if (res_idx < 0).any() else 0)
+    idx_flat = (np.concatenate(chunks) if chunks
+                else np.zeros(1, np.int32))
+    return desc, idx_flat
+
+
+def _lower_dfg(g: Graph, *, fmt_obj, fmt_tuple, dev: torch.device,
+               opcode_table, plan: KernelPlan):
+    from repro_torch.kernels.dfg_segment import ops as seg_ops
+
+    groups = emit.compile_groups(g.cols(), g.n_values)
+    plan.n_groups = len(groups)
+    _, _, _, output_gather = emit.io_tables(g)
+    all_out_vids = (np.concatenate([v for v, _ in output_gather.values()])
+                    if output_gather else np.zeros(0, np.int32))
+    q = (lambda x: quantize(x, fmt_obj)) if fmt_obj is not None else None
+    steps = _plan_segments(groups, all_out_vids, opcode_table, plan)
+
+    n_values = max(g.n_values, 1)
+    compiled = []
+    step_labels = []      # one label per compiled step, for profiling spans
+    segments = []         # (idx, desc) on the device, per fused segment
+    for kind, payload in steps:
+        if kind == "segment":
+            desc, idx_flat = _segment_layout(payload, n_values,
+                                             quant=q is not None)
+            tdesc = torch.from_numpy(desc).to(dev)
+            tidx = torch.from_numpy(idx_flat).to(dev)
+
+            def seg(buf, tidx=tidx, tdesc=tdesc):
+                return seg_ops.segment(buf, tidx, tdesc, fmt=fmt_tuple)
+
+            compiled.append(seg)
+            step_labels.append(f"segment{len(segments)}[{len(payload)} "
+                               f"groups]")
+            segments.append((tidx, tdesc))
+        else:
+            oc, arg_idx, res_idx = payload
+            args = [torch.from_numpy(ai.astype(np.int64)).to(dev)
+                    for ai in arg_idx]
+            keep = res_idx >= 0
+            res = torch.from_numpy(res_idx[keep].astype(np.int64)).to(dev)
+            tkeep = None if keep.all() else torch.from_numpy(keep).to(dev)
+
+            def fb(buf, oc=oc, args=args, res=res, tkeep=tkeep):
+                r = kreg.opcode_compute(oc, [buf[a] for a in args])
+                if q is not None and oc not in kreg.NO_QUANT_OPCODES:
+                    r = q(r)
+                buf[res] = r if tkeep is None else r[tkeep]
+                return buf
+
+            compiled.append(fb)
+            step_labels.append(f"fallback[{oc}]")
+    prologue, epilogue = emit.buffer_io(g, dev, q)
+
+    def run(feeds):
+        buf, batch = prologue(feeds)
+        for step in compiled:
+            buf = step(buf)
+        return epilogue(buf, batch)
+
+    def profile(feeds):
+        # twin of ``run``: one span + device sync per fused segment /
+        # fallback step, so the per-kernel cost is observable
+        buf, batch = prologue(feeds)
+        for label, step in zip(step_labels, compiled):
+            with obs.span(f"cuda.{label}", cat="cuda"):
+                buf = step(buf)
+                devices.synchronize(dev)
+        return epilogue(buf, batch)
+
+    run.profile = profile
+    run.prologue = prologue
+    run.segments = segments
+    return run
+
+
+# ---------------------------------------------------------------------------
 # Nest-pattern tier: registry kernels per bridged module node
 # ---------------------------------------------------------------------------
 
-def _lower_module(module, *, fmt_obj, fmt_tuple, plan: KernelPlan):
+def _lower_module(module, *, fmt_obj, fmt_tuple, nlb_flash: bool,
+                  plan: KernelPlan):
     from repro_torch.nn import graph as nng
 
     if module.input_shape[0] != 1 and len(module.input_shape) != 2:
@@ -111,6 +322,7 @@ def _lower_module(module, *, fmt_obj, fmt_tuple, plan: KernelPlan):
     conv_e = kreg.for_pattern("Conv2d")
     mm_e = kreg.for_pattern("Linear")
     sm_e = kreg.for_pattern("Softmax")
+    fa_e = kreg.for_pattern("NonLocalBlock.attention")
     q = (lambda x: quantize(x, fmt_obj)) if fmt_obj is not None \
         else (lambda x: x)
 
@@ -176,7 +388,8 @@ def _lower_module(module, *, fmt_obj, fmt_tuple, plan: KernelPlan):
                 y = sm_e.fn(x, taylor_order=node.taylor_order)
                 return torch.relu(y) if fr else y
         elif isinstance(node, nng.NonLocalBlock):
-            steps.append(_nlb_step(node, conv_e, sm_e, fmt_tuple, plan))
+            steps.append(_nlb_step(node, conv_e, sm_e, fa_e, fmt_tuple,
+                                   nlb_flash, plan))
             step_labels.append(_node_label(node))
             i += 1
             continue
@@ -266,10 +479,12 @@ def _node_label(node) -> str:
                or type(node).__name__)
 
 
-def _nlb_step(node, conv_e, sm_e, fmt_tuple, plan: KernelPlan):
+def _nlb_step(node, conv_e, sm_e, fa_e, fmt_tuple, nlb_flash: bool,
+              plan: KernelPlan):
     """The NonLocalBlock composite: three 1x1 convs -> attention ->
     out-projection -> residual, every stage but the two contractions
-    through a registry kernel.
+    through a registry kernel (with ``nlb_flash`` at fp32 the attention is
+    one flash-attention kernel, contractions included).
 
     The reference rounds theta/phi/g, the scores, the mix, the projection
     and the residual sum to ``fmt``.  Here the convs round their results
@@ -277,8 +492,15 @@ def _nlb_step(node, conv_e, sm_e, fmt_tuple, plan: KernelPlan):
     as it reads them, and the mix needs no rounding of its own: the
     out-projection conv rounds its input operand to the same format."""
     pre = node.prefix
+    use_flash = nlb_flash and fmt_tuple is None
     plan.record_kernel(conv_e.name)          # theta/phi/g (batched 1x1)
-    plan.record_kernel(sm_e.name)
+    if use_flash:
+        plan.record_kernel(fa_e.name)
+        plan.notes.append(
+            f"{node.name}: flash-attention throughput mode — true-exp "
+            f"softmax, not the order-{node.taylor_order} Taylor model")
+    else:
+        plan.record_kernel(sm_e.name)
 
     def conv(x, wt, residual=None):
         return conv_e.fn(x, wt, None, fmt=fmt_tuple, out_fmt=fmt_tuple,
@@ -294,13 +516,22 @@ def _nlb_step(node, conv_e, sm_e, fmt_tuple, plan: KernelPlan):
         tf = theta.reshape(b, c2, n)
         pf = phi.reshape(b, c2, n)
         gf = g.reshape(b, c2, n)
-        # scores[b,i,j] = sum_c theta[b,c,i] phi[b,c,j]
-        scores = torch.bmm(tf.transpose(1, 2), pf)
-        attn = sm_e.fn(scores, taylor_order=node.taylor_order,
-                       in_fmt=fmt_tuple)
-        # mix[b,c,i] = sum_j attn[b,i,j] g[b,c,j]
-        yc = torch.bmm(gf, attn.transpose(1, 2))
-        y4 = yc.reshape(b, c2, h, h)
+        if use_flash:
+            # A = softmax(theta^T phi) — flash divides logits by sqrt(D),
+            # so pre-scale q to keep the DFG's unscaled scores
+            qv = (tf * float(np.sqrt(np.float32(c2)))).transpose(1, 2)
+            y = fa_e.fn(qv[:, :, None, :], pf.transpose(1, 2)[:, :, None, :],
+                        gf.transpose(1, 2)[:, :, None, :], causal=False)
+            yc = y[:, :, 0, :].transpose(1, 2)                # (B, c2, n)
+        else:
+            # scores[b,i,j] = sum_c theta[b,c,i] phi[b,c,j]
+            scores = torch.bmm(tf.transpose(1, 2), pf)
+            attn = sm_e.fn(scores, taylor_order=node.taylor_order,
+                           in_fmt=fmt_tuple)
+            # mix[b,c,i] = sum_j attn[b,i,j] g[b,c,j]
+            yc = torch.bmm(gf, attn.transpose(1, 2))
+        y4 = yc.reshape(b, c2, h, h).contiguous()
+        # the residual sum goes in the out-projection conv's epilogue
         return conv(y4, w[f"{pre}.out_cnn.weight"], residual=x)
 
     return step
@@ -312,22 +543,32 @@ def _nlb_step(node, conv_e, sm_e, fmt_tuple, plan: KernelPlan):
 
 def to_cuda_fn(g: Graph, *, module=None, fmt=None, mode: str = "auto",
                device=None, weights: Optional[dict] = None,
-               nlb_flash: bool = False) -> Callable:
-    """Compile a DFG plus its source ``ModuleGraph`` to a torch callable.
+               nlb_flash: bool = False, opcode_table=None) -> Callable:
+    """Compile a DFG (plus optional source ``ModuleGraph``) to a torch
+    callable returning ``{output name: (batch,) + shape}`` as tensors on
+    ``device``.  It carries its :class:`KernelPlan` as ``.plan`` and its
+    device as ``.device``.
 
-    The returned callable takes one batch — the input memref's array or
-    tensor (``(B,) + shape``, one unbatched sample, or for image models
-    the natural ``(B, C, H, W)``), or a feed dict holding only that
-    memref — and returns
-    ``{output name: (batch,) + shape}`` as tensors on ``device``.  It
-    carries its :class:`KernelPlan` as ``.plan`` and its device as
-    ``.device``.
+    ``mode='auto'`` picks the nest-pattern tier when ``module`` is given,
+    else the generic DFG tier.
 
-    ``weights`` (memref name -> array or tensor, unbatched or with a
-    batch axis that does not vary) defaults to the module's bound
-    parameters; they are normalised and uploaded once, here.  ``fmt`` (a
-    FloPoCo key or ``FloatFormat``) quantises each kernel's operands and
-    result.  ``device`` defaults to ``"cuda"`` and raises without a GPU;
+    * ``'nests'``: the callable takes one batch — the input memref's array
+      or tensor (``(B,) + shape``, one unbatched sample, or for image
+      models the natural ``(B, C, H, W)``), or a feed dict holding only
+      that memref.  ``fmt`` quantises each kernel's operands and result.
+      ``nlb_flash=True`` serves the NLB attention through flash attention
+      (fp32 only: with ``fmt`` the Taylor softmax stays).
+    * ``'dfg'``: the callable takes a feed dict (memref name -> array or
+      tensor, weights batched or not; a batched weight feed may vary per
+      sample).  ``fmt`` re-quantises every op, as ``emit.evaluate`` does.
+      ``opcode_table`` overrides the opcodes the segments take (tests use
+      it to force per-group fallbacks).
+
+    ``weights`` (memref name -> array or tensor) default to the module's
+    bound parameters and are uploaded once, here: the nest tier normalises
+    them to one shared set; the DFG tier broadcasts unbatched ones on the
+    device, and a feed of the same name at call time takes precedence.
+    ``device`` defaults to ``"cuda"`` and raises without a GPU;
     ``device="cpu"`` runs the kernels' plain versions.
     """
     fmt_obj, fmt_key = _norm_fmt(fmt)
@@ -336,36 +577,33 @@ def to_cuda_fn(g: Graph, *, module=None, fmt=None, mode: str = "auto",
     if mode not in ("nests", "dfg"):
         raise ValueError(f"unknown cuda lowering mode {mode!r} "
                          f"(valid: auto, nests, dfg)")
-    if mode == "dfg":
-        raise NotImplementedError(
-            "the generic DFG tier is not ported yet (ROADMAP queue 1 item "
-            "8, kernel K4); compile from a ModuleGraph for the nest tier")
-    if module is None:
+    if mode == "nests" and module is None:
         raise ValueError("mode='nests' needs the source ModuleGraph "
                          "(compile through repro_torch.hls with an nn "
-                         "model)")
-    if nlb_flash:
-        raise NotImplementedError(
-            "nlb_flash needs the flash_attention kernel (ROADMAP queue 2, "
-            "K5)")
+                         "model, or use mode='dfg')")
     dev = devices.resolve(device)
     plan = KernelPlan(mode=mode, use_kernels=dev.type == "cuda",
                       fmt=fmt_key)
+    fmt_tuple = (fmt_obj.exp_bits, fmt_obj.man_bits) \
+        if fmt_obj is not None else None
+    if weights is None and module is not None:
+        weights = module.weight_feeds()
+    if mode == "dfg":
+        return _dfg_runner(g, fmt_obj, fmt_key, fmt_tuple, dev, weights,
+                           opcode_table or kreg.OPCODE_KERNELS, plan)
+
     if dev.type == "cuda":
         torch.set_float32_matmul_precision("highest")
         plan.notes.append("NLB scores/mix: torch.bmm at float32 matmul "
                           "precision 'highest' (no TF32)")
-    fmt_tuple = (fmt_obj.exp_bits, fmt_obj.man_bits) \
-        if fmt_obj is not None else None
     with obs.span("emit.cuda", cat="cuda", mode=mode, fmt=fmt_key) as sp:
         core, weight_names, _ = _lower_module(
-            module, fmt_obj=fmt_obj, fmt_tuple=fmt_tuple, plan=plan)
+            module, fmt_obj=fmt_obj, fmt_tuple=fmt_tuple,
+            nlb_flash=nlb_flash, plan=plan)
         sp.set(kernels=sum(plan.kernels.values()),
                fallbacks=len(plan.fallbacks))
     _plan_metrics(plan)
 
-    if weights is None:
-        weights = module.weight_feeds()
     missing = [n for n in weight_names if n not in weights]
     if missing:
         raise KeyError(f"missing weight feeds {missing}")
@@ -409,6 +647,40 @@ def to_cuda_fn(g: Graph, *, module=None, fmt=None, mode: str = "auto",
     return run
 
 
+def _dfg_runner(g: Graph, fmt_obj, fmt_key, fmt_tuple, dev, weights,
+                opcode_table, plan: KernelPlan) -> Callable:
+    """The DFG tier's callable: bound weights on the device, feeds in."""
+    with obs.span("emit.cuda", cat="cuda", mode="dfg", fmt=fmt_key) as sp:
+        core = _lower_dfg(g, fmt_obj=fmt_obj, fmt_tuple=fmt_tuple, dev=dev,
+                          opcode_table=opcode_table, plan=plan)
+        sp.set(segments=plan.n_segments, groups=plan.n_groups,
+               fused_scatters=plan.fused_scatters,
+               fallbacks=len(plan.fallbacks))
+    _plan_metrics(plan)
+    bound = {name: torch.as_tensor(v, dtype=torch.float32).to(dev)
+             for name, v in (weights or {}).items() if name in g.inputs}
+    profiled = [False]       # first obs-enabled call runs the span'd twin
+
+    def run(feeds):
+        if not isinstance(feeds, dict):
+            raise TypeError("the DFG tier takes a feed dict (memref name "
+                            "-> array or tensor)")
+        feeds = {**bound, **feeds}
+        with torch.inference_mode():
+            if obs.enabled() and not profiled[0]:
+                profiled[0] = True
+                with obs.span("cuda.profile", cat="cuda", mode="dfg"):
+                    return core.profile(feeds)
+            return core(feeds)
+
+    run.plan = plan
+    run.device = dev
+    # what the runner launches, for checks that hold K4 to its plain version
+    run.segments = core.segments
+    run.prologue = lambda feeds: core.prologue({**bound, **feeds})
+    return run
+
+
 def _host_array(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
         return v.detach().to("cpu", torch.float32).numpy()
@@ -418,6 +690,9 @@ def _host_array(v) -> np.ndarray:
 def _plan_metrics(plan: KernelPlan) -> None:
     """Lift the lowering plan's counts into the process metrics."""
     obs.inc("cuda.lowerings")
+    obs.inc("cuda.segments", plan.n_segments)
+    obs.inc("cuda.groups", plan.n_groups)
+    obs.inc("cuda.scatter_elisions", plan.fused_scatters)
     obs.inc("cuda.fallbacks", len(plan.fallbacks))
     for kname, n in plan.kernels.items():
         obs.inc(f"cuda.kernel.{kname}", n)
@@ -445,8 +720,8 @@ def _normalize_weights(w: dict[str, np.ndarray], module) -> dict:
             if arr.shape[0] > 1 and not np.all(arr == arr[0]):
                 raise ValueError(
                     f"weight feed {name!r} varies across the batch; the "
-                    f"nest-pattern tier shares one weight set (per-sample "
-                    f"weights need the DFG tier, ROADMAP queue 1 item 8)")
+                    f"nest-pattern tier shares one weight set — use "
+                    f"mode='dfg' for per-sample weights")
             arr = arr[0]
         out[name] = arr
     return out

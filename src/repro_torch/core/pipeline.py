@@ -424,6 +424,9 @@ class CompiledDesign:
     #: stay ``None`` for unpipelined designs.
     stages: Optional[list[list[int]]] = None
     stage_ii: Optional[int] = None
+    #: the ``simd`` callables built so far, one per device
+    _simd_fns: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     # -- derived metrics ----------------------------------------------------
 
@@ -466,11 +469,26 @@ class CompiledDesign:
     # -- execution backends -------------------------------------------------
 
     def torch_fn(self, *, backend: str = "cuda", **cuda_kw) -> Callable:
-        """The emitted design as a torch callable, rebuilt per call since
-        its lowering depends on the extra keywords (``module=``, ``fmt=``,
+        """The emitted design as a torch callable.
+
+        ``backend='simd'`` (cached per device): the gather/compute/scatter
+        interpretation; it takes only ``device=``.  ``backend='cuda'``: the
+        compiled rendering (``emit_cuda``), rebuilt per call since its
+        lowering depends on the extra keywords (``module=``, ``fmt=``,
         ``device=``, ...) — see :func:`repro_torch.core.emit.to_torch_fn`.
         """
-        return emit.to_torch_fn(self.graph_opt, backend=backend, **cuda_kw)
+        if backend != "simd":
+            return emit.to_torch_fn(self.graph_opt, backend=backend,
+                                    **cuda_kw)
+        from repro_torch.core import device as devices
+        dev = devices.resolve(cuda_kw.pop("device", None))
+        # other keywords go on to to_torch_fn, which refuses them
+        if cuda_kw or str(dev) not in self._simd_fns:
+            with obs.span("emit.simd", cat="compile", design=self.name,
+                          ops=len(self.graph_opt.ops)):
+                self._simd_fns[str(dev)] = emit.to_torch_fn(
+                    self.graph_opt, backend="simd", device=dev, **cuda_kw)
+        return self._simd_fns[str(dev)]
 
     def evaluate(self, feeds: dict, *, fmt: Optional[FloatFormat] = None,
                  raw: bool = False) -> dict:
@@ -489,6 +507,17 @@ class CompiledDesign:
                 f"({self.latency_us:.2f} us, "
                 f"{self.sample_latency_us:.2f} us/sample), "
                 f"resources={res}, hash={self.design_hash[:12]}")
+
+    # -- pickling (the lazy simd fns are closures over tensors: drop them)
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_simd_fns"] = {}
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.__dict__.setdefault("_simd_fns", {})
 
 
 # ---------------------------------------------------------------------------

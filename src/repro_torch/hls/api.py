@@ -40,9 +40,9 @@ log = obs.get_logger(__name__)
 #: (``Context -> None``), or an already-traced DFG.
 Model = Union[ModuleGraph, Callable[[Context], None], Graph]
 
-#: serving backends: the nest tier on the CUDA kernels, or the plain
-#: tensor twin
-SERVE_BACKENDS = ("cuda", "tensor")
+#: serving backends: the compiled rendering on the CUDA kernels (nest or
+#: DFG tier), the plain tensor twin, or the emitted SIMD design
+SERVE_BACKENDS = ("cuda", "tensor", "simd")
 
 
 def _as_program(model: Model):
@@ -141,8 +141,8 @@ class Design:
     ``schedule``, ``timings``, ``pass_reports``, ``design_hash``, ... —
     are delegated, so ``design.makespan`` etc. work directly) and keeps
     the session, source program and module-graph context needed for the
-    verbs: :meth:`run`, :meth:`torch_fn`, :meth:`with_config`,
-    :meth:`serve`, :meth:`report`.
+    verbs: :meth:`run`, :meth:`torch_fn`, :meth:`verify`,
+    :meth:`with_config`, :meth:`serve`, :meth:`report`.
     """
 
     def __init__(self, compiled: CompiledDesign, session: "Session", *,
@@ -237,6 +237,11 @@ class Design:
             return {name: x[name]}
         return self._coerce_input(x)
 
+    def _feed_dict(self, x) -> dict:
+        """One batch as a feed dict: a dict as given, a bare input
+        coerced; tensors stay on their device."""
+        return dict(x) if isinstance(x, dict) else self._coerce_input(x)
+
     def _batch_size(self, x) -> int:
         """Samples in one batch (a bare input or a feed dict)."""
         name, shape = self._input_memref()
@@ -286,13 +291,15 @@ class Design:
                  **cuda_kw) -> Callable:
         """The emitted design as a torch callable.
 
-        ``backend='cuda'``: the nest tier on the hand-written kernels (the
-        source ``ModuleGraph`` and its bound weights are passed
-        automatically when the design was compiled from one); extra
-        keywords (``fmt=``, ``weights=``, ...) forward to
-        :func:`repro_torch.core.emit_cuda.to_cuda_fn`, and the result
-        carries its lowering ``.plan``.  ``device`` defaults to the
-        session's.
+        ``backend='cuda'``: the compiled rendering on the hand-written
+        kernels — the nest tier, or the generic DFG tier with
+        ``mode='dfg'`` (the source ``ModuleGraph`` and its bound weights
+        are passed automatically when the design was compiled from one);
+        extra keywords (``fmt=``, ``weights=``, ``mode=``, ``nlb_flash=``,
+        ...) forward to :func:`repro_torch.core.emit_cuda.to_cuda_fn`, and
+        the result carries its lowering ``.plan``.  ``backend='simd'``:
+        the cached gather/compute/scatter interpretation, fed a full feed
+        dict.  ``device`` defaults to the session's.
         """
         from repro_torch.core.emit import EMIT_BACKENDS
         if backend not in EMIT_BACKENDS:
@@ -300,8 +307,28 @@ class Design:
                              f"(valid: {', '.join(EMIT_BACKENDS)})")
         if backend == "cuda":
             cuda_kw.setdefault("module", self._module)
-            cuda_kw["device"] = self.device if device is None else device
+        cuda_kw["device"] = self.device if device is None else device
         return self._compiled.torch_fn(backend=backend, **cuda_kw)
+
+    # -- verification -------------------------------------------------------
+
+    def verify(self, *, ref_fn=None, batch: int = 4, seed: int = 0,
+               scale: float = 1.0, fmt=None, atol: float = 1e-3,
+               ref_atol: float = 5e-2, device=None, **kw):
+        """Behavioural testbench vs the interpreter reference (paper §3.2).
+
+        Random vectors through the raw DFG, the optimised DFG, the
+        emitted SIMD design on ``device`` (default: the session's), and
+        (with ``fmt``) the FloPoCo functional model; returns a
+        ``TestbenchReport`` whose ``passed`` folds the tolerances.
+        ``ref_fn`` optionally adds an independent tensor-level reference.
+        """
+        from repro_torch.core.verify import run_testbench
+        return run_testbench(self.name, design=self._compiled, ref_fn=ref_fn,
+                             batch=batch, seed=seed, scale=scale, fmt=fmt,
+                             atol=atol, ref_atol=ref_atol,
+                             device=self.device if device is None
+                             else device, **kw)
 
     # -- reconfiguration ----------------------------------------------------
 
@@ -332,12 +359,15 @@ class Design:
               cuda_kw: Optional[dict] = None) -> ServeReport:
         """The warmed batched serving loop.
 
-        ``backend='cuda'`` runs the nest tier on the hand-written kernels
-        (extra lowering keywords via ``cuda_kw``), recording the plan and
-        any per-node fallbacks in the report; ``backend='tensor'`` runs the
-        module's plain tensor twin (requires a bound ``ModuleGraph`` with a
-        ``forward_fn``) at FloPoCo format key ``fmt``.  Default: tensor
-        when available, else cuda.  Weights move to ``device`` (default:
+        ``backend='cuda'`` runs the compiled rendering on the hand-written
+        kernels — the nest tier, or with ``cuda_kw={"mode": "dfg"}`` the
+        generic DFG tier (other lowering keywords, e.g. ``nlb_flash``, via
+        ``cuda_kw`` too) — recording the plan and any fallbacks in the
+        report; ``backend='tensor'`` runs the module's plain tensor twin
+        (requires a bound ``ModuleGraph`` with a ``forward_fn``) at
+        FloPoCo format key ``fmt``; ``backend='simd'`` runs the emitted
+        SIMD design (fp32 only).  Default: tensor when available, else
+        cuda.  Weights move to ``device`` (default:
         the session's) once, before the first batch.  The first batch is
         also run once untimed as the warm-up; every batch is then
         synchronised individually, server-style.  ``on_batch(i, out)`` is
@@ -395,8 +425,10 @@ class Design:
         """``(run_one, served, fallbacks)`` for one serving backend.
 
         ``run_one`` takes one batch — a bare input array/tensor or a feed
-        dict holding the input memref — and returns the outputs on
-        ``dev``.  Weights are uploaded here, once.
+        dict holding the input memref (for the DFG tier and ``simd``, a
+        feed dict may carry weight feeds too, which then take precedence)
+        — and returns the outputs on ``dev``.  Weights are uploaded here,
+        once.
         """
         served = None
         fallbacks: list = []
@@ -420,9 +452,25 @@ class Design:
                                **(cuda_kw or {}))
             served = fn.plan.summary()
             fallbacks = list(fn.plan.fallbacks)
+            if fn.plan.mode == "dfg":
+                # weights are bound (on the device) when fn is built
+                def run_one(x):
+                    return fn(self._feed_dict(x))
+            else:
+                def run_one(x):
+                    return fn(self._input_of(x))
+        elif backend == "simd":
+            if fmt not in (None, "fp32"):
+                raise ValueError("the emitted SIMD design runs fp32; use "
+                                 "backend='tensor' or backend='cuda' with "
+                                 "cuda_kw={'mode': 'dfg'} for quantised "
+                                 "serving")
+            fn = self.torch_fn(backend="simd", device=dev)
+            wdev = {} if self._module is None else _to_device(
+                self._module.weight_feeds(), dev)
 
             def run_one(x):
-                return fn(self._input_of(x))
+                return fn({**wdev, **self._feed_dict(x)})
         else:
             raise ValueError(f"unknown backend {backend!r} "
                              f"(expected one of {SERVE_BACKENDS})")

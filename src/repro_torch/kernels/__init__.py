@@ -13,7 +13,11 @@ Each kernel directory holds:
 conv2d_vmem       — weights-resident BraggNN conv (paper's no-BRAM result)
 fused_softmax     — fused softmax incl. Taylor-exp mode (paper §3/§4.1)
 smallfloat_matmul — reduced-precision MAC array (paper §4.2)
+flash_attention   — online-softmax attention (the NLB throughput mode)
+dfg_segment       — one fused segment of the generic DFG tier: levelised
+                    gather/compute/re-quantise/scatter in one launch
 
-``registry.py`` catalogues them as pattern-matched fast paths for the nest
-tier (:mod:`repro_torch.core.emit_cuda`).
+``registry.py`` catalogues the first four as pattern-matched fast paths for
+the nest tier (:mod:`repro_torch.core.emit_cuda`), and holds the opcode
+table the DFG tier's segments compute.
 """

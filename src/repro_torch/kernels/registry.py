@@ -1,22 +1,35 @@
 """Kernel registry — the catalogue ``emit_cuda`` lowers through.
 
-:data:`KERNELS` holds the hand-written CUDA kernels, registered under the
-reference's names and nn-graph patterns (``Conv2d`` -> conv2d_vmem,
-``Linear`` -> smallfloat_matmul, ``Softmax`` / the NLB attention softmax ->
-fused_softmax), so a lowering plan of the port compares with the
-reference's key for key.  Each entry carries the public wrapper (plain
-version on CPU tensors, kernel on CUDA tensors), the raw kernel launch and
-the plain PyTorch version.
+Two tables:
+
+* :data:`KERNELS` — the hand-written CUDA kernels, registered under the
+  reference's names and nn-graph patterns (``Conv2d`` -> conv2d_vmem,
+  ``Linear`` -> smallfloat_matmul, ``Softmax`` / the NLB attention softmax
+  -> fused_softmax, the NLB attention core -> flash_attention), so a
+  lowering plan of the port compares with the reference's key for key.
+  Each entry carries the public wrapper (plain version on CPU tensors,
+  kernel on CUDA tensors), the raw kernel launch and the plain PyTorch
+  version.
+
+* :data:`OPCODE_KERNELS` — the scalar-DFG opcode -> torch compute table of
+  the generic DFG tier, the ``simd`` backend and the DFG segment kernel's
+  plain version.  Contiguous runs of levelised (level, opcode) groups
+  whose opcodes all appear here fuse into one segment (one launch of the
+  ``dfg_segment`` kernel); a group whose opcode is missing falls back to
+  plain torch and is recorded in the ``KernelPlan``.
+  :func:`opcode_compute` renders any group: the table, plus ``cmpugt``
+  and ``select``, which the table leaves out.
 
 Registration is open: ``register()`` accepts new entries without touching
-the emitter.  flash_attention and the DFG tier's opcode table come with
-their slices.
+the emitter.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +78,10 @@ def _register_kernels() -> None:
     from repro_torch.kernels.conv2d_vmem import conv2d_vmem as _conv_mod
     from repro_torch.kernels.conv2d_vmem import ops as _conv_ops
     from repro_torch.kernels.conv2d_vmem import ref as _conv_ref
+    from repro_torch.kernels.flash_attention import \
+        flash_attention as _fa_mod
+    from repro_torch.kernels.flash_attention import ops as _fa_ops
+    from repro_torch.kernels.flash_attention import ref as _fa_ref
     from repro_torch.kernels.fused_softmax import fused_softmax as _sm_mod
     from repro_torch.kernels.fused_softmax import ops as _sm_ops
     from repro_torch.kernels.fused_softmax import ref as _sm_ref
@@ -98,16 +115,82 @@ def _register_kernels() -> None:
         description="warp-per-row softmax, incl. the paper's Taylor-exp "
                     "mode (matches the DFG functional model), optional "
                     "(wE,wF) input quantisation"))
+    register(KernelEntry(
+        name="flash_attention",
+        fn=_fa_ops.attention,
+        kernel=_fa_mod.flash_attention,
+        oracle=_fa_ref.flash_attention_ref,
+        accelerates=("NonLocalBlock.attention", "Attention"),
+        description="online-softmax attention, K/V tiles in shared "
+                    "memory; NLB throughput mode (true-exp softmax — not "
+                    "the Taylor functional model)"))
 
 
 _register_kernels()
 
 
+# ---------------------------------------------------------------------------
+# Generic tier: scalar-DFG opcode -> torch compute
+# ---------------------------------------------------------------------------
+
+def _relu(a: torch.Tensor) -> torch.Tensor:
+    # torch.maximum propagates NaN, as np.maximum does
+    return torch.maximum(a, a.new_zeros(()))
+
+
+#: opcode -> (arity, compute over gathered operand tensors).  Each entry
+#: rounds as ``emit.evaluate`` does: fmac is ``a*b`` then ``+c``, two fp32
+#: roundings; maxf/minf/relu propagate NaN.  cmpugt/select are deliberately
+#: absent: raw (un-recomposed) graphs route those groups through the
+#: per-group torch fallback, the path the fallback tests pin down.
+OPCODE_KERNELS: dict[str, tuple[int, Callable]] = {
+    "mulf": (2, lambda a: a[0] * a[1]),
+    "addf": (2, lambda a: a[0] + a[1]),
+    "subf": (2, lambda a: a[0] - a[1]),
+    "divf": (2, lambda a: a[0] / a[1]),
+    "sqrtf": (1, lambda a: torch.sqrt(a[0])),
+    "maxf": (2, lambda a: torch.maximum(a[0], a[1])),
+    "minf": (2, lambda a: torch.minimum(a[0], a[1])),
+    "negf": (1, lambda a: -a[0]),
+    "relu": (1, lambda a: _relu(a[0])),
+    "fmac": (3, lambda a: a[0] * a[1] + a[2]),
+    "load": (1, lambda a: a[0]),
+    "store": (1, lambda a: a[0]),
+    "copy": (1, lambda a: a[0]),
+}
+
+def opcode_compute(oc: str, a: list) -> torch.Tensor:
+    """One group's result over its gathered operands: the table's compute,
+    or the compare/select rendering of the opcodes the table leaves out
+    (the ``simd`` backend and the DFG tier's per-group fallback)."""
+    if oc == "cmpugt":
+        return (a[0] > a[1]).to(torch.float32)
+    if oc == "select":
+        return torch.where(a[0] > 0.5, a[1], a[2])
+    if oc in OPCODE_KERNELS:
+        return OPCODE_KERNELS[oc][1](a)
+    raise NotImplementedError(f"no torch rendering of opcode {oc!r}")
+
+
+#: opcodes whose results the functional model does NOT re-quantise
+#: (moves/compares — mirrors ``emit.evaluate``)
+NO_QUANT_OPCODES = frozenset({"cmpugt", "load", "store", "copy"})
+
+
+def _launch_counters() -> dict[str, Callable]:
+    from repro_torch.kernels.dfg_segment.dfg_segment import dfg_segment
+    counters = {name: e.kernel for name, e in KERNELS.items()}
+    counters["dfg_segment"] = dfg_segment
+    return counters
+
+
 def launch_counts() -> dict[str, int]:
-    """Kernel name -> launches so far in this process."""
-    return {name: e.kernel.launches for name, e in sorted(KERNELS.items())}
+    """Kernel name -> launches so far in this process: the registry's
+    kernels and the DFG tier's segment kernel."""
+    return {name: k.launches
+            for name, k in sorted(_launch_counters().items())}
 
 
 def reset_launch_counts() -> None:
-    for e in KERNELS.values():
-        e.kernel.launches = 0
+    for k in _launch_counters().values():
+        k.launches = 0

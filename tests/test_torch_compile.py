@@ -136,12 +136,16 @@ def test_cache_root_is_the_ports_own(monkeypatch, tmp_path):
 
 
 def test_unported_emission_paths_say_where_they_wait(conv_pair):
+    # the simd backend and the generic DFG tier have landed: a design
+    # without a ModuleGraph emits through both
     _, port = conv_pair
     g = port.graph_opt
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        emit.to_torch_fn(g, backend="simd")
-    with pytest.raises(NotImplementedError, match="DFG tier"):
-        emit.to_torch_fn(g, backend="cuda", device="cpu")
+    assert emit.to_torch_fn(g, backend="simd", device="cpu").device.type \
+        == "cpu"
+    assert emit.to_torch_fn(g, backend="cuda", device="cpu").plan.mode \
+        == "dfg"
+    with pytest.raises(TypeError, match="only device="):
+        emit.to_torch_fn(g, backend="simd", fmt="5_4")
     with pytest.raises(ValueError, match="unknown emission backend"):
         port.torch_fn(backend="pallas")
     assert emit.EMIT_BACKENDS == ("simd", "cuda")

@@ -271,6 +271,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     sm_ops.softmax(_t(_rand(2, 8, 8)))
     mm_ops.matmul(_t(_rand(3, 4, 8)), _t(_rand(4, 8, 2)))
     assert registry.launch_counts() == {"conv2d_vmem": 0,
+                                        "dfg_segment": 0,
+                                        "flash_attention": 0,
                                         "fused_softmax": 0,
                                         "smallfloat_matmul": 0}
 
@@ -299,8 +301,8 @@ def test_format_arguments_are_checked():
 
 def test_registry_holds_the_three_ported_kernels(ref):
     ref_registry, _ = ref
-    assert registry.names() == ["conv2d_vmem", "fused_softmax",
-                                "smallfloat_matmul"]
+    assert registry.names() == ["conv2d_vmem", "flash_attention",
+                                "fused_softmax", "smallfloat_matmul"]
     for name in registry.names():
         assert registry.get(name).accelerates == \
             ref_registry.get(name).accelerates
@@ -309,7 +311,8 @@ def test_registry_holds_the_three_ported_kernels(ref):
 @pytest.mark.parametrize("pattern,name", [
     ("Conv2d", "conv2d_vmem"), ("nlb.conv1x1", "conv2d_vmem"),
     ("Linear", "smallfloat_matmul"), ("Softmax", "fused_softmax"),
-    ("nlb.soft", "fused_softmax"), ("NonLocalBlock.attention", None),
+    ("nlb.soft", "fused_softmax"),
+    ("NonLocalBlock.attention", "flash_attention"), ("BatchNorm2d", None),
 ])
 def test_registry_pattern_table(pattern, name):
     entry = registry.for_pattern(pattern)
@@ -320,7 +323,7 @@ def test_registry_rejects_duplicates_and_unknown():
     with pytest.raises(ValueError, match="already registered"):
         registry.register(registry.get("conv2d_vmem"))
     with pytest.raises(KeyError, match="no kernel"):
-        registry.get("flash_attention")
+        registry.get("transformer_block")
 
 
 # ---------------------------------------------------------------------------
@@ -331,11 +334,14 @@ def test_every_kernel_source_names_the_tpu_kernel_it_replaces():
     names = {p.stem for p in build.sources()}
     assert {"conv2d_vmem", "fused_softmax", "smallfloat_matmul",
             "quantize", "errors"} <= names
-    for name in registry.names():
+    replaced = {name: f"src/repro/kernels/{name}/{name}.py"
+                for name in registry.names()}
+    replaced["dfg_segment"] = "src/repro/core/emit_pallas.py:248-279"
+    for name, tpu in replaced.items():
         text = (build.CSRC / f"{name}.cu").read_text()
         head = text[:text.index("#include")]
         assert "Replaces the TPU kernel" in head
-        assert f"src/repro/kernels/{name}/{name}.py" in head
+        assert tpu in head
         assert "What bounds it on an H100" in head
     entry_points = " ".join(p.read_text() for p in build.sources())
     for fn in build.SIGNATURES:

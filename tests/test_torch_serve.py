@@ -267,8 +267,10 @@ def test_transformer_steps_and_flash_mode_wait_for_their_slices(design):
         nng.Attention("attn", d_model=8, n_heads=2, pre_norm=False)])
     with pytest.raises(NotImplementedError, match="transformer slice"):
         to_cuda_fn(None, module=attn, device="cpu")
-    with pytest.raises(NotImplementedError, match="K5"):
-        design.torch_fn(backend="cuda", device="cpu", nlb_flash=True)
+    # K5 has landed: the NLB flash-attention mode builds
+    fn = design.torch_fn(backend="cuda", device="cpu", nlb_flash=True)
+    assert fn.plan.kernels["flash_attention"] == 1
+    assert "fused_softmax" not in fn.plan.kernels
 
 
 def test_kernel_plan_summary_and_fields():
@@ -327,6 +329,8 @@ def test_slice_on_card_matches_evaluate_and_launches_kernels(x):
     registry.reset_launch_counts()
     rep = d.serve(batches, backend="cuda", collect=True)
     assert registry.launch_counts() == {"conv2d_vmem": 21,
+                                        "dfg_segment": 0,
+                                        "flash_attention": 0,
                                         "fused_softmax": 3,
                                         "smallfloat_matmul": 12}
     for out, xb in zip(rep.outputs, batches):
