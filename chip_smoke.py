@@ -215,8 +215,15 @@ def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.library()
-    regs = [ln.strip() for ln in build.info.log.splitlines()
-            if "registers" in ln or "spill" in ln]
+    # ptxas -v: each entry function's registers and spills, by name
+    regs, fn, spills = [], "", ""
+    for ln in build.info.log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif "spill" in ln:
+            spills = ln.strip()
+        elif "registers" in ln:
+            regs.append(f"{fn}: {ln.split(':', 1)[1].strip()}; {spills}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": build.info.compiled, "library": build.info.path.name,
           "sources": [p.name for p in build.sources()], "ptxas": regs})
@@ -460,10 +467,13 @@ def phase_kernels(torch, design) -> dict:
                 kw = {"taylor_order": c["order"], "range_reduce": 2}
                 per_elem = 3 * c["order"] + 2 + 4   # Taylor + max/sub/sum/div
                 nel = c["rows"] * c["cols"]
+                # order0_ms: the kernel with the true exp, the function
+                # torch.softmax computes (the like-for-like yardstick)
                 timed(rec, c["call"], 8 * nel, per_elem * nel,
                       lambda: fused_softmax(x, **kw),
                       lambda: fused_softmax_ref(x, **kw),
-                      lambda: torch.softmax(x, dim=-1))
+                      lambda: torch.softmax(x, dim=-1),
+                      order0_ms=lambda: fused_softmax(x, taylor_order=0))
     # K4: the design's DFG segment, value for value with its plain version
     from repro_torch.kernels.dfg_segment.dfg_segment import dfg_segment
     from repro_torch.kernels.dfg_segment.ref import dfg_segment_ref

@@ -5,10 +5,10 @@
 // .quantize_np): round the fraction to nearest-even, flush magnitudes below
 // half the smallest normal to +0, snap the rest of the subnormal band to
 // the smallest normal, saturate above the largest finite value, and pass
-// zeros (with their sign), infinities and NaNs through unchanged.  Every
-// step is exact in fp32 (rintf rounds half to even like np.round; frexpf and
-// ldexpf only move exponent bits), so the result equals the torch and numpy
-// quantisers bit for bit.
+// zeros (with their sign), infinities and NaNs through unchanged.  The
+// fraction is rounded on the bit pattern (half to even, like np.round on
+// the scaled fraction), which is exact, so the result equals the torch and
+// numpy quantisers bit for bit.
 
 #pragma once
 
@@ -43,15 +43,14 @@ __device__ __forceinline__ float quantize_fp(float x, const QFmt& f) {
   const float sign = x < 0.0f ? -1.0f : 1.0f;
   if (v > f.max_value) return sign * f.max_value;
   if (v < f.min_normal) return v < 0.5f * f.min_normal ? 0.0f : sign * f.min_normal;
-  int e;
-  const float m = frexpf(v, &e) * 2.0f;  // v = m * 2^(e-1), m in [1, 2)
-  e -= 1;
-  const float scale = (float)(1 << f.man_bits);
-  const float q = rintf((m - 1.0f) * scale);
-  float mq = 1.0f + q / scale;
-  if (q >= scale) {  // the fraction rounded up into the next binade
-    mq = 1.0f;
-    e += 1;
-  }
-  return sign * mq * ldexpf(1.0f, e);
+  // v is a normal fp32 here (2^emin >= 2^-126 for wE <= 8).  Round its 23
+  // fraction bits to man_bits, half to even, on the bit pattern: a carry
+  // out of the fraction moves v into the next binade, as rintf's does.  The
+  // parity is the kept fraction's last bit (0 when none is kept: the
+  // fraction integer is then 0, which is even).
+  const int drop = 23 - f.man_bits;
+  const unsigned u = __float_as_uint(v);
+  const unsigned odd = ((u & 0x7fffffu) >> drop) & 1u;
+  const unsigned r = (u + (1u << (drop - 1)) - 1u + odd) & ~((1u << drop) - 1u);
+  return sign * __uint_as_float(r);
 }

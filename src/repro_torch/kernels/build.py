@@ -34,6 +34,7 @@ SIGNATURES = {
     "conv2d_vmem_f32": [_P] * 5 + [_I] * 12 + [_P],
     "conv2d_vmem_smem_bytes": [_I] * 6,
     "fused_softmax_f32": [_P, _P] + [_I] * 6 + [_P],
+    "fused_softmax_rows_per_block": [_I, _I],
     "smallfloat_matmul_f32": [_P] * 4 + [_I] * 12 + [_P],
     "smallfloat_matmul_bf16": [_P] * 4 + [_I] * 12 + [_P],
     "quantize_f32": [_P, _P, ctypes.c_longlong, _I, _I, _P],

@@ -1,9 +1,10 @@
 """Launch wrapper for the CUDA conv kernel (``csrc/conv2d_vmem.cu``).
 
-Weights-resident direct convolution: valid padding, stride 1, NCHW, fp32
-accumulation, optional (wE,wF) operand quantisation, bias and ReLU — the
-loop-nest semantics of ``frontend.conv2d`` — and, in the epilogue, the
-result optionally rounded to a format and a residual added.
+Weights-resident direct convolution, one thread per output pixel: valid
+padding, stride 1, NCHW, fp32 accumulation, optional (wE,wF) operand
+quantisation, bias and ReLU — the loop-nest semantics of
+``frontend.conv2d`` — and, in the epilogue, the result optionally rounded
+to a format and a residual added.
 ``conv2d_vmem.launches`` counts the launches.
 """
 
@@ -58,9 +59,9 @@ def conv2d_vmem(x: torch.Tensor, w: torch.Tensor,
     lib = build.library()
     smem = lib.conv2d_vmem_smem_bytes(cin, h, wd, cout, kh, kw)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"conv2d_vmem stages a {cin}x{h}x{wd} sample and "
-                         f"its weights in {smem} B of shared memory, over "
-                         f"the {SMEM_LIMIT} B a block may take")
+        raise ValueError(f"conv2d_vmem stages a tile of {cin}x{kh}x{kw} "
+                         f"weights in {smem} B of shared memory, over the "
+                         f"{SMEM_LIMIT} B a block may take")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.conv2d_vmem_f32(
         x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,

@@ -3,7 +3,9 @@
 
 Softmax over the last axis of a 2-D fp32 array, with true exp
 (``taylor_order=0``) or the paper's Taylor-series exp, the input optionally
-rounded to a (wE, wF) format as it is read.
+rounded to a (wE, wF) format as it is read.  A block stages whole rows in
+shared memory, so a row wider than one block's shared memory holds (about
+58,000 floats on an H100) is refused.
 ``fused_softmax.launches`` counts the launches.
 """
 
@@ -32,6 +34,10 @@ def fused_softmax(x: torch.Tensor, *, taylor_order: int = 0,
     if rows == 0 or cols == 0:
         return out
     lib = build.library()
+    if lib.fused_softmax_rows_per_block(cols, int(taylor_order)) == 0:
+        raise ValueError(f"fused_softmax stages whole rows in shared memory: "
+                         f"a row of {cols} floats does not fit in one "
+                         f"block's")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fused_softmax_f32(x.data_ptr(), out.data_ptr(), rows, cols,
                                 int(taylor_order), int(range_reduce), eb, mb,

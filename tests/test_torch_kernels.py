@@ -218,10 +218,12 @@ def test_conv_plain_epilogue_rounds_and_adds_the_residual(ref, fmt):
 # ---------------------------------------------------------------------------
 
 #: the sweep of tests/test_kernels.py, then the NLB softmax of
-#: BraggNN(s=1) at img 9 (4 samples) and img 11 (3 samples: the reference
-#: kernel tiles 256 rows, so B*81 rows must divide evenly)
+#: BraggNN(s=1) at img 9 (4 samples) and img 11 (3 samples), then img 11
+#: at batches that are not a multiple of 8, on rows of the scale
+#: chip_smoke.py checks (4: the order-8 series is far from exp there)
 SM_SHAPES = [(256, 64, 3.0), (128, 200, 3.0), (512, 32, 3.0),
-             (4 * 49, 49, 1.0), (3 * 81, 81, 1.0)]
+             (4 * 49, 49, 1.0), (3 * 81, 81, 1.0),
+             (1 * 81, 81, 4.0), (5 * 81, 81, 4.0), (13 * 81, 81, 4.0)]
 
 
 @pytest.mark.parametrize("rows,cols,scale", SM_SHAPES)
@@ -230,9 +232,16 @@ def test_softmax_plain_matches_reference_kernel(ref, rows, cols, scale,
                                                 taylor):
     ref_registry, jnp = ref
     x = _rand(rows + cols, rows, cols, scale=scale)
-    want = ref_registry.get("fused_softmax").fn(
-        jnp.asarray(x), taylor_order=taylor, use_pallas=True,
-        interpret=True)
+    if rows % min(256, rows):
+        # the reference kernel tiles 256 rows; B*81 NLB rows that 256 does
+        # not divide go through it in blocks of one sample's rows
+        want = ref_registry.get("fused_softmax").kernel(
+            jnp.asarray(x), taylor_order=taylor, block_rows=cols,
+            interpret=True)
+    else:
+        want = ref_registry.get("fused_softmax").fn(
+            jnp.asarray(x), taylor_order=taylor, use_pallas=True,
+            interpret=True)
     got = sm_ops.softmax(_t(x), taylor_order=taylor)
     _close(got, want)
     if taylor == 0:
@@ -370,18 +379,49 @@ def test_build_without_nvcc_raises():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [256, 100, 3])
+@pytest.mark.parametrize("b", [256, 100, 3, 1])
 @pytest.mark.parametrize("fmt", [None, (5, 4)])
 def test_conv_kernel_matches_plain_on_card(cuda, b, fmt):
-    for _, cin, cout, img, kk, bias, relu in CONV_SHAPES[3:8]:
+    """Every BraggNN(s=1) conv call at img 9 and 11 with the serving path's
+    arguments: the result rounded to ``fmt``, and the NLB out-projection
+    (Cin 8 -> Cout 16, 1x1) adding the block's input in its epilogue."""
+    for _, cin, cout, img, kk, bias, relu in CONV_SHAPES[3:]:
         x = _t(_rand(b, b, cin, img, img)).to(cuda)
         w = _t(_rand(1, cout, cin, kk, kk)).to(cuda)
         bb = _t(_rand(2, cout)).to(cuda) if bias else None
+        res = (_t(_rand(3, b, cout, img, img)).to(cuda)
+               if (cin, cout, kk) == (8, 16, 1) else None)
+        kw = {"fmt": fmt, "fuse_relu": relu, "out_fmt": fmt,
+              "residual": res}
         before = conv2d_vmem.launches
-        got = conv2d_vmem(x, w, bb, fmt=fmt, fuse_relu=relu)
+        got = conv2d_vmem(x, w, bb, **kw)
         assert conv2d_vmem.launches == before + 1
-        _close(got.cpu(), conv2d_ref(x, w, bb, fmt=fmt,
-                                     fuse_relu=relu).cpu())
+        _close(got.cpu(), conv2d_ref(x, w, bb, **kw).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cout", [5, 12, 20, 33])
+@pytest.mark.parametrize("kk", [1, 3])
+@pytest.mark.parametrize("fmt", [None, (5, 4)])
+def test_conv_kernel_takes_channel_counts_off_its_tile_on_card(cuda, cout, kk,
+                                                               fmt):
+    """Cout that is not a multiple of the kernel's channel tile (8, or 16
+    tiles along the grid for Cout > 8), on a ragged batch."""
+    x = _t(_rand(cout, 7, 6, 10, 9)).to(cuda)
+    w = _t(_rand(kk, cout, 6, kk, kk)).to(cuda)
+    bb = _t(_rand(2, cout)).to(cuda)
+    kw = {"fmt": fmt, "fuse_relu": True, "out_fmt": fmt}
+    _close(conv2d_vmem(x, w, bb, **kw).cpu(),
+           conv2d_ref(x, w, bb, **kw).cpu())
+
+
+@pytest.mark.gpu
+def test_conv_kernel_refuses_weights_over_shared_memory_on_card(cuda):
+    # 512 x 3 x 3 taps of a 16-channel tile: 294,912 B of weights
+    x = torch.zeros(1, 512, 3, 3, device=cuda)
+    w = torch.zeros(16, 512, 3, 3, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        conv2d_vmem(x, w)
 
 
 @pytest.mark.gpu
@@ -402,15 +442,63 @@ def test_matmul_kernel_matches_plain_on_card(cuda, m, k, n, dtype, fmt):
     _close(got.cpu(), want.cpu())
 
 
+def _softmax_max_cols(order):
+    """The widest row one block of the kernel stages at ``order``."""
+    lib = build.library()
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if lib.fused_softmax_rows_per_block(mid, order):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,cols,scale", SM_SHAPES + [(256 * 81, 81, 1.0),
-                                                         (7, 1000, 1.0)])
-@pytest.mark.parametrize("taylor", [0, 8])
+@pytest.mark.parametrize("rows,cols,scale", SM_SHAPES + [
+    (256 * 81, 81, 1.0), (100 * 81, 81, 4.0), (7, 1000, 1.0),
+    # widths around a warp, and row counts that 8 rows per block leave
+    # ragged
+    (13, 1, 1.0), (9, 31, 3.0), (17, 32, 3.0), (33, 33, 3.0),
+    (11, 200, 3.0), (3, 1000, 3.0)])
+@pytest.mark.parametrize("taylor", [0, 8, 3])
 def test_softmax_kernel_matches_plain_on_card(cuda, rows, cols, scale,
                                               taylor):
     x = _t(_rand(rows, rows, cols, scale=scale)).to(cuda)
     _close(fused_softmax(x, taylor_order=taylor).cpu(),
            fused_softmax_ref(x, taylor_order=taylor).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taylor", [0, 8])
+def test_softmax_kernel_takes_the_widest_row_a_block_holds_on_card(cuda,
+                                                                   taylor):
+    cols = _softmax_max_cols(taylor)
+    assert cols >= 8 * 7000      # one row as wide as eight of 7,000
+    assert build.library().fused_softmax_rows_per_block(7000, taylor) == 8
+    x = _t(_rand(cols, 3, cols, scale=3.0)).to(cuda)
+    _close(fused_softmax(x, taylor_order=taylor).cpu(),
+           fused_softmax_ref(x, taylor_order=taylor).cpu())
+    with pytest.raises(ValueError, match="does not fit"):
+        fused_softmax(torch.zeros(2, cols + 1, device=cuda),
+                      taylor_order=taylor)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3, 81])
+@pytest.mark.parametrize("fmt", [None, (5, 4)])
+def test_softmax_kernel_reads_a_span_that_is_not_16_byte_aligned_on_card(
+        cuda, offset, fmt):
+    """A contiguous view ``offset`` floats into its storage: every block's
+    span then starts off a 16-byte boundary, and the output (a fresh
+    tensor) at another offset than the input."""
+    rows, cols = 100 * 81 + 3, 81
+    flat = _t(_rand(offset, rows * cols + offset, scale=4.0)).to(cuda)
+    x = flat[offset:].view(rows, cols)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    kw = {"taylor_order": 8, "in_fmt": fmt}
+    _close(fused_softmax(x, **kw).cpu(), fused_softmax_ref(x, **kw).cpu())
 
 
 @pytest.mark.gpu

@@ -123,3 +123,23 @@ def test_device_quantizer_bitwise_on_card(cuda, key):
                                   _bits(quantize(xd, fmt).cpu().numpy()))
     with np.errstate(over="ignore"):
         np.testing.assert_array_equal(_bits(got), _bits(quantize_np(x, fmt)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", [FORMATS[k] for k in sorted(FORMATS)]
+                         # no fraction bit kept: ties go to the even integer
+                         + [FloatFormat(2, 0)], ids=str)
+def test_device_quantizer_bitwise_on_every_fp32_pattern_on_card(cuda, fmt):
+    """All 2^32 fp32 bit patterns through the device quantiser, against the
+    torch quantiser (NaN against NaN: payloads are not compared)."""
+    from repro_torch.kernels.quantize import device_quantize
+    chunk = 1 << 27
+    for start in range(-(1 << 31), 1 << 31, chunk):
+        x = torch.arange(start, start + chunk, dtype=torch.int64,
+                         device=cuda).to(torch.int32).view(torch.float32)
+        got = device_quantize(x, (fmt.exp_bits, fmt.man_bits))
+        want = quantize(x, fmt)
+        same = ((got.view(torch.int32) == want.view(torch.int32))
+                | (torch.isnan(got) & torch.isnan(want)))
+        assert bool(same.all()), (f"{fmt}: {int((~same).sum())} patterns "
+                                  f"from {start} differ")
