@@ -297,12 +297,16 @@ def dfg_segment_case(torch, design, x, fmt) -> dict:
     """The design's DFG segment as the DFG tier's runner launches it on
     batch ``x``: the runner's own prologue buffer, index vector and
     descriptor table (and the table on the host, for the plain version),
-    and the least traffic the segment needs: each slot it reads and no
-    group of it writes read once, each slot it scatters written once, the
-    indices and the table read once."""
+    and the least traffic the segment needs: each slot it gathers and no
+    group of it writes read once, each slot it scatters written once (the
+    elided scatters are not written), the index spans it reads and the
+    table read once.  ``bytes_every_scatter`` keeps the earlier definition,
+    every group's results written and every index read, to compare with
+    the rows of the kernel before forwarding."""
     import numpy as np
     from repro_torch.core.precision import FORMATS
-    from repro_torch.kernels.dfg_segment.dfg_segment import SEGMENT_OPCODES
+    from repro_torch.kernels.dfg_segment.dfg_segment import (
+        COL_SLOT, FLAG_ELIDED, FLAG_RECOMPUTE, FLAG_STAGE, SEGMENT_OPCODES)
 
     fn = design.torch_fn(backend="cuda", mode="dfg", fmt=fmt)
     check(len(fn.segments) == 1 and not fn.plan.fallbacks,
@@ -312,9 +316,19 @@ def dfg_segment_case(torch, design, x, fmt) -> dict:
     rows = desc.cpu().numpy()
     idx_np = idx.cpu().numpy()
     n_values = buf.shape[0]
-    reads, writes, flops = [], [], 0
-    for op, arity, o0, o1, o2, roff, n, _flags in rows.tolist():
-        reads += [idx_np[o:o + n] for o in (o0, o1, o2)[:arity]]
+    reads, writes, scatters, spans, flops = [], [], [], [], 0
+    for row in rows.tolist():
+        op, arity, offs, roff, n, flags = (row[0], row[1], row[2:5], row[5],
+                                           row[6], row[7])
+        for o, slot in zip(offs[:arity], row[COL_SLOT:COL_SLOT + arity]):
+            if slot < 0:
+                spans.append(idx_np[o:o + n])
+        if not flags & FLAG_ELIDED:
+            scatters.append(idx_np[roff:roff + n])
+            spans.append(scatters[-1])
+        if flags & FLAG_RECOMPUTE:
+            continue
+        reads += [idx_np[o:o + n] for o in offs[:arity]]
         writes.append(idx_np[roff:roff + n])
         oc = SEGMENT_OPCODES[op]
         if oc not in ("load", "store", "copy"):
@@ -322,14 +336,21 @@ def dfg_segment_case(torch, design, x, fmt) -> dict:
     out = np.unique(np.concatenate(writes))
     out = out[out < n_values]
     read = np.setdiff1d(np.concatenate(reads), out)
+    kept = np.unique(np.concatenate(scatters))
+    kept = kept[kept < n_values]
     fo = FORMATS[fmt] if fmt else None
     return {"buf": buf, "batch": b, "idx": idx, "desc": desc,
             "desc_host": torch.from_numpy(rows),
             "fmt": (fo.exp_bits, fo.man_bits) if fo is not None else None,
-            "bytes": 4 * b * (read.size + out.size) + 4 * (idx_np.size
-                                                           + rows.size),
+            "bytes": 4 * b * (read.size + kept.size) + 4 * (
+                sum(s.size for s in spans) + rows.size),
+            "bytes_every_scatter": 4 * b * (read.size + out.size) + 4 * (
+                idx_np.size + rows.size),
             "gather_bytes": 4 * b * idx_np.size, "flops": flops,
-            "groups": len(rows), "elided": fn.plan.fused_scatters,
+            "groups": fn.plan.n_groups, "entries": len(rows),
+            "stages": int(((rows[:, 7] & FLAG_STAGE) != 0).sum()),
+            "elided": fn.plan.fused_scatters,
+            "recomputed": int(((rows[:, 7] & FLAG_RECOMPUTE) != 0).sum()),
             "indices": int(idx_np.size)}
 
 
@@ -475,7 +496,8 @@ def phase_kernels(torch, design) -> dict:
                       lambda: torch.softmax(x, dim=-1),
                       order0_ms=lambda: fused_softmax(x, taylor_order=0))
     # K4: the design's DFG segment, value for value with its plain version
-    from repro_torch.kernels.dfg_segment.dfg_segment import dfg_segment
+    from repro_torch.kernels.dfg_segment.dfg_segment import (dfg_segment,
+                                                             launch_shape)
     from repro_torch.kernels.dfg_segment.ref import dfg_segment_ref
     from repro_torch.models import braggnn
     peaks = torch.Generator().manual_seed(7)
@@ -492,10 +514,19 @@ def phase_kernels(torch, design) -> dict:
             if b == BATCH and fmt is None:
                 buf, idx, desc = c["buf"], c["idx"], c["desc"]
                 rec["segment"] = {k: c[k] for k in (
-                    "groups", "elided", "indices", "bytes", "gather_bytes",
-                    "flops")}
+                    "groups", "entries", "stages", "elided", "recomputed",
+                    "indices", "bytes", "bytes_every_scatter",
+                    "gather_bytes", "flops")}
+                rec["segment"]["bound_every_scatter_ms"] = bound(
+                    c["bytes_every_scatter"], c["flops"])[0]
                 rec["segment"]["gather_bound_ms"] = bound(
                     c["gather_bytes"], 0)[0]
+                rec["segment"]["launch_shape"] = {
+                    n: launch_shape(n) for n in (BATCH, RAGGED, 1)}
+                # the prologue's own device work per batch, with the input
+                # already on the card (its copy is the serve loop's)
+                fn = design.torch_fn(backend="cuda", mode="dfg")
+                feeds = {"input": x[:, None].cuda()}
                 # the kernel updates the buffer in place; a repeat writes
                 # the same values again
                 timed(rec, f"segment[{c['groups']} groups]", c["bytes"],
@@ -503,7 +534,7 @@ def phase_kernels(torch, design) -> dict:
                       lambda: dfg_segment(buf, idx, desc),
                       lambda: dfg_segment_ref(buf, idx, c["desc_host"]),
                       None, plain_runs=20,
-                      prologue_zero_ms=lambda: torch.zeros_like(buf))
+                      prologue_ms=lambda: fn.prologue(feeds))
             elif b == BATCH:
                 # the kernel alone at the format, beside the fp32 time
                 buf, idx, desc = c["buf"], c["idx"], c["desc"]
@@ -772,6 +803,7 @@ def serve_dfg(torch, design, batches, out_name) -> dict:
                          plan={"segments": plan.n_segments,
                                "groups": plan.n_groups,
                                "scatters_elided": plan.fused_scatters,
+                               "stages": plan.n_stages,
                                "fallbacks": len(plan.fallbacks)},
                          vs_evaluate={"outputs_differing": n_diff,
                                       "samples_per_batch": N_CHECKED}))

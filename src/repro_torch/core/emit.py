@@ -255,25 +255,45 @@ def evaluate(g: Graph, feeds: dict[str, np.ndarray], *,
 # The value buffer of the vectorised emitters
 # ---------------------------------------------------------------------------
 
-def buffer_io(g: Graph, dev, q=None):
+def unwritten_reads(g: Graph) -> np.ndarray:
+    """Value ids that some op or output reads but no constant, no input and
+    no op writes: ``evaluate`` reads them as 0 from its zeroed matrix."""
+    c = g.cols()
+    read = [c.args[c.args >= 0]]
+    read += [vids for vids, _ in io_tables(g)[3].values()]
+    written = [c.result[c.result >= 0],
+               np.fromiter(g.consts, dtype=np.int64, count=len(g.consts))]
+    written += [np.fromiter(t.values(), dtype=np.int64, count=len(t))
+                for t in g.inputs.values()]
+    return np.setdiff1d(np.concatenate(read).astype(np.int64),
+                        np.concatenate(written).astype(np.int64))
+
+
+def buffer_io(g: Graph, dev, q=None, bound=None):
     """``(prologue, epilogue)`` of a value-major ``(n_values, batch)`` fp32
     buffer on ``dev``, shared by the ``simd`` backend and the DFG tier.
 
-    ``prologue(feeds) -> (buf, batch)`` zeroes the buffer, then places the
-    constants and every input feed (numpy or tensor; the batch is the
-    leading axis of the first batched feed, and unbatched feeds — usually
-    weights — broadcast on the device, never copied per sample).  ``q``,
-    if given, rounds inputs and constants as ``evaluate`` does.
-    ``epilogue(buf, batch)`` gathers ``{output: (batch,) + shape}``.
+    ``prologue(feeds) -> (buf, batch)`` takes the buffer uninitialised
+    (rows on 16 bytes, as the segment kernel's ``value_buffer`` makes
+    them), zeroes only the slots that are read but never written
+    (:func:`unwritten_reads`), places the static slots with one operation,
+    then every input feed (numpy or tensor; the batch is the leading axis
+    of the first batched feed, and unbatched feeds broadcast on the
+    device, never copied per sample).  The static slots are the constants
+    and the unbatched ``bound`` inputs (memref name -> array or tensor,
+    usually bound weights), gathered into one table and rounded by ``q``
+    once, here; a feed of a bound input's name overrides it per call, and
+    a batched bound input is placed per call like a feed.  ``q``, if given,
+    rounds inputs and constants as ``evaluate`` does; per call it rounds
+    each feed once.  ``epilogue(buf, batch)`` gathers
+    ``{output: (batch,) + shape}``.
     """
     import torch
 
+    from repro_torch.kernels.dfg_segment.dfg_segment import value_buffer
+
     const_idx, const_val, input_scatter, output_gather = io_tables(g)
     n_values = max(g.n_values, 1)
-    cidx = torch.from_numpy(const_idx.astype(np.int64)).to(dev)
-    cval = torch.from_numpy(const_val).to(dev)
-    if q is not None:
-        cval = q(cval)
     places = {}
     for name, (vids, idxs) in input_scatter.items():
         rank = len(idxs[0])
@@ -282,28 +302,50 @@ def buffer_io(g: Graph, dev, q=None):
         places[name] = (torch.from_numpy(vids.astype(np.int64)).to(dev),
                         torch.from_numpy(lin.astype(np.int64)).to(dev),
                         rank)
+    defaults = {}
+    sidx = [torch.from_numpy(const_idx.astype(np.int64)).to(dev)]
+    sval = [torch.from_numpy(const_val).to(dev)]
+    for name, v in (bound or {}).items():
+        if name not in places:
+            continue
+        vids, lin, rank = places[name]
+        v = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        if v.dim() != rank:
+            defaults[name] = v
+            continue
+        sidx.append(vids)
+        sval.append(v.reshape(-1)[lin])
+    sidx, sval = torch.cat(sidx), torch.cat(sval)
+    if q is not None and len(sval):
+        sval = q(sval)
+    sval = sval[:, None]
+    zero = torch.from_numpy(unwritten_reads(g)).to(dev)
     gathers = {name: (torch.from_numpy(vids.astype(np.int64)).to(dev), shape)
                for name, (vids, shape) in output_gather.items()}
 
     def prologue(feeds):
-        missing = [n for n in places if n not in feeds]
+        feeds = {**defaults, **feeds}
+        missing = [n for n in places
+                   if n not in feeds and n not in (bound or {})]
         if missing:
             raise KeyError(f"missing feed for input memref '{missing[0]}'")
         arrs = {n: torch.as_tensor(feeds[n], dtype=torch.float32,
-                                   device=dev) for n in places}
+                                   device=dev) for n in places if n in feeds}
         batch = next((int(a.shape[0]) for n, a in arrs.items()
                       if a.dim() == places[n][2] + 1), 1)
-        buf = torch.zeros((n_values, batch), dtype=torch.float32,
-                          device=dev)
-        if len(cidx):
-            buf[cidx] = cval[:, None]
-        for name, (vids, lin, rank) in places.items():
-            a = arrs[name]
+        buf = value_buffer(n_values, batch, dev)
+        if len(zero):
+            buf[zero] = 0.0
+        if len(sidx):
+            buf[sidx] = sval
+        for name, a in arrs.items():
+            vids, lin, rank = places[name]
+            if q is not None:
+                a = q(a.contiguous())
             if a.dim() == rank:                  # unbatched: broadcast
-                flat = a.reshape(-1)[lin][:, None]
+                buf[vids] = a.reshape(-1)[lin][:, None]
             else:
-                flat = a.reshape(a.shape[0], -1)[:, lin].T
-            buf[vids] = q(flat) if q is not None else flat
+                buf[vids] = a.reshape(a.shape[0], -1)[:, lin].T
         return buf, batch
 
     def epilogue(buf, batch):

@@ -32,8 +32,10 @@ each run becomes ONE launch of the DFG segment kernel
 (:mod:`repro_torch.kernels.dfg_segment`) over a value-major
 ``(n_values, batch)`` buffer.  The planner, carried over verbatim, also
 marks a group's scatter as elided when every read of its results is an
-aligned gather later in the same segment; the plan reports it, but the
-segment kernel still scatters every group (no forwarding yet).  Groups
+aligned gather later in the same segment; the segment kernel then
+forwards the result to those gathers and never writes it.  The layout
+cuts each segment into stages that need no barrier inside them, and the
+plan reports their count.  Groups
 whose opcode is missing from the table fall back per group to plain torch
 (``registry.opcode_compute``) and are recorded.  With
 ``fmt`` every group result is re-quantised — the per-op FloPoCo functional
@@ -95,6 +97,7 @@ class KernelPlan:
     n_groups: int = 0                          #: levelised groups (dfg tier)
     n_segments: int = 0                        #: fused kernels (dfg tier)
     fused_scatters: int = 0                    #: scatter->gather pairs elided
+    n_stages: int = 0                          #: barrier stages (dfg tier)
     kernels: dict = dataclasses.field(default_factory=dict)
     fallbacks: list = dataclasses.field(default_factory=list)
     notes: list = dataclasses.field(default_factory=list)
@@ -112,6 +115,8 @@ class KernelPlan:
         if kern:
             parts.append(kern)
         parts.append(f"{len(self.fallbacks)} fallbacks")
+        if self.n_stages:
+            parts.append(f"{self.n_stages} stages")
         if not self.use_kernels:
             parts.append("plain versions (CPU tensors)")
         return "; ".join(parts)
@@ -198,52 +203,204 @@ def _segment_layout(seg, n_values: int, quant: bool
                     ) -> tuple[np.ndarray, np.ndarray]:
     """One fused segment -> ``(desc, idx_flat)`` for the segment kernel.
 
-    The layout half of the reference's ``_segment_body``: all gather and
-    scatter index arrays of the segment are concatenated into ONE int32
-    vector (``idx_flat``) addressed by per-group offsets, and result slots
-    of ops without a destination are redirected one past the buffer
-    (``n_values``) and dropped.  ``desc`` holds one row per group in the
-    kernel's format (``kernels/dfg_segment/dfg_segment.py``).  The
-    planner's forwarding keys and elided scatters are not used: the kernel
-    scatters every group.
-    """
-    from repro_torch.kernels.dfg_segment.dfg_segment import (
-        DESC_WIDTH, FLAG_DROPS, FLAG_QUANT, SEGMENT_OPCODE_ID)
+    ``idx_flat`` is the layout half of the reference's ``_segment_body``:
+    all gather and scatter index arrays of the segment concatenated into
+    ONE int32 vector addressed by per-group offsets, with the result slots
+    of ops without a destination redirected one past the buffer
+    (``n_values``) and dropped.  ``desc`` holds one row per entry in the
+    kernel's format (``kernels/dfg_segment/dfg_segment.py``):
 
-    desc = np.zeros((len(seg), DESC_WIDTH), np.int32)
-    chunks: list[np.ndarray] = []
+    * **stages.**  Walking the groups in order, a group opens a new stage
+      when it gathers from the buffer a slot that a group of the current
+      stage scatters.  Forwarded operands do not count: they do not touch
+      the buffer.  The kernel puts a barrier between stages only.
+    * **forwarding.**  An operand the planner forwards (its gather matches
+      an earlier group's results) is taken from that group's result,
+      held per element, when the producer is in the same stage; read from
+      the buffer when the producer is in an earlier stage and was
+      scattered; and otherwise, for an elided producer of an earlier
+      stage, computed again by a *recompute* entry in the consumer's unit
+      (recursively, down to operands in the buffer).
+    * **units.**  Within a stage, entries linked by forwarded operands form
+      a unit (one length, one loop over its elements); its entries keep
+      the segment's order, a recompute entry just before its first reader,
+      and the values held per element get register slots by liveness.
+    * elided groups are not scattered.
+    """
+    from repro_torch.kernels.dfg_segment.dfg_segment import \
+        SEGMENT_OPCODE_ID
+
+    arg_off, res_off, chunks = [], [], []
     off = 0
-    for row, (oc, arg_idx, res_idx, _keys, _skip) in zip(desc, seg):
+    for oc, arg_idx, res_idx, _keys, _skip in seg:
         if oc not in SEGMENT_OPCODE_ID or not 1 <= len(arg_idx) <= 3:
             raise ValueError(f"the segment kernel has no opcode {oc!r} of "
                              f"arity {len(arg_idx)}")
-        row[0], row[1], row[6] = SEGMENT_OPCODE_ID[oc], len(arg_idx), \
-            len(res_idx)
-        for i, ai in enumerate(arg_idx):
-            row[2 + i] = off
+        arg_off.append([])
+        for ai in arg_idx:
+            arg_off[-1].append(off)
             chunks.append(ai.astype(np.int32))
             off += len(ai)
-        row[5] = off
+        res_off.append(off)
         chunks.append(np.where(res_idx >= 0, res_idx,
                                n_values).astype(np.int32))
         off += len(res_idx)
-        row[7] = (FLAG_QUANT if quant and oc not in kreg.NO_QUANT_OPCODES
-                  else 0) | (FLAG_DROPS if (res_idx < 0).any() else 0)
     idx_flat = (np.concatenate(chunks) if chunks
                 else np.zeros(1, np.int32))
+
+    # the group each forwarded operand comes from (-1: the buffer)
+    produced: dict[bytes, int] = {}
+    src = []
+    for pos, (_oc, _a, res_idx, keys, _skip) in enumerate(seg):
+        src.append([produced[k] if k is not None else -1 for k in keys])
+        produced[res_idx.tobytes()] = pos
+    elided = [bool(s[4]) for s in seg]
+
+    # stages: the last group of the segment that scatters each slot
+    writer = np.full(n_values + 1, -1, np.int64)
+    stage_of, start = [], 0
+    for pos, (_oc, arg_idx, res_idx, _keys, _skip) in enumerate(seg):
+        gathered = [ai for ai, p in zip(arg_idx, src[pos]) if p < 0]
+        if gathered and max(int(writer[ai].max()) for ai in gathered) \
+                >= start:
+            start = pos
+        stage_of.append(start)
+        if not elided[pos]:
+            writer[res_idx[res_idx >= 0]] = pos
+    stages: dict[int, list[int]] = {}
+    for pos, s in enumerate(stage_of):
+        stages.setdefault(s, []).append(pos)
+
+    rows = []
+    for first, members in stages.items():
+        # the stage's entries: (group, recompute?) -> one source per
+        # operand, (group forwarded from or -1, the entry holding the value
+        # or None for a gather from the buffer)
+        ents: dict[tuple[int, bool], list] = {}
+
+        def sources(pos, in_stage):
+            out = []
+            for p in src[pos]:
+                if p >= 0 and in_stage(p):
+                    out.append((p, (p, False)))
+                elif p >= 0 and elided[p]:
+                    out.append((p, recompute(p)))
+                else:
+                    out.append((p, None))
+            return out
+
+        def recompute(p):
+            if (p, True) not in ents:
+                ents[(p, True)] = sources(p, lambda q: False)
+            return (p, True)
+
+        for pos in members:
+            ents[(pos, False)] = sources(
+                pos, lambda q: stage_of[q] == first)
+        # units: entries linked by held operands (union-find)
+        parent = {k: k for k in ents}
+
+        def find(k):
+            while parent[k] != k:
+                parent[k] = parent[parent[k]]
+                k = parent[k]
+            return k
+        for k, ops in ents.items():
+            for _p, holder in ops:
+                if holder is not None:
+                    parent[find(holder)] = find(k)
+        # a unit's order: the stage's groups in segment order, each
+        # recompute entry just before the first entry that reads it
+        order: dict = {}
+
+        def place(k):
+            if k not in order:
+                for _p, holder in ents[k]:
+                    if holder is not None and holder[1]:
+                        place(holder)
+                order[k] = None
+        for pos in members:
+            place((pos, False))
+        units: dict = {}
+        for k in order:
+            units.setdefault(find(k), []).append(k)
+        for u_i, unit in enumerate(units.values()):
+            rows += _unit_rows(unit, ents, seg, arg_off, res_off, elided,
+                               quant, opens_stage=u_i == 0)
+    desc = np.stack(rows).astype(np.int32)
     return desc, idx_flat
 
 
+def _unit_rows(unit, ents, seg, arg_off, res_off, elided, quant: bool,
+               opens_stage: bool) -> list[np.ndarray]:
+    """The descriptor rows of one unit, its held values given register
+    slots by liveness (an entry reads its operands before it writes its
+    result, so a slot freed by its last reader can take that reader's
+    result)."""
+    from repro_torch.kernels.dfg_segment.dfg_segment import (
+        COL_GROUP, COL_RES_SLOT, COL_SLOT, COL_SRC, COL_UNIT, DESC_WIDTH,
+        FLAG_DROPS, FLAG_ELIDED, FLAG_QUANT, FLAG_RECOMPUTE, FLAG_STAGE,
+        MAX_SLOTS, SEGMENT_OPCODE_ID)
+
+    last = {}
+    for i, k in enumerate(unit):
+        for _p, holder in ents[k]:
+            if holder is not None:
+                last[holder] = i
+    rows, slot, free, top = [], {}, [], 0
+    for i, k in enumerate(unit):
+        pos, rec = k
+        oc, arg_idx, res_idx, _keys, _skip = seg[pos]
+        row = np.full(DESC_WIDTH, -1, np.int64)
+        row[0], row[1] = SEGMENT_OPCODE_ID[oc], len(arg_idx)
+        row[2:5] = (arg_off[pos] + [0, 0, 0])[:3]
+        row[5], row[6] = res_off[pos], len(res_idx)
+        row[7] = ((FLAG_QUANT if quant and oc not in kreg.NO_QUANT_OPCODES
+                   else 0)
+                  | (FLAG_DROPS if (res_idx < 0).any() else 0)
+                  | (FLAG_ELIDED if elided[pos] or rec else 0)
+                  | (FLAG_RECOMPUTE if rec else 0)
+                  | (FLAG_STAGE if opens_stage and i == 0 else 0))
+        for j, (p, holder) in enumerate(ents[k]):
+            row[COL_SRC + j] = p
+            if holder is not None:
+                row[COL_SLOT + j] = slot[holder]
+        free += [slot[h] for h in {h for _p, h in ents[k] if h is not None}
+                 if last[h] == i]
+        if k in last:
+            free.sort()
+            slot[k] = free.pop(0) if free else top
+            top = max(top, slot[k] + 1)
+            row[COL_RES_SLOT] = slot[k]
+        row[COL_UNIT] = len(unit) if i == 0 else 0
+        row[COL_GROUP] = pos
+        rows.append(row)
+    if top > MAX_SLOTS:
+        raise ValueError(f"a unit of the segment holds {top} forwarded "
+                         f"values per element at once; the segment kernel "
+                         f"holds at most {MAX_SLOTS}")
+    return rows
+
+
 def _lower_dfg(g: Graph, *, fmt_obj, fmt_tuple, dev: torch.device,
-               opcode_table, plan: KernelPlan):
+               opcode_table, plan: KernelPlan, bound=None):
     from repro_torch.kernels.dfg_segment import ops as seg_ops
+    from repro_torch.kernels.dfg_segment.dfg_segment import FLAG_STAGE
+    from repro_torch.kernels.quantize import device_quantize
 
     groups = emit.compile_groups(g.cols(), g.n_values)
     plan.n_groups = len(groups)
     _, _, _, output_gather = emit.io_tables(g)
     all_out_vids = (np.concatenate([v for v, _ in output_gather.values()])
                     if output_gather else np.zeros(0, np.int32))
-    q = (lambda x: quantize(x, fmt_obj)) if fmt_obj is not None else None
+    q = None
+    if fmt_obj is not None:
+        def q(x):
+            # the kernels' shared device quantiser on the card (one launch),
+            # the torch quantiser on the CPU: bit for bit the same
+            if x.is_cuda:
+                return device_quantize(x.contiguous(), fmt_tuple)
+            return quantize(x, fmt_obj)
     steps = _plan_segments(groups, all_out_vids, opcode_table, plan)
 
     n_values = max(g.n_values, 1)
@@ -254,6 +411,7 @@ def _lower_dfg(g: Graph, *, fmt_obj, fmt_tuple, dev: torch.device,
         if kind == "segment":
             desc, idx_flat = _segment_layout(payload, n_values,
                                              quant=q is not None)
+            plan.n_stages += int((desc[:, 7] & FLAG_STAGE != 0).sum())
             tdesc = torch.from_numpy(desc).to(dev)
             tidx = torch.from_numpy(idx_flat).to(dev)
 
@@ -281,7 +439,7 @@ def _lower_dfg(g: Graph, *, fmt_obj, fmt_tuple, dev: torch.device,
 
             compiled.append(fb)
             step_labels.append(f"fallback[{oc}]")
-    prologue, epilogue = emit.buffer_io(g, dev, q)
+    prologue, epilogue = emit.buffer_io(g, dev, q, bound=bound)
 
     def run(feeds):
         buf, batch = prologue(feeds)
@@ -566,8 +724,9 @@ def to_cuda_fn(g: Graph, *, module=None, fmt=None, mode: str = "auto",
 
     ``weights`` (memref name -> array or tensor) default to the module's
     bound parameters and are uploaded once, here: the nest tier normalises
-    them to one shared set; the DFG tier broadcasts unbatched ones on the
-    device, and a feed of the same name at call time takes precedence.
+    them to one shared set; the DFG tier places unbatched ones with the
+    constants, rounded to ``fmt`` once, here, and a feed of the same name
+    at call time takes precedence.
     ``device`` defaults to ``"cuda"`` and raises without a GPU;
     ``device="cpu"`` runs the kernels' plain versions.
     """
@@ -649,23 +808,23 @@ def to_cuda_fn(g: Graph, *, module=None, fmt=None, mode: str = "auto",
 
 def _dfg_runner(g: Graph, fmt_obj, fmt_key, fmt_tuple, dev, weights,
                 opcode_table, plan: KernelPlan) -> Callable:
-    """The DFG tier's callable: bound weights on the device, feeds in."""
+    """The DFG tier's callable: bound weights on the device, rounded to
+    ``fmt`` once, here; per call only the feeds move."""
+    bound = {name: v for name, v in (weights or {}).items()
+             if name in g.inputs}
     with obs.span("emit.cuda", cat="cuda", mode="dfg", fmt=fmt_key) as sp:
         core = _lower_dfg(g, fmt_obj=fmt_obj, fmt_tuple=fmt_tuple, dev=dev,
-                          opcode_table=opcode_table, plan=plan)
+                          opcode_table=opcode_table, plan=plan, bound=bound)
         sp.set(segments=plan.n_segments, groups=plan.n_groups,
-               fused_scatters=plan.fused_scatters,
+               stages=plan.n_stages, fused_scatters=plan.fused_scatters,
                fallbacks=len(plan.fallbacks))
     _plan_metrics(plan)
-    bound = {name: torch.as_tensor(v, dtype=torch.float32).to(dev)
-             for name, v in (weights or {}).items() if name in g.inputs}
     profiled = [False]       # first obs-enabled call runs the span'd twin
 
     def run(feeds):
         if not isinstance(feeds, dict):
             raise TypeError("the DFG tier takes a feed dict (memref name "
                             "-> array or tensor)")
-        feeds = {**bound, **feeds}
         with torch.inference_mode():
             if obs.enabled() and not profiled[0]:
                 profiled[0] = True
@@ -677,7 +836,7 @@ def _dfg_runner(g: Graph, fmt_obj, fmt_key, fmt_tuple, dev, weights,
     run.device = dev
     # what the runner launches, for checks that hold K4 to its plain version
     run.segments = core.segments
-    run.prologue = lambda feeds: core.prologue({**bound, **feeds})
+    run.prologue = core.prologue
     return run
 
 

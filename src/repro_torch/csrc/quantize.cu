@@ -1,6 +1,6 @@
-// The shared quantiser (quantize.cuh) as an elementwise kernel, so that a
-// check can hold the device function against the torch and numpy
-// quantisers bit for bit.  Not on the serving path.
+// The shared quantiser (quantize.cuh) as an elementwise kernel: the DFG
+// tier's prologue rounds its per-batch feeds with it, and a check holds the
+// device function against the torch and numpy quantisers bit for bit.
 
 #include <cuda_runtime.h>
 

@@ -38,7 +38,8 @@ SIGNATURES = {
     "smallfloat_matmul_f32": [_P] * 4 + [_I] * 12 + [_P],
     "smallfloat_matmul_bf16": [_P] * 4 + [_I] * 12 + [_P],
     "quantize_f32": [_P, _P, ctypes.c_longlong, _I, _I, _P],
-    "dfg_segment_f32": [_P] * 3 + [_I] * 5 + [_P],
+    "dfg_segment_f32": [_P, ctypes.c_longlong, _P, _P] + [_I] * 5 + [_P],
+    "dfg_segment_shape": [_I, _P],
     "flash_attention_f32": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P],
 }
 

@@ -1,7 +1,9 @@
 """The kernels' shared device quantiser (``csrc/quantize.cuh``), launched
-elementwise so a check can hold it bitwise against
-:func:`repro_torch.core.precision.quantize`, and the probe values such a
-check feeds it.  Not on the serving path."""
+elementwise, and the probe values a check feeds it.
+
+The generic DFG tier's prologue rounds each per-batch feed with it at a
+``fmt``, one launch per feed (``core/emit_cuda.py`` ``_lower_dfg``); checks
+hold it bitwise against :func:`repro_torch.core.precision.quantize`."""
 
 from __future__ import annotations
 

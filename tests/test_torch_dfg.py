@@ -33,7 +33,9 @@ from repro_torch.core.precision import FORMATS  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.dfg_segment import ops as seg_ops  # noqa: E402
 from repro_torch.kernels.dfg_segment.dfg_segment import (  # noqa: E402
-    DESC_WIDTH, FLAG_QUANT, dfg_segment)
+    COL_GROUP, COL_RES_SLOT, COL_SLOT, COL_SRC, COL_UNIT, DESC_WIDTH,
+    FLAG_DROPS, FLAG_ELIDED, FLAG_QUANT, FLAG_RECOMPUTE, FLAG_STAGE,
+    MAX_SLOTS, dfg_segment)
 from repro_torch.kernels.dfg_segment.ref import dfg_segment_ref  # noqa
 from repro_torch.models import braggnn  # noqa: E402
 from repro_torch.nn.module import init_tree  # noqa: E402
@@ -258,31 +260,45 @@ def test_serve_dfg_tier_quantised_equals_run(bragg):
         _equal(_np(out), pd.run(x[:n], fmt=FORMATS["5_4"]))
 
 
-def test_segment_layout_and_plain_body_match_reference(ref, conv):
-    """K4's plain version against the reference's ``_segment_body`` on one
-    segment: the same index vector, and the same buffer out (fp32).  The
-    port scatters every group, so the reference body is given the segment
-    with no scatter elided (it still forwards), and whole buffers agree."""
-    rd, pd, _ = conv
+def _ref_segment(ref, g):
+    """The reference planner's one segment of ``g`` (its own elisions and
+    forwarding keys) and its plan."""
     rep = ref.emit_pallas
-    g = rd.graph_opt
     groups = ref.emit.compile_groups(g.cols(), g.n_values)
     _, _, _, og = ref.emit.io_tables(g)
     outv = np.concatenate([v for v, _ in og.values()])
     plan = rep.PallasPlan(mode="dfg", use_pallas=False, interpret=False)
     (kind, seg), = rep._plan_segments(groups, outv,
                                       ref.registry.OPCODE_KERNELS, plan)
+    return seg, plan
+
+
+def test_segment_layout_and_plain_body_match_reference(ref, conv):
+    """K4's plain version against the reference's ``_segment_body`` on one
+    segment, with the reference's own elisions and forwarding: the same
+    index vector, and the same whole buffer out (fp32), elided slots left
+    as they were in both."""
+    rd, pd, _ = conv
+    g = rd.graph_opt
+    seg, plan = _ref_segment(ref, g)
     assert plan.fused_scatters > 0
-    every = [(oc, a, r, keys, False) for oc, a, r, keys, _skip in seg]
-    body, want_idx = rep._segment_body(every, ref.registry.OPCODE_KERNELS,
-                                       None, g.n_values)
+    body, want_idx = ref.emit_pallas._segment_body(
+        seg, ref.registry.OPCODE_KERNELS, None, g.n_values)
     desc, idx = _segment_layout(seg, g.n_values, quant=False)
     np.testing.assert_array_equal(idx, want_idx)
-    assert desc.shape == (len(seg), DESC_WIDTH)
-    assert not desc[:, 7].any()            # fp32, every op has a result
+    assert desc.shape[1] == DESC_WIDTH and len(desc) >= len(seg)
+    groups = desc[:, COL_GROUP]
+    assert sorted(set(groups.tolist())) == list(range(len(seg)))
+    assert not (desc[:, 7] & FLAG_DROPS).any()   # every op has a result
+    orig = (desc[:, 7] & FLAG_RECOMPUTE) == 0
+    assert sorted(groups[orig].tolist()) == list(range(len(seg)))
+    assert [bool(f & FLAG_ELIDED) for f, gi in zip(desc[orig, 7],
+                                                   groups[orig])] \
+        == [bool(seg[gi][4]) for gi in groups[orig]]
     quant, _ = _segment_layout(seg, g.n_values, quant=True)
-    assert all((f == FLAG_QUANT) == (s[0] not in ("load", "store", "copy"))
-               for f, s in zip(quant[:, 7], seg))
+    assert all(bool(f & FLAG_QUANT) == (seg[gi][0] not in ("load", "store",
+                                                           "copy"))
+               for f, gi in zip(quant[:, 7], quant[:, COL_GROUP]))
     buf = np.random.default_rng(5).standard_normal(
         (3, g.n_values)).astype(np.float32)
     want = np.asarray(body(ref.jax.numpy.asarray(buf),
@@ -290,6 +306,116 @@ def test_segment_layout_and_plain_body_match_reference(ref, conv):
     got = seg_ops.segment(torch.from_numpy(buf.T.copy()),
                           torch.from_numpy(idx), torch.from_numpy(desc))
     np.testing.assert_allclose(got.numpy().T, want, rtol=RTOL, atol=ATOL)
+    elided = np.concatenate([r for _oc, _a, r, _k, skip in seg if skip])
+    np.testing.assert_array_equal(got.numpy()[elided], buf.T[elided])
+
+
+def _stages(desc):
+    """The entries of each stage, as lists of row indices."""
+    out = []
+    for i, f in enumerate(desc[:, 7]):
+        if f & FLAG_STAGE or not out:
+            out.append([])
+        out[-1].append(i)
+    return out
+
+
+def _layout_of(ref, pair):
+    rd, pd, _ = pair
+    g = rd.graph_opt
+    seg, _ = _ref_segment(ref, g)
+    desc, idx = _segment_layout(seg, g.n_values, quant=False)
+    return seg, desc, idx
+
+
+def test_segment_stages_gather_nothing_their_own_entries_scatter(ref, pair):
+    """Within a stage no entry gathers from the buffer a slot that an entry
+    of the same stage scatters, so the kernel needs no barrier inside a
+    stage; and a stage opens only where that would happen otherwise."""
+    seg, desc, idx = _layout_of(ref, pair)
+    stages = _stages(desc)
+    assert 1 < len(stages) < len(seg)
+    scattered_before = set()
+    for rows in stages:
+        gathered, scattered = set(), set()
+        first = min(desc[i, COL_GROUP] for i in rows
+                    if not desc[i, 7] & FLAG_RECOMPUTE)
+        opens = False
+        for i in rows:
+            op, arity, *offs = desc[i, :5]
+            n = desc[i, 6]
+            for o, s, src in zip(offs[:arity],
+                                 desc[i, COL_SLOT:COL_SLOT + 3],
+                                 desc[i, COL_SRC:COL_SRC + 3]):
+                if s < 0:
+                    gathered.update(idx[o:o + n].tolist())
+                if src < 0 and desc[i, COL_GROUP] == first:
+                    opens |= bool(scattered_before
+                                  & set(idx[o:o + n].tolist()))
+            if not desc[i, 7] & FLAG_ELIDED:
+                scattered.update(idx[desc[i, 5]:desc[i, 5] + n].tolist())
+        assert not gathered & scattered
+        # a stage opens where its first group gathers from the buffer a
+        # slot that the stage before it scatters
+        assert opens or not scattered_before
+        scattered_before = scattered
+
+
+def test_segment_forwarded_operands_come_from_their_stage_or_a_recompute(
+        ref, pair):
+    """Every operand the planner forwards is held per element from an
+    entry of the consumer's unit that computes the producer (the producer
+    itself, in the same stage, or a recompute of an elided producer of an
+    earlier stage), or gathered from the buffer where the producer of an
+    earlier stage was scattered.  Every planner key is honoured."""
+    seg, desc, idx = _layout_of(ref, pair)
+    stage_of = np.cumsum((desc[:, 7] & FLAG_STAGE) != 0)
+    group_stage = {int(desc[i, COL_GROUP]): stage_of[i]
+                   for i in range(len(desc))
+                   if not desc[i, 7] & FLAG_RECOMPUTE}
+    unit_start = 0
+    routes = {"held": 0, "recomputed": 0, "buffer": 0}
+    for i, row in enumerate(desc):
+        if row[COL_UNIT]:
+            unit_start = i
+        gi = int(row[COL_GROUP])
+        keys = seg[gi][3]
+        for j in range(row[1]):
+            src, slot = int(row[COL_SRC + j]), int(row[COL_SLOT + j])
+            assert (src >= 0) == (keys[j] is not None)
+            if src < 0:
+                assert slot < 0
+                continue
+            assert np.array_equal(seg[src][2], seg[gi][1][j])
+            if slot < 0:
+                assert not seg[src][4]                 # scattered ...
+                assert group_stage[src] < stage_of[i]  # ... earlier
+                routes["buffer"] += 1
+                continue
+            holder = [k for k in range(unit_start, i)
+                      if desc[k, COL_GROUP] == src
+                      and desc[k, COL_RES_SLOT] == slot]
+            assert holder, (i, j)
+            if desc[holder[-1], 7] & FLAG_RECOMPUTE:
+                assert seg[src][4] and group_stage[src] < stage_of[i]
+                routes["recomputed"] += 1
+            else:
+                assert group_stage[src] == stage_of[i]
+                routes["held"] += 1
+    assert routes["held"] > 0
+    assert desc[:, COL_RES_SLOT].max() < MAX_SLOTS
+
+
+def test_dfg_plan_reports_its_stages(ref, pair):
+    rd, pd, _ = pair
+    _seg, desc, _ = _layout_of(ref, pair)
+    fn = to_cuda_fn(pd.graph_opt, mode="dfg", device="cpu")
+    (_idx, tdesc), = fn.segments
+    np.testing.assert_array_equal(tdesc.numpy(), desc)
+    assert fn.plan.n_stages == len(_stages(desc))
+    assert fn.plan.summary().endswith(
+        f"0 fallbacks; {fn.plan.n_stages} stages; plain versions (CPU "
+        f"tensors)")
 
 
 def test_dfg_runner_exposes_what_it_launches(ref, bragg):
@@ -309,6 +435,89 @@ def test_dfg_runner_exposes_what_it_launches(ref, bragg):
     np.testing.assert_array_equal(
         buf[torch.from_numpy(vids).long()].T.reshape(out[name].shape),
         out[name])
+
+
+def _dangling_graph(ir):
+    """A hand-built graph that reads a value nothing writes (``hole``):
+    y = [(x0 + hole) * x1, max((x0 + hole) * x1, hole)]."""
+    g = ir.Graph()
+    x0, x1, hole = g.new_value(), g.new_value(), g.new_value()
+    g.inputs["x"] = {(0,): x0, (1,): x1}
+    a = g.add_op("addf", [x0, hole])
+    b = g.add_op("mulf", [a, x1])
+    c = g.add_op("maxf", [b, hole])
+    g.outputs["y"] = {(0,): b, (1,): c}
+    return g, hole
+
+
+def test_prologue_zeroes_what_is_read_and_never_written(ref, monkeypatch):
+    """The buffer comes uninitialised (here: NaN), and only the slots read
+    but never written are zeroed, so the DFG tier and ``simd`` still read
+    0 there, as ``evaluate`` does."""
+    from repro.core import ir as ref_ir
+    from repro_torch.core import ir
+    g, hole = _dangling_graph(ir)
+    rg, _ = _dangling_graph(ref_ir)
+    assert emit.unwritten_reads(g).tolist() == [hole]
+    feeds = {"x": np.array([[1.5, -2.0], [0.25, 3.0], [-1.0, 0.5]],
+                           np.float32)}
+    want = ref.emit.evaluate(rg, feeds)
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, **k: empty(*a, **k).fill_(float("nan")))
+    fn = to_cuda_fn(g, mode="dfg", device="cpu")
+    buf, _ = fn.prologue(feeds)
+    assert buf[hole].eq(0).all() and buf.isnan().any()
+    _equal(_np(fn(feeds)), want)
+    _equal(_np(emit.to_torch_fn(g, backend="simd", device="cpu")(feeds)),
+           want)
+
+
+def test_braggnn_reads_nothing_unwritten(bragg):
+    rd, pd, _ = bragg
+    assert emit.unwritten_reads(pd.graph_opt).size == 0
+
+
+def test_dfg_tier_rounds_bound_weights_once(ref, bragg, monkeypatch):
+    """At (5,4) the constants and bound weights are rounded once, when the
+    runner is built, as one table; per batch only the input feed goes
+    through the quantiser."""
+    from repro_torch.core import emit_cuda
+    rd, pd, feeds = bragg
+    calls = []
+    quantize = emit_cuda.quantize
+
+    def counting(x, fmt):
+        calls.append(x.numel())
+        return quantize(x, fmt)
+    monkeypatch.setattr(emit_cuda, "quantize", counting)
+    weights = {k: v for k, v in feeds.items() if k != "input"}
+    fn = to_cuda_fn(pd.graph_opt, mode="dfg", fmt="5_4", device="cpu",
+                    weights=weights)
+    n_static = len(pd.graph_opt.consts) + sum(
+        len(pd.graph_opt.inputs[k]) for k in weights)
+    assert calls == [n_static]
+    want = ref.emit.evaluate(rd.graph_opt, feeds, fmt=ref.FORMATS["5_4"])
+    for _ in range(2):
+        _equal(_np(fn({"input": feeds["input"]})), want)
+    assert calls[1:] == [feeds["input"].size] * 2
+
+
+@pytest.mark.parametrize("fmt", [None, "5_4"])
+def test_dfg_tier_per_sample_weight_feed_overrides_bound(ref, bragg, fmt):
+    """A feed of a bound weight's name, batched and varying per sample,
+    takes the bound weight's place for that call only."""
+    rd, pd, feeds = bragg
+    fn = pd.torch_fn(backend="cuda", device="cpu", mode="dfg", fmt=fmt)
+    w = feeds["dense.3.weight"]
+    scale = np.random.default_rng(4).uniform(0.5, 1.5, (BATCH, 1, 1))
+    per_sample = (w[None] * scale).astype(np.float32)
+    over = {**feeds, "dense.3.weight": per_sample}
+    got = _np(fn({"input": feeds["input"], "dense.3.weight": per_sample}))
+    _equal(got, ref.emit.evaluate(rd.graph_opt, over, fmt=_fmt(ref, fmt)))
+    bound = ref.emit.evaluate(rd.graph_opt, feeds, fmt=_fmt(ref, fmt))
+    assert not np.array_equal(got["dense_3_out"], bound["dense_3_out"])
+    _equal(_np(fn({"input": feeds["input"]})), bound)
 
 
 def test_opcode_compute_renders_every_group_opcode():
@@ -440,33 +649,55 @@ def port_bragg(cuda):
     return d, d.feeds({"input": x})
 
 
+#: batches on the card: one sample, a slab's ragged part (3, 17), the
+#: ragged 100 the serving checks use, and 256
+CARD_BATCHES = [1, 3, 17, 100, 256]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("batch", CARD_BATCHES)
 @pytest.mark.parametrize("fmt", FMTS)
-def test_segment_kernel_equals_plain_on_card(cuda, port_bragg, fmt):
+def test_segment_kernel_equals_plain_on_card(cuda, port_bragg, fmt, batch):
     """The segment the DFG tier's runner launches, on a random buffer:
-    kernel and plain version equal value for value over the whole buffer."""
+    kernel and plain version equal value for value over the whole buffer
+    (elided slots untouched by both), in one launch."""
+    from repro_torch.kernels.dfg_segment.dfg_segment import (launch_shape,
+                                                             value_buffer)
     d, _ = port_bragg
     fn = d.torch_fn(backend="cuda", mode="dfg", fmt=fmt, device=cuda)
     (idx, desc), = fn.segments
     f = FORMATS[fmt] if fmt else None
     kw = {"fmt": (f.exp_bits, f.man_bits) if f else None}
-    buf = torch.from_numpy(np.random.default_rng(2).standard_normal(
-        (d.graph_opt.n_values, 100)).astype(np.float32) * 0.5).to(cuda)
+    rnd = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (d.graph_opt.n_values, batch)).astype(np.float32) * 0.5).to(cuda)
+
+    def fresh():
+        return value_buffer(*rnd.shape, cuda).copy_(rnd)
     before = dfg_segment.launches
-    got = dfg_segment(buf.clone(), idx, desc, **kw)
+    got = dfg_segment(fresh(), idx, desc, **kw)
     assert dfg_segment.launches == before + 1
-    want = dfg_segment_ref(buf.clone(), idx, desc, **kw)
+    want = dfg_segment_ref(fresh(), idx, desc.cpu(), **kw)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    if batch % 4:
+        with pytest.raises(ValueError, match="start on 16 bytes"):
+            dfg_segment(rnd.clone(), idx, desc, **kw)
+    shape = launch_shape(batch)
+    assert shape["slab"] >= 8 and shape["active_clusters"] >= 1
+    assert -(-batch // shape["slab"]) <= max(shape["active_clusters"], 1)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("batch", CARD_BATCHES)
 @pytest.mark.parametrize("fmt", FMTS)
-def test_dfg_tier_on_card_equals_evaluate(cuda, port_bragg, fmt):
-    d, feeds = port_bragg
+def test_dfg_tier_on_card_equals_evaluate(cuda, port_bragg, fmt, batch):
+    d, _ = port_bragg
     fn = d.torch_fn(backend="cuda", mode="dfg", fmt=fmt, device=cuda)
     assert fn.plan.use_kernels
+    rng = np.random.default_rng(batch)
+    x = (rng.standard_normal((batch, 1, 1, IMG, IMG)) * 0.2).astype(
+        np.float32)
     registry.reset_launch_counts()
-    got = fn(feeds)
+    got = fn({"input": x})
     assert registry.launch_counts()["dfg_segment"] == 1
     _equal({k: v.cpu().numpy() for k, v in got.items()},
-           d.run(feeds, fmt=FORMATS[fmt] if fmt else None))
+           d.run(d.feeds({"input": x}), fmt=FORMATS[fmt] if fmt else None))
