@@ -14,10 +14,14 @@ Phases, each printing one JSON line (``"phase": ...``):
 4. compile — ``hls.compile(braggnn.build(1, 11))`` with seeded weights.
 5. kernels — each kernel against its plain PyTorch version on the card at
              the shapes its serving path gives it, at batch 256 and at a
-             ragged 100: K1-K3 at every BraggNN(s=1, img=11) call in fp32
-             and at (5,4); K4, the design's DFG segment, value for value in
-             fp32 and at (5,4); K5 at the NLB shape and at one transformer
-             case (causal, window, soft-cap).  Per-call device times of
+             ragged 100: K1 and K2 at every BraggNN(s=1, img=11) call in
+             fp32 and at (5,4); K3 as the nest tier launches it, one chain
+             over the four dense layers (fp32 and (5,4); also value for
+             value against its layers launched one at a time), and one
+             large single layer; K4, the design's DFG segment, value for
+             value in fp32 and at (5,4); K5 at the NLB shape on the NLB's
+             strided views, at head dims 24, 40 and 128, and at one
+             transformer case (causal, window, soft-cap).  Device times of
              kernel, plain version and one PyTorch library call, beside the
              least time the card could take.
 6. slice   — ``Design.serve`` over 8 batches of 256 and one of 100 through
@@ -29,9 +33,12 @@ Phases, each printing one JSON line (``"phase": ...``):
              plans, the kernels' launch counts and the outputs (against the
              numpy functional model, and against the same backend run on
              the CPU) are asserted.
-7. profile — ``torch.profiler`` over a few batches of the nest tier (fp32,
+7. wide    — BraggNN(s=3, img=11), whose NLB head dim is 24, served in
+             the NLB flash mode and held to its CPU run and to
+             ``Design.run``.
+8. profile — ``torch.profiler`` over a few batches of the nest tier (fp32,
              (5,4)), of its NLB flash mode (fp32) and of the DFG tier
-             (fp32, (5,4)).
+             (fp32, (5,4)): device operations and time per batch.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 the last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -57,6 +64,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
 BATCH, RAGGED, N_BATCHES, IMG, S = 256, 100, 8, 11, 1
+#: the wide BraggNN served in the NLB flash mode (head dim 8 * WIDE_S)
+WIDE_S = 3
 #: kernel vs plain version: the same operands (the quantiser is bitwise
 #: equal), fp32 sums taken in another order
 KERNEL_RTOL = KERNEL_ATOL = 1e-5
@@ -269,10 +278,9 @@ def conv_calls(b: int) -> list[dict]:
             for n, x, w, bias, relu in spec]
 
 
-def matmul_calls(b: int) -> list[dict]:
-    dims = [2 * S * (IMG - 6) ** 2, 16 * S, 8 * S, 4 * S, 2]
-    return [{"call": f"dense{i}", "m": b, "k": dims[i], "n": dims[i + 1]}
-            for i in range(4)]
+def dense_dims(s: int) -> list[int]:
+    """BraggNN(s, img=11)'s dense chain: 50 -> 16 -> 8 -> 4 -> 2 at s=1."""
+    return [2 * s * (IMG - 6) ** 2, 16 * s, 8 * s, 4 * s, 2]
 
 
 def softmax_calls(b: int) -> list[dict]:
@@ -363,10 +371,10 @@ def phase_kernels(torch, design) -> dict:
     from repro_torch.kernels.fused_softmax.fused_softmax import \
         fused_softmax
     from repro_torch.kernels.fused_softmax.ref import fused_softmax_ref
-    from repro_torch.kernels.smallfloat_matmul.ref import \
-        smallfloat_matmul_ref
-    from repro_torch.kernels.smallfloat_matmul.smallfloat_matmul import \
-        smallfloat_matmul
+    from repro_torch.kernels.smallfloat_matmul.ref import (
+        Dense, smallfloat_matmul_chain_ref, smallfloat_matmul_ref)
+    from repro_torch.kernels.smallfloat_matmul.smallfloat_matmul import (
+        smallfloat_matmul, smallfloat_matmul_chain)
 
     gen = torch.Generator(device="cuda").manual_seed(5)
 
@@ -444,24 +452,61 @@ def phase_kernels(torch, design) -> dict:
                     timed(rec, c["call"], nbytes, flops,
                           lambda: conv2d_vmem(x, w, bias, **kw),
                           lambda: conv2d_ref(x, w, bias, **kw), lib)
-            for c in matmul_calls(b):
-                x = torch.relu(randn(c["m"], c["k"]))
-                wt = randn(c["n"], c["k"], scale=c["k"] ** -0.5)
-                w = wt.T                    # the nest tier's W.T view
-                bias = randn(c["n"], scale=0.1)
+            # K3: the four dense layers as the nest tier launches them,
+            # one chain (BraggNN(s=1), and the wide model's at the ragged
+            # batch), each weight a W.T view
+            for s_, bb in ((S, b), (WIDE_S, RAGGED)):
+                if s_ == WIDE_S and b != BATCH:
+                    continue
+                dims = dense_dims(s_)
+                x = torch.relu(randn(bb, dims[0]))
+                wts = [randn(n, k, scale=k ** -0.5)
+                       for k, n in zip(dims[:-1], dims[1:])]
+                biases = [randn(n, scale=0.1) for n in dims[1:]]
+                layers = [Dense(w.T, bias, True, fmt)
+                          for w, bias in zip(wts, biases)]
                 eb, mb = fmt if fmt is not None else (None, None)
-                kw = {"exp_bits": eb, "man_bits": mb, "fuse_relu": True,
-                      "out_fmt": fmt}
-                rec = compare("smallfloat_matmul", c["call"], b, fmt,
-                              smallfloat_matmul(x, w, bias, **kw),
-                              smallfloat_matmul_ref(x, w, bias, **kw))
-                if b == BATCH and fmt is None:
-                    m, k, n = c["m"], c["k"], c["n"]
-                    nbytes = 4 * (m * k + k * n + n + m * n)
-                    timed(rec, c["call"], nbytes, 2 * m * k * n,
-                          lambda: smallfloat_matmul(x, w, bias, **kw),
-                          lambda: smallfloat_matmul_ref(x, w, bias, **kw),
-                          lambda: torch.addmm(bias, x, w))
+                kw = {"exp_bits": eb, "man_bits": mb}
+                call = f"dense0..dense3 (s={s_})"
+                got = smallfloat_matmul_chain(x, layers, **kw)
+                rec = compare("smallfloat_matmul", call, bb, fmt, got,
+                              smallfloat_matmul_chain_ref(x, layers, **kw))
+                one = x
+                for ly in layers:
+                    one = smallfloat_matmul_chain(one, [ly], **kw)
+                compare("smallfloat_matmul", f"{call} vs its layers one at "
+                        f"a time", bb, fmt, got, one, exact=True)
+                if bb == BATCH and s_ == S:
+                    nbytes = 4 * (x.numel() + sum(
+                        w.numel() + w.shape[0] for w in wts) + bb * dims[-1])
+                    flops = 2 * bb * sum(w.numel() for w in wts)
+
+                    def library(x=x, wts=wts, biases=biases):
+                        y = x
+                        for w, bias in zip(wts, biases):
+                            y = torch.relu(torch.addmm(bias, y, w.T))
+                        return y
+
+                    if fmt is None:
+                        timed(rec, call, nbytes, flops,
+                              lambda: smallfloat_matmul_chain(x, layers, **kw),
+                              lambda: smallfloat_matmul_chain_ref(
+                                  x, layers, **kw), library)
+                    else:
+                        rec["ms_at_5_4"] = device_ms(
+                            torch, lambda: smallfloat_matmul_chain(
+                                x, layers, **kw), label=f"{call} at (5,4)")
+        # K3 as a chain of one: a single layer larger than the block's
+        # shared memory (K streamed, N split over the grid), fp32 and bf16
+        for dt in (torch.float32, torch.bfloat16):
+            x = randn(512, 256).to(dt)
+            w = randn(1024, 256, scale=256 ** -0.5).to(dt).T
+            bias = randn(1024)
+            kw = {"exp_bits": None, "man_bits": None, "fuse_relu": True}
+            compare("smallfloat_matmul", f"single layer (512, 256, 1024) "
+                    f"{str(dt).split('.')[-1]}", 512, None,
+                    smallfloat_matmul(x, w, bias, **kw),
+                    smallfloat_matmul_ref(x, w, bias, **kw))
         for c in softmax_calls(b):
             # scale 4: rows span about 20, so z / 4 reaches -5, where the
             # order-8 series is far from exp and a kernel that took the
@@ -545,28 +590,44 @@ def phase_kernels(torch, design) -> dict:
     torch.cuda.empty_cache()
 
     # K5: the NLB attention core, and one transformer case
-    from repro_torch.kernels.flash_attention.flash_attention import \
-        flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, launch_shape)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     n, c2 = (IMG - 2) ** 2, 8 * S
+    shapes = {}
     for b in (BATCH, RAGGED):
-        q, k, v = (randn(b, n, c2) for _ in range(3))
+        # as the NLB passes them: (B, c2, n) buffers read, and the result
+        # written, as (B, n, c2) views
+        q, k, v = (randn(b, c2, n).transpose(1, 2) for _ in range(3))
+        o = torch.empty(b, c2, n, device="cuda").transpose(1, 2)
         fkw = {"causal": False}
         rec = compare("flash_attention", "nlb.attention", b, None,
-                      flash_attention(q, k, v, **fkw),
+                      flash_attention(q, k, v, out=o, **fkw),
                       flash_attention_ref(q, k, v, **fkw),
                       rtol=FLASH_RTOL, atol=FLASH_ATOL)
         if b == BATCH:
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+            shapes["nlb"] = launch_shape(b, n, n, c2)
             timed(rec, "nlb.attention", 4 * 4 * q.numel(), 4 * b * n * n * c2,
-                  lambda: flash_attention(q, k, v, **fkw),
+                  lambda: flash_attention(q, k, v, out=o, **fkw),
                   lambda: flash_attention_ref(q, k, v, **fkw),
-                  lambda: F.scaled_dot_product_attention(q, k, v))
-    q, k, v = (randn(8, 128, 32) for _ in range(3))
-    fkw = {"causal": True, "window": 32, "logit_cap": 10.0}
-    compare("flash_attention", "transformer.causal.window32.cap10", 8, None,
-            flash_attention(q, k, v, **fkw),
-            flash_attention_ref(q, k, v, **fkw),
-            rtol=FLASH_RTOL, atol=FLASH_ATOL)
+                  lambda: F.scaled_dot_product_attention(q, k, v),
+                  contiguous_ms=lambda: flash_attention(qc, kc, vc, **fkw))
+    # head dims the kernel once refused (fault P1), on strided views, and
+    # the transformer case
+    for bh, sl, d in ((8, 100, 24), (8, 100, 40), (4, 256, 128),
+                      (8, 128, 32)):
+        q, k, v = (randn(bh, d, sl).transpose(1, 2) for _ in range(3))
+        shapes[f"d{d}"] = launch_shape(bh, sl, sl, d)
+        for fkw in ({"causal": False},
+                    {"causal": True, "window": 32, "logit_cap": 10.0}):
+            compare("flash_attention",
+                    f"({bh}, {sl}, {d}) " + ",".join(
+                        f"{kk}={vv}" for kk, vv in fkw.items()), bh, None,
+                    flash_attention(q, k, v, **fkw),
+                    flash_attention_ref(q, k, v, **fkw),
+                    rtol=FLASH_RTOL, atol=FLASH_ATOL)
+    out["flash_attention"]["launch_shapes"] = shapes
 
     emit({"phase": "kernels", "tolerance": {"rtol": KERNEL_RTOL,
                                             "atol": KERNEL_ATOL},
@@ -576,6 +637,10 @@ def phase_kernels(torch, design) -> dict:
               details, key=lambda d: d["max_abs_err"]),
           "per_call_at_batch": BATCH, "timing_notes": TIMING_NOTES,
           "dfg_segment": out["dfg_segment"]["segment"],
+          "flash_attention_launch_shapes":
+              out["flash_attention"]["launch_shapes"],
+          "smallfloat_matmul_chain_ms_at_5_4":
+              out["smallfloat_matmul"]["ms_at_5_4"],
           "calls": {k: v["calls"] for k, v in out.items()}})
     return out
 
@@ -607,8 +672,9 @@ def phase_slice(torch, design) -> dict:
                for n in [BATCH] * N_BATCHES + [RAGGED]]
     want_plan = {"conv2d_vmem": 2, "conv2d_vmem:relu": 2,
                  "fused_softmax": 1, "smallfloat_matmul:relu": 4}
+    # the four dense layers are one K3 chain launch
     per_batch = {"conv2d_vmem": 7, "fused_softmax": 1,
-                 "smallfloat_matmul": 4}
+                 "smallfloat_matmul": 1}
     runs = len(batches) + 1            # serve warms up on the first batch
     evaluated = [design.run(x[:N_CHECKED].numpy()) for x in batches]
     out_name = next(iter(evaluated[0]))
@@ -688,6 +754,7 @@ def phase_slice(torch, design) -> dict:
         results[tag] = line
     launches.update(serve_flash(torch, design, batches, evaluated, out_name,
                                 want_plan, per_batch))
+    serve_wide(torch, want_plan, per_batch)
     dfg_batches = [batches[i] for i in DFG_BATCHES]
     launches.update(serve_dfg(torch, design, dfg_batches, out_name))
     serve_simd(torch, design, dfg_batches, out_name)
@@ -720,7 +787,7 @@ def _serve_line(rep, backend, fmt, counts, **extra) -> dict:
 
 
 def serve_flash(torch, design, batches, evaluated, out_name, nest_plan,
-                per_batch) -> dict:
+                per_batch, **extra) -> dict:
     """The NLB flash-attention mode: K5 in place of K2 and the two
     contractions.  Held against the CPU run of the same backend and, at
     the true-exp-vs-Taylor tolerance, against ``Design.run``."""
@@ -728,6 +795,8 @@ def serve_flash(torch, design, batches, evaluated, out_name, nest_plan,
     from repro_torch.kernels import registry
 
     tag, kw = "cuda:nlb_flash", {"nlb_flash": True}
+    if "model" in extra:
+        tag += f" {extra['model']}"
     registry.reset_launch_counts()
     rep = design.serve(batches, backend="cuda", cuda_kw=kw, collect=True)
     torch.cuda.synchronize()
@@ -764,8 +833,33 @@ def serve_flash(torch, design, batches, evaluated, out_name, nest_plan,
                              "atol": SLICE_ATOL},
                      vs_evaluate={"max_abs_err": err_run,
                                   "atol": FLASH_VS_TAYLOR_ATOL,
-                                  "samples_per_batch": N_CHECKED}))
+                                  "samples_per_batch": N_CHECKED},
+                     **extra))
     return {"flash_attention": counts["flash_attention"]}
+
+
+def serve_wide(torch, nest_plan, per_batch) -> None:
+    """BraggNN(s=WIDE_S, img=11) in the NLB flash mode: the NLB's head dim
+    is 8 * WIDE_S = 24, which K5 once refused (fault P1).  Two batches of
+    256 and the ragged 100, with the checks and launch counts of the s=1
+    flash mode."""
+    import repro_torch.hls as hls
+    from repro_torch.models import braggnn
+    from repro_torch.nn.module import init_tree
+
+    model = braggnn.build(WIDE_S, IMG)
+    t0 = time.perf_counter()
+    design = hls.compile(model.bind(init_tree(
+        model.specs(), torch.Generator().manual_seed(0))))
+    compile_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(2)
+    batches = [braggnn.synthetic_peaks(n, IMG, gen)[0]
+               for n in (BATCH, BATCH, RAGGED)]
+    evaluated = [design.run(x[:N_CHECKED].numpy()) for x in batches]
+    serve_flash(torch, design, batches, evaluated, next(iter(evaluated[0])),
+                nest_plan, per_batch,
+                model=f"BraggNN(s={WIDE_S}, img={IMG})",
+                head_dim=8 * WIDE_S, compile_s=compile_s)
 
 
 def serve_dfg(torch, design, batches, out_name) -> dict:
@@ -890,7 +984,7 @@ def phase_profile(torch, design, x, fmt, cuda_kw=None,
     emit({"phase": "profile", "fmt": fmt, "mode": fn.plan.mode,
           "cuda_kw": cuda_kw or {}, "batch": BATCH,
           "reps": reps,
-          "device_launches_per_batch": sum(k["calls"] for k in kernels),
+          "device_operations_per_batch": sum(k["calls"] for k in kernels),
           "host_us_per_batch": wall_us / reps,
           "device_busy_us_per_batch": busy,
           "device_idle_share": (1.0 - busy * reps / wall_us

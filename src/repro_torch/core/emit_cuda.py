@@ -66,6 +66,10 @@ from repro_torch.core import emit
 from repro_torch.core.ir import Graph
 from repro_torch.core.precision import FORMATS, FloatFormat, quantize
 from repro_torch.kernels import registry as kreg
+from repro_torch.kernels.smallfloat_matmul import ops as mm_ops
+from repro_torch.kernels.smallfloat_matmul import \
+    smallfloat_matmul as mm_kernel
+from repro_torch.kernels.smallfloat_matmul.ref import Dense
 
 
 def _norm_fmt(fmt) -> tuple[Optional[FloatFormat], Optional[str]]:
@@ -468,7 +472,7 @@ def _lower_dfg(g: Graph, *, fmt_obj, fmt_tuple, dev: torch.device,
 # ---------------------------------------------------------------------------
 
 def _lower_module(module, *, fmt_obj, fmt_tuple, nlb_flash: bool,
-                  plan: KernelPlan):
+                  plan: KernelPlan, device):
     from repro_torch.nn import graph as nng
 
     if module.input_shape[0] != 1 and len(module.input_shape) != 2:
@@ -526,19 +530,42 @@ def _lower_module(module, *, fmt_obj, fmt_tuple, nlb_flash: bool,
                         y = torch.relu(y)
                     return q(y)
         elif isinstance(node, nng.Linear):
-            wn, bn = f"{node.prefix}.weight", f"{node.prefix}.bias"
-            has_b = node.bias
+            # the maximal run of consecutive Linear nodes, each with its
+            # following ReLU fused, goes to one chain launch where the
+            # kernel takes it; else each node is a chain of one
+            run, j = [], i
+            while j < len(nodes) and isinstance(nodes[j], nng.Linear):
+                relu = (j + 1 < len(nodes)
+                        and isinstance(nodes[j + 1],
+                                       (nng.ReLU, nng.OutputReLU)))
+                run.append((nodes[j], relu))
+                plan.record_kernel(mm_e.name + (":relu" if relu else ""))
+                j += 2 if relu else 1
+            dims = [run[0][0].in_features] + [n.out_features
+                                              for n, _ in run]
+            chains = ([run] if len(run) > 1 and mm_kernel.chain_fits(
+                dims, device) else [[r] for r in run])
             eb = fmt_obj.exp_bits if fmt_obj is not None else None
             mb = fmt_obj.man_bits if fmt_obj is not None else None
-            plan.record_kernel(mm_e.name + (":relu" if fuse_relu else ""))
+            for chain in chains:
+                spec = [(f"{n.prefix}.weight", f"{n.prefix}.bias" if n.bias
+                         else None, relu) for n, relu in chain]
 
-            def step(x, w, wn=wn, bn=bn, has_b=has_b, fr=fuse_relu,
-                     eb=eb, mb=mb):
-                # loop-nest semantics: out = x @ W.T + b (W.T is a strided
-                # view the kernel reads in place)
-                return mm_e.fn(x, w[wn].T, w[bn] if has_b else None,
-                               exp_bits=eb, man_bits=mb, fuse_relu=fr,
-                               out_fmt=fmt_tuple)
+                def step(x, w, spec=spec, eb=eb, mb=mb):
+                    # loop-nest semantics: out = x @ W.T + b (W.T is a
+                    # strided view the kernel reads in place)
+                    return mm_ops.matmul_chain(
+                        x, [Dense(w[wn].T, w[bn] if bn else None, relu,
+                                  fmt_tuple) for wn, bn, relu in spec],
+                        exp_bits=eb, man_bits=mb)
+                steps.append(step)
+                label = _node_label(chain[0][0])
+                if len(chain) > 1:
+                    label += f"..{_node_label(chain[-1][0])}"
+                step_labels.append(label + (":relu" if chain[-1][1]
+                                            else ""))
+            i = j
+            continue
         elif isinstance(node, nng.Softmax):
             plan.record_kernel(sm_e.name)
 
@@ -676,11 +703,17 @@ def _nlb_step(node, conv_e, sm_e, fa_e, fmt_tuple, nlb_flash: bool,
         gf = g.reshape(b, c2, n)
         if use_flash:
             # A = softmax(theta^T phi) — flash divides logits by sqrt(D),
-            # so pre-scale q to keep the DFG's unscaled scores
-            qv = (tf * float(np.sqrt(np.float32(c2)))).transpose(1, 2)
-            y = fa_e.fn(qv[:, :, None, :], pf.transpose(1, 2)[:, :, None, :],
-                        gf.transpose(1, 2)[:, :, None, :], causal=False)
-            yc = y[:, :, 0, :].transpose(1, 2)                # (B, c2, n)
+            # so pre-scale q to keep the DFG's unscaled scores.  The kernel
+            # reads q, k, v as (B, n, 1, c2) views of their (B, c2, n)
+            # layout and writes its result in that layout, which the
+            # out-projection conv then reads as it is
+            qv = tf * float(np.sqrt(np.float32(c2)))
+            yc = torch.empty_like(qv)                          # (B, c2, n)
+
+            def heads(t):
+                return t.transpose(1, 2)[:, :, None, :]
+            fa_e.fn(heads(qv), heads(pf), heads(gf), causal=False,
+                    out=heads(yc))
         else:
             # scores[b,i,j] = sum_c theta[b,c,i] phi[b,c,j]
             scores = torch.bmm(tf.transpose(1, 2), pf)
@@ -688,7 +721,7 @@ def _nlb_step(node, conv_e, sm_e, fa_e, fmt_tuple, nlb_flash: bool,
                            in_fmt=fmt_tuple)
             # mix[b,c,i] = sum_j attn[b,i,j] g[b,c,j]
             yc = torch.bmm(gf, attn.transpose(1, 2))
-        y4 = yc.reshape(b, c2, h, h).contiguous()
+        y4 = yc.reshape(b, c2, h, h)          # a view of a contiguous yc
         # the residual sum goes in the out-projection conv's epilogue
         return conv(y4, w[f"{pre}.out_cnn.weight"], residual=x)
 
@@ -758,7 +791,7 @@ def to_cuda_fn(g: Graph, *, module=None, fmt=None, mode: str = "auto",
     with obs.span("emit.cuda", cat="cuda", mode=mode, fmt=fmt_key) as sp:
         core, weight_names, _ = _lower_module(
             module, fmt_obj=fmt_obj, fmt_tuple=fmt_tuple,
-            nlb_flash=nlb_flash, plan=plan)
+            nlb_flash=nlb_flash, plan=plan, device=dev)
         sp.set(kernels=sum(plan.kernels.values()),
                fallbacks=len(plan.fallbacks))
     _plan_metrics(plan)

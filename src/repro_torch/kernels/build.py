@@ -29,18 +29,21 @@ FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: C entry point -> argument types (every one returns a cudaError_t as int)
 SIGNATURES = {
     "conv2d_vmem_f32": [_P] * 5 + [_I] * 12 + [_P],
     "conv2d_vmem_smem_bytes": [_I] * 6,
     "fused_softmax_f32": [_P, _P] + [_I] * 6 + [_P],
     "fused_softmax_rows_per_block": [_I, _I],
-    "smallfloat_matmul_f32": [_P] * 4 + [_I] * 12 + [_P],
-    "smallfloat_matmul_bf16": [_P] * 4 + [_I] * 12 + [_P],
+    "smallfloat_matmul_chain": [_P, _P, _I, _L, _L, _I, _P, _I, _I, _I,
+                                _P],
+    "smallfloat_matmul_smem_grant": [_P],
     "quantize_f32": [_P, _P, ctypes.c_longlong, _I, _I, _P],
     "dfg_segment_f32": [_P, ctypes.c_longlong, _P, _P] + [_I] * 5 + [_P],
     "dfg_segment_shape": [_I, _P],
-    "flash_attention_f32": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P],
+    "flash_attention_f32": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P],
+    "flash_attention_shape": [_I] * 4 + [_P],
 }
 
 

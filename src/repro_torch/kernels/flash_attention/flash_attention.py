@@ -3,12 +3,15 @@
 
 Online-softmax attention over (BH, S, D) fp32 with heads pre-flattened
 into BH, scale 1/sqrt(D), optionally causal, windowed and soft-capped —
-the reference ``flash_attention``'s contract, any S.
-``flash_attention.launches`` counts the launches.
+the reference ``flash_attention``'s contract, any S and any D up to
+``MAX_HEAD_DIM``.  The operands may be strided views, and may keep batch
+and heads apart as (B, H, S, D).  ``flash_attention.launches`` counts the
+launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -16,36 +19,73 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels._checks import require, same_device
 
-#: head dimensions the kernel is instantiated for
-HEAD_DIMS = (8, 16, 32, 64)
+#: the widest head the kernel takes
+MAX_HEAD_DIM = 256
+
+
+def _heads(t: torch.Tensor, name: str) -> tuple[int, int, list[int]]:
+    """(B, H) and the element strides (B, H, S, D) of a 3-D (BH, S, D) or
+    4-D (B, H, S, D) view."""
+    if t.dim() == 3:
+        return t.shape[0], 1, [t.stride(0), 0, t.stride(1), t.stride(2)]
+    if t.dim() == 4:
+        return t.shape[0], t.shape[1], list(t.stride())
+    raise ValueError(f"{name}: expected (BH, S, D) or (B, H, S, D), got "
+                     f"shape {tuple(t.shape)}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    logit_cap: float = 0.0) -> torch.Tensor:
-    """q: (BH, Sq, D), k/v: (BH, Skv, D), contiguous fp32 on one CUDA
-    device -> (BH, Sq, D)."""
-    require(q, "q", ndim=3)
-    require(k, "k", ndim=3)
-    require(v, "v", ndim=3)
-    same_device(q, k, v)
-    bh, sq, d = q.shape
-    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
+                    logit_cap: float = 0.0,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (BH, Sq, D), k/v: (BH, Skv, D) — or (B, H, S, D) — fp32 views on
+    one CUDA device, any strides -> (BH, Sq, D), written into ``out`` (a
+    view of q's shape, any strides) when it is given."""
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        require(t, name, ndim=q.dim(), contiguous=False)
+    same_device(q, k, v, out)
+    nb, nh, q_strides = _heads(q, "q")
+    sq, d = q.shape[-2:]
+    skv = k.shape[-2]
+    if (k.shape != v.shape or k.shape[:-2] != q.shape[:-2]
+            or k.shape[-1] != d):
         raise ValueError(f"attention shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
-    out = torch.empty_like(q)
-    if bh == 0 or sq == 0:
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d}: the kernel takes 1 to "
+                         f"{MAX_HEAD_DIM}")
+    if out is None:
+        out = torch.empty(q.shape, device=q.device, dtype=torch.float32)
+    else:
+        require(out, "out", ndim=q.dim(), contiguous=False)
+        if out.shape != q.shape:
+            raise ValueError(f"out {tuple(out.shape)} is not q's shape "
+                             f"{tuple(q.shape)}")
+    if q.numel() == 0:
         return out
+    strides = q_strides + _heads(k, "k")[2] + _heads(v, "v")[2] \
+        + _heads(out, "out")[2]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = build.library().flash_attention_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-        k.shape[1], d, int(causal), int(window or 0), float(logit_cap),
-        stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        (ctypes.c_longlong * 16)(*strides), nb, nh, sq, skv, d,
+        int(causal), int(window or 0), float(logit_cap), stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+def launch_shape(bh: int, sq: int, skv: int, d: int) -> dict:
+    """The launch the kernel makes for these sizes on the current card:
+    lanes per query row, head-dim chunk, query rows and heads per block,
+    keys per staged tile, threads, shared memory, blocks, and the blocks
+    and warps resident per SM."""
+    vals = (ctypes.c_int * 10)()
+    build.check(build.library().flash_attention_shape(bh, sq, skv, d, vals),
+                "flash_attention")
+    keys = ("lanes", "chunk", "rows", "heads", "keys_per_tile", "threads",
+            "smem_bytes", "blocks", "blocks_per_sm", "warps_per_sm")
+    return dict(zip(keys, vals))
 
 
 flash_attention.launches = 0

@@ -14,18 +14,29 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
-              logit_cap: float = 0.0) -> torch.Tensor:
-    """q: (B, S, H, D), k/v: (B, S, K, D) with H % K == 0."""
+              logit_cap: float = 0.0,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B, S, H, D), k/v: (B, S, K, D) with H % K == 0 -> (B, S, H, D),
+    written into ``out`` (any strides) when it is given.  The kernel reads
+    the operands in place as (B, H, S, D) views; only grouped KV heads
+    (K < H) are repeated into a copy."""
     b, s, h, d = q.shape
     n_kv = k.shape[2]
     if h % n_kv:
         raise ValueError(f"{h} query heads over {n_kv} kv heads")
     g = h // n_kv
-    qf = q.transpose(1, 2).reshape(b * h, s, d).contiguous()
-    kf = k.transpose(1, 2).repeat_interleave(g, dim=1).reshape(
-        b * h, -1, d).contiguous()
-    vf = v.transpose(1, 2).repeat_interleave(g, dim=1).reshape(
-        b * h, -1, d).contiguous()
-    fn = flash_attention_ref if q.device.type == "cpu" else flash_attention
-    of = fn(qf, kf, vf, causal=causal, window=window, logit_cap=logit_cap)
-    return of.reshape(b, h, s, d).transpose(1, 2)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if g > 1:
+        kh = kh.repeat_interleave(g, dim=1)
+        vh = vh.repeat_interleave(g, dim=1)
+    kw = {"causal": causal, "window": window, "logit_cap": logit_cap}
+    if q.device.type != "cpu":
+        if out is None:
+            out = torch.empty(q.shape, device=q.device, dtype=torch.float32)
+        flash_attention(qh, kh, vh, out=out.transpose(1, 2), **kw)
+        return out
+    of = flash_attention_ref(qh.reshape(b * h, s, d),
+                             kh.reshape(b * h, -1, d),
+                             vh.reshape(b * h, -1, d), **kw)
+    of = of.reshape(b, h, s, d).transpose(1, 2)
+    return of if out is None else out.copy_(of)

@@ -104,8 +104,10 @@ def _register_kernels() -> None:
         kernel=_mm_mod.smallfloat_matmul,
         oracle=_mm_ref.smallfloat_matmul_ref,
         accelerates=("Linear", "MLP", "Attention.proj"),
-        description="tiled matmul, fp32 FMA accumulate, optional (wE,wF) "
-                    "operand and result quantisation, fused bias/ReLU"))
+        description="a chain of dense layers in one launch (the nest "
+                    "tier's runs of Linear), fp32 FMA accumulate, "
+                    "optional (wE,wF) operand and result quantisation, "
+                    "fused bias/ReLU"))
     register(KernelEntry(
         name="fused_softmax",
         fn=_sm_ops.softmax,
@@ -121,9 +123,10 @@ def _register_kernels() -> None:
         kernel=_fa_mod.flash_attention,
         oracle=_fa_ref.flash_attention_ref,
         accelerates=("NonLocalBlock.attention", "Attention"),
-        description="online-softmax attention, K/V tiles in shared "
-                    "memory; NLB throughput mode (true-exp softmax — not "
-                    "the Taylor functional model)"))
+        description="online-softmax attention over strided views, any "
+                    "head dim to 256, K/V staged in shared memory once "
+                    "per block; NLB throughput mode (true-exp softmax — "
+                    "not the Taylor functional model)"))
 
 
 _register_kernels()

@@ -1,12 +1,23 @@
-"""Plain PyTorch version of smallfloat_matmul: quantise, then ``@``."""
+"""Plain PyTorch version of smallfloat_matmul: quantise, then ``@``; a
+chain is the composition of its layers."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch.core.precision import FloatFormat, quantize
+
+
+class Dense(NamedTuple):
+    """One layer of a chain: ``x @ w + b``, then ReLU, then the result
+    rounded to ``out_fmt``."""
+
+    w: torch.Tensor                         #: (K, N), any strides
+    b: Optional[torch.Tensor] = None        #: (N,) fp32
+    relu: bool = False
+    out_fmt: Optional[tuple[int, int]] = None
 
 
 def smallfloat_matmul_ref(x: torch.Tensor, w: torch.Tensor,
@@ -29,3 +40,15 @@ def smallfloat_matmul_ref(x: torch.Tensor, w: torch.Tensor,
     if out_fmt is not None:
         out = quantize(out, FloatFormat(*out_fmt))
     return out
+
+
+def smallfloat_matmul_chain_ref(x: torch.Tensor, layers: Sequence[Dense], *,
+                                exp_bits: Optional[int] = 5,
+                                man_bits: Optional[int] = 4) -> torch.Tensor:
+    """The layers one after another, each through
+    :func:`smallfloat_matmul_ref`."""
+    for ly in layers:
+        x = smallfloat_matmul_ref(x, ly.w, ly.b, exp_bits=exp_bits,
+                                  man_bits=man_bits, fuse_relu=ly.relu,
+                                  out_fmt=ly.out_fmt)
+    return x

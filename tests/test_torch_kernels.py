@@ -11,8 +11,9 @@ plain versions are what is held against the reference here:
   pre-quantised with ``quantize_np`` and ``fmt=None``, which keeps the
   reference's jnp quantiser (fault R1 in ROADMAP.md) out of the check.
 
-The CUDA kernels themselves run only on a card: those tests carry the
-``gpu`` marker and skip here.
+The K3 chain's plain version is held against the reference's matmul
+applied layer by layer.  The CUDA kernels themselves run only on a card:
+those tests carry the ``gpu`` marker and skip here.
 """
 
 import shutil
@@ -36,10 +37,12 @@ from repro_torch.kernels.fused_softmax.fused_softmax import \
 from repro_torch.kernels.fused_softmax.ref import \
     fused_softmax_ref  # noqa: E402
 from repro_torch.kernels.smallfloat_matmul import ops as mm_ops  # noqa: E402
-from repro_torch.kernels.smallfloat_matmul.ref import \
-    smallfloat_matmul_ref  # noqa: E402
-from repro_torch.kernels.smallfloat_matmul.smallfloat_matmul import \
-    smallfloat_matmul  # noqa: E402
+from repro_torch.kernels.smallfloat_matmul import \
+    smallfloat_matmul as mm_kernel  # noqa: E402
+from repro_torch.kernels.smallfloat_matmul.ref import (  # noqa: E402
+    Dense, smallfloat_matmul_chain_ref, smallfloat_matmul_ref)
+from repro_torch.kernels.smallfloat_matmul.smallfloat_matmul import (  # noqa
+    smallfloat_matmul, smallfloat_matmul_chain)
 
 #: plain version vs reference kernel: same operands, another summation order
 RTOL = ATOL = 1e-5
@@ -154,6 +157,101 @@ def test_matmul_plain_takes_a_transposed_weight_view():
     assert not wt.is_contiguous()
     _close(mm_ops.matmul(_t(x), wt, exp_bits=5, man_bits=4),
            smallfloat_matmul_ref(_t(x), _t(w)))
+
+
+#: BraggNN's dense chains: (s=1, img=11) and (s=3, img=11)
+CHAIN_DIMS = [(50, 16, 8, 4, 2), (150, 48, 24, 12, 2)]
+
+
+def _chain(dims, seed, fmt, *, relu_last=True):
+    """Seeded layers of a chain as the nest tier hands them over: each
+    weight a transposed view of its (N, K) array."""
+    layers = []
+    for i, (k, n) in enumerate(zip(dims[:-1], dims[1:])):
+        wt = _rand(seed + i, n, k, scale=k ** -0.5)
+        layers.append((wt, _rand(seed + 50 + i, n, scale=0.1),
+                       relu_last or i < len(dims) - 2))
+    return layers
+
+
+def _dense(layers, fmt, device="cpu"):
+    return [Dense(_t(wt).to(device).T, _t(b).to(device), relu, fmt)
+            for wt, b, relu in layers]
+
+
+@pytest.mark.parametrize("dims", CHAIN_DIMS)
+@pytest.mark.parametrize("fmt", [None, (5, 4)])
+def test_chain_plain_matches_reference_layer_by_layer(ref, dims, fmt):
+    """The chain's plain version against the reference's matmul applied
+    layer by layer, with the reference's rounding between layers: at fp32
+    its Pallas kernel in interpret mode (its jnp oracle where a width over
+    128 does not tile, fault R3), at (5,4) its oracle on operands and
+    results rounded by the reference's numpy quantiser."""
+    from repro.core.precision import FloatFormat as RefFormat
+    from repro.core.precision import quantize_np as ref_quantize_np
+    ref_registry, jnp = ref
+    entry = ref_registry.get("smallfloat_matmul")
+    layers = _chain(dims, 17, fmt)
+    x = np.maximum(_rand(3, 4, dims[0]), 0.0)
+    want = x
+    for wt, b, relu in layers:
+        if fmt is None:
+            want = np.asarray(entry.fn(
+                jnp.asarray(want), jnp.asarray(wt.T), jnp.asarray(b),
+                exp_bits=None, man_bits=None, fuse_relu=relu,
+                use_pallas=max(dims) <= 128, interpret=True))
+        else:
+            def rq(a):
+                return ref_quantize_np(np.asarray(a, np.float32),
+                                       RefFormat(*fmt))
+            want = rq(entry.oracle(jnp.asarray(rq(want)),
+                                   jnp.asarray(rq(wt.T)), jnp.asarray(b),
+                                   exp_bits=None, fuse_relu=relu))
+    eb, mb = fmt if fmt else (None, None)
+    got = mm_ops.matmul_chain(_t(x), _dense(layers, fmt), exp_bits=eb,
+                              man_bits=mb)
+    assert got.shape == (4, dims[-1])
+    _close(got, want)
+
+
+@pytest.mark.parametrize("fmt", [None, (5, 4)])
+def test_chain_plain_is_its_layers_one_at_a_time(fmt):
+    layers = _dense(_chain(CHAIN_DIMS[0], 5, fmt, relu_last=False), fmt)
+    x = _t(_rand(9, 6, CHAIN_DIMS[0][0]))
+    eb, mb = fmt if fmt else (None, None)
+    want = x
+    for ly in layers:
+        want = mm_ops.matmul(want, ly.w, ly.b, exp_bits=eb, man_bits=mb,
+                             fuse_relu=ly.relu, out_fmt=ly.out_fmt)
+    got = smallfloat_matmul_chain_ref(x, layers, exp_bits=eb, man_bits=mb)
+    assert torch.equal(got, want)
+
+
+def test_chain_rule_follows_the_shapes():
+    """What one launch takes: 2 to 8 layers, inner widths <= 256, weights
+    within the shared memory a block is granted (the H100's figure for a
+    CPU device)."""
+    assert mm_kernel.chain_smem_bytes([50, 16, 8, 4, 2]) == 4 * (
+        16 * 51 + 8 * 17 + 4 * 9 + 2 * 5 + 4 * (51 + 2 * 17))
+    assert mm_kernel.smem_grant("cpu") == mm_kernel.H100_SMEM_GRANT
+    for dims in CHAIN_DIMS:
+        assert mm_kernel.chain_fits(list(dims), "cpu")
+    assert not mm_kernel.chain_fits([50, 16], "cpu")          # one layer
+    assert not mm_kernel.chain_fits([8, 257, 2], "cpu")       # inner width
+    assert mm_kernel.chain_fits([8, 256, 2], "cpu")
+    assert not mm_kernel.chain_fits([8] * 10, "cpu")          # 9 layers
+    assert not mm_kernel.chain_fits([4096, 16, 2], "cpu")     # 256 KB
+
+
+def test_chain_launcher_refuses_cpu_tensors_and_bad_chains():
+    x = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        smallfloat_matmul_chain(x, [Dense(torch.zeros(8, 2))])
+    registry.reset_launch_counts()
+    got = mm_ops.matmul_chain(x, [Dense(torch.zeros(8, 3), relu=True),
+                                  Dense(torch.ones(3, 2))])
+    assert got.shape == (4, 2) and not any(
+        registry.launch_counts().values())
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +538,62 @@ def test_matmul_kernel_matches_plain_on_card(cuda, m, k, n, dtype, fmt):
     want = smallfloat_matmul_ref(xd, wd, bd, exp_bits=eb, man_bits=mb,
                                  fuse_relu=True)
     _close(got.cpu(), want.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,dims", [(256, CHAIN_DIMS[0]),
+                                    (100, CHAIN_DIMS[1])])
+@pytest.mark.parametrize("fmt", [None, (5, 4)])
+def test_chain_kernel_matches_plain_and_its_layers_on_card(cuda, b, dims,
+                                                           fmt):
+    """One launch for the whole chain, within 1e-5 of the plain chain and
+    value for value the chain's layers launched one at a time."""
+    layers = _dense(_chain(dims, 11, fmt), fmt, cuda)
+    x = _t(np.maximum(_rand(b, b, dims[0]), 0.0)).to(cuda)
+    eb, mb = fmt if fmt else (None, None)
+    before = smallfloat_matmul.launches
+    got = smallfloat_matmul_chain(x, layers, exp_bits=eb, man_bits=mb)
+    assert smallfloat_matmul.launches == before + 1
+    _close(got.cpu(), smallfloat_matmul_chain_ref(
+        x, layers, exp_bits=eb, man_bits=mb).cpu())
+    one = x
+    for ly in layers:
+        one = smallfloat_matmul_chain(one, [ly], exp_bits=eb, man_bits=mb)
+    assert torch.equal(got, one)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", [None, (5, 4)])
+def test_chain_kernel_takes_layers_without_bias_or_relu_on_card(cuda, fmt):
+    layers = [Dense(ly.w, None if i % 2 else ly.b, bool(i % 2), ly.out_fmt)
+              for i, ly in enumerate(_dense(_chain(CHAIN_DIMS[0], 21, fmt),
+                                            fmt, cuda))]
+    x = _t(_rand(22, 37, CHAIN_DIMS[0][0])).to(cuda)
+    eb, mb = fmt if fmt else (None, None)
+    _close(smallfloat_matmul_chain(x, layers, exp_bits=eb,
+                                   man_bits=mb).cpu(),
+           smallfloat_matmul_chain_ref(x, layers, exp_bits=eb,
+                                       man_bits=mb).cpu())
+
+
+@pytest.mark.gpu
+def test_chain_kernel_refuses_a_chain_over_its_limits_on_card(cuda):
+    x = torch.zeros(4, 8, device=cuda)
+    wide = [Dense(torch.zeros(8, 300, device=cuda)),
+            Dense(torch.zeros(300, 2, device=cuda))]
+    with pytest.raises(ValueError, match="inner widths <= 256"):
+        smallfloat_matmul_chain(x, wide)
+    grant = mm_kernel.smem_grant(cuda)
+    assert grant >= 227 * 1024          # an H100 grants 227 KB a block
+    k = grant // 4 // 16 + 1            # a (k, 16) weight past the grant
+    big = [Dense(torch.zeros(k, 16, device=cuda)),
+           Dense(torch.zeros(16, 2, device=cuda))]
+    with pytest.raises(ValueError, match="shared memory"):
+        smallfloat_matmul_chain(torch.zeros(4, k, device=cuda), big)
+    # the same widths as chains of one
+    y = smallfloat_matmul_chain(torch.ones(4, k, device=cuda), big[:1],
+                                exp_bits=None)
+    assert y.shape == (4, 16) and not bool(y.any())
 
 
 def _softmax_max_cols(order):

@@ -131,6 +131,65 @@ def test_nest_tier_leaves_the_rounding_to_the_kernels(design, x,
     assert calls == []
 
 
+@pytest.mark.parametrize("fmt,cuda_kw", [(None, {}), ("5_4", {}),
+                                         (None, {"nlb_flash": True})])
+def test_nest_runner_launches_the_dense_chain_once_per_batch(
+        ref_design, design, x, monkeypatch, fmt, cuda_kw):
+    """BraggNN's four Linear layers (each with its ReLU) go to the K3
+    chain wrapper as one chain of four, once per batch; the plan still
+    records them layer by layer, as the reference's does."""
+    from repro_torch.kernels.smallfloat_matmul import ops as mm_ops
+    calls, real = [], mm_ops.matmul_chain
+
+    def counting(xx, layers, **kw):
+        calls.append([tuple(ly.w.shape) for ly in layers])
+        return real(xx, layers, **kw)
+
+    monkeypatch.setattr(mm_ops, "matmul_chain", counting)
+    fn = design.torch_fn(backend="cuda", device="cpu", fmt=fmt, **cuda_kw)
+    rfn = ref_design.jax_fn(backend="pallas", use_pallas=False, fmt=fmt,
+                            **cuda_kw)
+    assert fn.plan.kernels == rfn.plan.kernels
+    assert fn.plan.kernels["smallfloat_matmul:relu"] == 4
+    fn(x)
+    fn(x[:3])
+    chain = [(50 if IMG == 11 else 18, 16), (16, 8), (8, 4), (4, 2)]
+    assert calls == [chain, chain]
+
+
+def test_a_run_the_chain_does_not_take_goes_as_chains_of_one(monkeypatch):
+    """An inner width over 256 is decided at build, from the shapes: each
+    Linear is then a chain of one."""
+    from repro_torch.kernels.smallfloat_matmul import ops as mm_ops
+    m = nng.ModuleGraph("wide", (1, 1, 4, 4), [
+        nng.Flatten(out_name_="flat"),
+        nng.Linear("d0", in_features=16, out_features=300),
+        nng.ReLU(out_name_="r0"),
+        nng.Linear("d1", in_features=300, out_features=2)])
+    m = m.bind(init_tree(m.specs(), torch.Generator().manual_seed(0)))
+    calls, real = [], mm_ops.matmul_chain
+
+    def counting(xx, layers, **kw):
+        calls.append(len(layers))
+        return real(xx, layers, **kw)
+
+    monkeypatch.setattr(mm_ops, "matmul_chain", counting)
+    fn = to_cuda_fn(None, module=m, device="cpu")
+    xs = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1, (3, 1, 1, 4, 4)).astype(np.float32))
+    got = next(iter(fn(xs).values()))
+    assert calls == [1, 1]
+    assert fn.plan.kernels == {"smallfloat_matmul:relu": 1,
+                               "smallfloat_matmul": 1}
+    w = m.weight_feeds()
+    h = torch.relu(xs.reshape(3, 16) @ torch.as_tensor(w["d0.weight"]).T
+                   + torch.as_tensor(w["d0.bias"]))
+    want = h @ torch.as_tensor(w["d1.weight"]).T + torch.as_tensor(
+        w["d1.bias"])
+    np.testing.assert_allclose(got.reshape(3, 2).numpy(), want.numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
 def test_nest_tier_fp32_matches_evaluate(design, x):
     want = design.run(x)
     got = design.torch_fn(backend="cuda", device="cpu")(x)
@@ -328,11 +387,13 @@ def test_slice_on_card_matches_evaluate_and_launches_kernels(x):
     batches = [x[:, 0], x[:3, 0]]
     registry.reset_launch_counts()
     rep = d.serve(batches, backend="cuda", collect=True)
+    # the four dense layers are one chain launch per batch (and one more
+    # for the warm-up run)
     assert registry.launch_counts() == {"conv2d_vmem": 21,
                                         "dfg_segment": 0,
                                         "flash_attention": 0,
                                         "fused_softmax": 3,
-                                        "smallfloat_matmul": 12}
+                                        "smallfloat_matmul": 3}
     for out, xb in zip(rep.outputs, batches):
         want = d.run(xb)
         for k in want:
