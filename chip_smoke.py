@@ -39,6 +39,20 @@ Phases, each printing one JSON line (``"phase": ...``):
 8. profile — ``torch.profiler`` over a few batches of the nest tier (fp32,
              (5,4)), of its NLB flash mode (fp32) and of the DFG tier
              (fp32, (5,4)): device operations and time per batch.
+9. graphs  — the serving runner's captured CUDA graphs on every path (nest
+             fp32 and (5,4), the flash mode, the DFG tier fp32 and (5,4),
+             ``simd``, ``tensor``): at batch 256 and the ragged 100 a replay
+             equals the eager runner value for value and launches what an
+             eager batch launches; ``Design.serve`` p50 and p99 over 200
+             batches of 256; the profiler over replayed batches.
+10. engine — ``DesignEngine`` (nest fp32, ``default_buckets(256)``,
+             threaded) over 4,096 requests, equal to ``Design.serve``
+             bitwise; then the same run with one poisoned dispatch, and
+             with two, each restarting the replica from a saved artifact.
+11. trigger — ``check_budget(part="alveo_u280")``; ``TriggerLoop`` over
+             2,000 frames of ``DetectorFeed(img=11, seed=11)`` at windows 1
+             and 64, against the same loop on the CPU; then in real time at
+             the feed's 1 kHz against a stated deadline.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 the last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -87,6 +101,26 @@ FLASH_VS_TAYLOR_ATOL = 5e-2
 DFG_BATCHES = (0, 1, -1)
 #: the DFG tier's plan at img 11: segments, groups, elided scatters
 DFG_PLAN = (1, 138, 68)
+#: the serving paths whose runners capture CUDA graphs: (label, backend,
+#: fmt, cuda_kw)
+GRAPH_PATHS = (("nest fp32", "cuda", None, None),
+               ("nest 5_4", "cuda", "5_4", None),
+               ("flash fp32", "cuda", None, {"nlb_flash": True}),
+               ("dfg fp32", "cuda", None, {"mode": "dfg"}),
+               ("dfg 5_4", "cuda", "5_4", {"mode": "dfg"}),
+               ("simd", "simd", None, None),
+               ("tensor", "tensor", None, None))
+#: batches of 256 each captured path serves for its p50 and p99
+GRAPH_SERVE_BATCHES = 200
+#: the engine's load: requests, its bucket ceiling, and its deadline
+#: trigger (long enough that the size trigger cuts every dispatch)
+ENGINE_REQUESTS, ENGINE_MAX_BATCH, ENGINE_DELAY_MS = 4096, 256, 50.0
+#: the trigger's stream: frames per run, the windows, and the decision
+#: deadline in real time (one frame period of the 1 kHz feed)
+TRIGGER_FRAMES, TRIGGER_WINDOWS, TRIGGER_DEADLINE_US = 2000, (1, 64), 1000.0
+#: card vs CPU trigger decisions may differ only this close to the
+#: threshold (relative to max(1, |threshold|))
+DECISION_BAND = 1e-4
 
 
 class SmokeFailure(Exception):
@@ -952,17 +986,27 @@ def phase_profile(torch, design, x, fmt, cuda_kw=None,
     ``cuda_kw`` selects), after the counted runs.  Device time and
     launches by kernel name, the device's busy and idle share of the
     host's wall time, and the host time per batch."""
-    from torch.profiler import ProfilerActivity, profile
     fn = design.torch_fn(backend="cuda", fmt=fmt, **(cuda_kw or {}))
     if fn.plan.mode == "dfg":
         x = {"input": x[:, None]}          # the DFG tier takes feed dicts
-    fn(x)
+    emit({"phase": "profile", "fmt": fmt, "mode": fn.plan.mode,
+          "cuda_kw": cuda_kw or {}, "batch": BATCH, "reps": reps,
+          **device_profile(torch, lambda: fn(x), reps)})
+
+
+def device_profile(torch, step, reps: int = 5) -> dict:
+    """``torch.profiler`` over ``reps`` calls of ``step``, each ending in a
+    synchronise, after one untraced call: device operations and device
+    time per call by kernel name, busy time and idle share of the host's
+    wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            fn(x)
+            step()
             torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = []
@@ -981,15 +1025,263 @@ def phase_profile(torch, design, x, fmt, cuda_kw=None,
                             "device_us_per_batch": dev_us / reps})
     kernels.sort(key=lambda k: -k["device_us_per_batch"])
     busy = sum(k["device_us_per_batch"] for k in kernels)
-    emit({"phase": "profile", "fmt": fmt, "mode": fn.plan.mode,
-          "cuda_kw": cuda_kw or {}, "batch": BATCH,
-          "reps": reps,
-          "device_operations_per_batch": sum(k["calls"] for k in kernels),
-          "host_us_per_batch": wall_us / reps,
-          "device_busy_us_per_batch": busy,
-          "device_idle_share": (1.0 - busy * reps / wall_us
-                                if kernels else None),
-          "device_time_seen": bool(kernels), "kernels": kernels})
+    return {"device_operations_per_batch": sum(k["calls"] for k in kernels),
+            "host_us_per_batch": wall_us / reps,
+            "device_busy_us_per_batch": busy,
+            "device_idle_share": (1.0 - busy * reps / wall_us
+                                  if kernels else None),
+            "device_time_seen": bool(kernels), "kernels": kernels}
+
+
+def _tensors(out) -> dict:
+    return out if isinstance(out, dict) else {"out": out}
+
+
+def phase_graphs(torch, design) -> None:
+    """Every serving path through the runner that captures a CUDA graph
+    per batch shape.  Per path, at batch 256 and the ragged 100: the first
+    call runs eagerly and captures; then on new data a replay must equal
+    the eager runner (``run_one.eager``, no graph) value for value and
+    launch, per kernel, what the eager batch launched.  Then the profiler
+    over replayed batches of 256, and ``Design.serve`` over
+    ``GRAPH_SERVE_BATCHES`` batches of 256 (counts set to 0 just before,
+    read just after: each replay adds its graph's launches)."""
+    from repro_torch.kernels import registry
+    from repro_torch.models import braggnn
+    from repro_torch.serving.common import percentiles
+    gen = torch.Generator().manual_seed(4)
+    xs = {b: [braggnn.synthetic_peaks(b, IMG, gen)[0] for _ in range(3)]
+          for b in (BATCH, RAGGED)}
+    dev = design.device
+    for label, backend, fmt, kw in GRAPH_PATHS:
+        run_one, served, _ = design._runner(backend, fmt, dev, kw)
+        checks = {}
+        for b, (x0, x1, _) in xs.items():
+            run_one(x0)                            # eager run, then capture
+            registry.reset_launch_counts()
+            want = {k: v.clone() for k, v in _tensors(
+                run_one.eager(x1)).items()}
+            torch.cuda.synchronize()
+            eager = registry.launch_counts()
+            registry.reset_launch_counts()
+            got = _tensors(run_one(x1))
+            torch.cuda.synchronize()
+            replay = registry.launch_counts()
+            diff = sum(value_diff(torch, got[k], want[k]) for k in want)
+            check(diff == 0, f"graphs {label} batch {b}: a replay differs "
+                             f"from the eager runner in {diff} values")
+            check(replay == eager, f"graphs {label} batch {b}: a replay "
+                                   f"launched {replay}, an eager batch "
+                                   f"{eager}")
+            checks[b] = {"value_diff": diff, "outputs": sum(
+                v.numel() for v in want.values()),
+                "launches_per_replay": {k: v for k, v in replay.items()
+                                        if v}}
+        check(len(run_one.graphs.replay_launches()) == 2,
+              f"graphs {label}: not one graph per batch shape")
+        # the same loop eagerly, in this run: the graph's gain on the host
+        eager_s = []
+        for i in range(GRAPH_SERVE_BATCHES):
+            t0 = time.perf_counter()
+            run_one.eager(xs[BATCH][i % 3])
+            torch.cuda.synchronize()
+            eager_s.append(time.perf_counter() - t0)
+        prof = device_profile(torch, lambda: run_one(xs[BATCH][2]))
+        # a kernel in the trace, not only the input's copy
+        prof["cupti_saw_graph_kernels"] = any(
+            not k["name"].startswith("Memcpy") for k in prof["kernels"])
+        run_one.release()
+        del run_one
+        batches = [xs[BATCH][i % 3] for i in range(GRAPH_SERVE_BATCHES)]
+        registry.reset_launch_counts()
+        rep = design.serve(batches, backend=backend, fmt=fmt, cuda_kw=kw)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in registry.launch_counts().items() if v}
+        want_counts = {k: v * (GRAPH_SERVE_BATCHES + 1) for k, v in
+                       checks[BATCH]["launches_per_replay"].items()}
+        check(counts == want_counts, f"graphs {label}: serve launched "
+                                     f"{counts}, want {want_counts}")
+        torch.cuda.empty_cache()
+        emit({"phase": "graphs", "path": label, "backend": backend,
+              "fmt": fmt, "cuda_kw": kw or {}, "served": served,
+              "replay_vs_eager": checks,
+              "serve": {"batches": rep.batches, "batch": BATCH,
+                        "p50_ms": rep.p50_ms, "p99_ms": rep.p99_ms,
+                        "us_per_sample": rep.us_per_sample,
+                        "warmup_s": rep.warmup_s, "launches": counts,
+                        # the card's idle share of a served batch: device
+                        # busy (profiler) against the serve p50
+                        "device_idle_share_at_p50": 1.0 - prof[
+                            "device_busy_us_per_batch"] / (rep.p50_ms * 1e3)},
+              "eager": {"batches": len(eager_s),
+                        "p50_ms": 1e3 * percentiles(eager_s)["p50"],
+                        "p99_ms": 1e3 * percentiles(eager_s)["p99"]},
+              "profile": prof})
+
+
+def phase_engine(torch, design) -> None:
+    """``DesignEngine`` on the nest tier (fp32), buckets
+    ``default_buckets(256)`` each captured at boot, threaded: 4,096
+    requests submitted while the dispatcher runs, every output equal to
+    ``Design.serve``'s over the same batches of 256 bit for bit.  Then the
+    same load with dispatch 3 poisoned and a saved artifact: the replica
+    restarts from the file, no request is dropped, the outputs are the
+    same; and once more with dispatches 3 and 9 poisoned, which must hold
+    no more device memory than one restart (the old replica's graphs are
+    released)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.models import braggnn
+    from repro_torch.runtime import FailureInjector
+    from repro_torch.serving import default_buckets
+
+    xs = braggnn.synthetic_peaks(ENGINE_REQUESTS, IMG,
+                                 torch.Generator().manual_seed(5))[0].numpy()
+    chunks = [xs[i:i + ENGINE_MAX_BATCH]
+              for i in range(0, len(xs), ENGINE_MAX_BATCH)]
+    ref = design.serve(chunks, backend="cuda", collect=True)
+    want = {k: torch.cat([o[k] for o in ref.outputs]).cpu().numpy()
+            for k in ref.outputs[0]}
+    buckets = default_buckets(ENGINE_MAX_BATCH)
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke_engine_", dir=ROOT))
+    try:
+        artifact = design.save(tmp / "braggnn.design", backend="cuda",
+                               buckets=buckets)
+        held_after = {}
+        for label, fail_at in (("uninterrupted", ()), ("restart", (3,)),
+                               ("two restarts", (3, 9))):
+            kw = {"injector": FailureInjector(fail_at=fail_at),
+                  "artifact_path": artifact} if fail_at else {}
+            eng = design.engine(backend="cuda", buckets=buckets,
+                                max_delay_ms=ENGINE_DELAY_MS, **kw)
+            torch.cuda.synchronize()
+            held_boot = torch.cuda.memory_allocated()
+            with eng:
+                t0 = time.perf_counter()
+                reqs = [eng.submit(x) for x in xs]
+                submit_s = time.perf_counter() - t0
+                outs = [r.wait(timeout=300) for r in reqs]
+            torch.cuda.synchronize()
+            held_end = torch.cuda.memory_allocated()
+            rep = eng.report()
+            n_diff = sum(int((o[k] != want[k][i]).sum())
+                         for i, o in enumerate(outs) for k in want)
+            served = sum(b * n for b, n in rep.batch_hist.items())
+            line = {"phase": "engine", "run": label, "backend": "cuda",
+                    "fmt": None, "requests": len(xs),
+                    "buckets": list(buckets),
+                    "max_delay_ms": ENGINE_DELAY_MS, "qps": rep.qps,
+                    "p50_ms": rep.p50_ms, "p95_ms": rep.p95_ms,
+                    "p99_ms": rep.p99_ms, "mean_ms": rep.mean_ms,
+                    "submit_s": submit_s, "wall_s": rep.wall_s,
+                    "compute_s": rep.compute_s,
+                    "dispatches": rep.dispatches,
+                    "batch_hist": {str(b): n for b, n in
+                                   sorted(rep.batch_hist.items())},
+                    "padded_samples": rep.padded_samples,
+                    "bucket_fill": rep.completed / served if served else 0,
+                    "boot_s": rep.boot_s, "boots": rep.boots,
+                    "restarts": rep.restarts, "retried": rep.retried,
+                    "dropped": rep.dropped, "completed": rep.completed,
+                    "max_queue_depth": rep.max_queue_depth,
+                    "outputs_differing_from_serve": n_diff,
+                    "device_bytes_after_boot": held_boot,
+                    "device_bytes_after_run": held_end,
+                    "served": rep.served}
+            emit(line)
+            check(rep.completed == len(xs) and rep.dropped == 0,
+                  f"engine {label}: {rep.completed} completed, "
+                  f"{rep.dropped} dropped")
+            check(n_diff == 0, f"engine {label}: {n_diff} outputs differ "
+                               f"from Design.serve")
+            held_after[label] = held_end
+            check(rep.boots == ["memory"] + ["artifact"] * len(fail_at)
+                  and rep.restarts == len(fail_at),
+                  f"engine {label}: boots {rep.boots}")
+            if label == "restart":
+                # one replica's graphs held, not two
+                check(held_end <= 1.1 * held_boot + (64 << 20),
+                      f"engine restart: {held_end} device bytes held after "
+                      f"the restart, {held_boot} after the first boot")
+            if label == "two restarts":
+                # a second restart holds no more than the first: the old
+                # replica's graphs are released, not kept beside the new
+                check(held_end <= held_after["restart"] + (1 << 20),
+                      f"engine: {held_end} device bytes held after two "
+                      f"restarts, {held_after['restart']} after one")
+            del eng, reqs, outs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase_trigger(torch, design) -> None:
+    """The trigger: the design's budget against the Alveo U280; the loop on
+    the card at windows 1 and 64 over ``TRIGGER_FRAMES`` frames, its
+    scores and decisions against the same loop on the CPU (scores at the
+    nest tier's kernel-vs-plain tolerance, decisions equal outside
+    ``DECISION_BAND`` around the threshold); then in real time at the
+    feed's 1 kHz with a deadline of ``TRIGGER_DEADLINE_US``."""
+    import numpy as np
+    from repro_torch import trigger
+
+    budget = design.check_budget(part="alveo_u280")
+    emit({"phase": "trigger", "check_budget": budget.to_json(),
+          "summary": budget.summary()})
+    feed = trigger.DetectorFeed(img=IMG, seed=11)
+    threshold = None
+    for window in TRIGGER_WINDOWS:
+        loop = design.trigger(backend="cuda", window=window)
+        if threshold is None:
+            threshold = loop.calibrate(feed, 256)
+        loop.threshold = threshold
+        rep = loop.run(feed, TRIGGER_FRAMES)
+        cpu = design.trigger(backend="cuda", window=window, device="cpu",
+                             threshold=threshold).run(feed, TRIGGER_FRAMES)
+        got = np.array([d.score for d in rep.decisions])
+        want = np.array([d.score for d in cpu.decisions])
+        err = float(np.abs(got - want).max())
+        check(bool(np.allclose(got, want, rtol=SLICE_RTOL, atol=SLICE_ATOL)),
+              f"trigger window {window}: scores differ from the CPU run by "
+              f"{err}")
+        band = np.abs(want - threshold) <= DECISION_BAND * max(
+            1.0, abs(threshold))
+        acc = np.array([d.accept for d in rep.decisions])
+        acc_cpu = np.array([d.accept for d in cpu.decisions])
+        n_diff = int((acc != acc_cpu)[~band].sum())
+        check(n_diff == 0 and len(got) == TRIGGER_FRAMES,
+              f"trigger window {window}: {n_diff} decisions differ from "
+              f"the CPU run outside the band")
+        emit({"phase": "trigger", "mode": "deterministic", "window": window,
+              "frames": rep.frames, "processed": rep.processed,
+              "threshold": threshold, "accepts": rep.accepts,
+              "p50_us": rep.p50_us, "p99_us": rep.p99_us,
+              "sustained_fps": rep.sustained_fps, "warmup_s": rep.warmup_s,
+              "vs_cpu": {"max_score_err": err, "rtol": SLICE_RTOL,
+                         "atol": SLICE_ATOL,
+                         "decisions_differing_outside_band": n_diff,
+                         "decisions_differing_inside_band": int(
+                             (acc != acc_cpu)[band].sum()),
+                         "frames_inside_band": int(band.sum()),
+                         "band": DECISION_BAND}})
+        del loop
+    loop = design.trigger(backend="cuda", window=1, threshold=threshold,
+                          budget=trigger.TriggerBudget(
+                              max_latency_us=TRIGGER_DEADLINE_US))
+    rep = loop.run(feed, TRIGGER_FRAMES, realtime=True)
+    check(rep.processed + rep.dropped == rep.frames == TRIGGER_FRAMES,
+          f"trigger realtime: {rep.processed} processed + {rep.dropped} "
+          f"dropped of {rep.frames}")
+    emit({"phase": "trigger", "mode": "realtime",
+          "frame_rate_hz": feed.frame_rate_hz, "window": 1,
+          "frames": rep.frames, "processed": rep.processed,
+          "dropped": rep.dropped, "deadline_us": rep.deadline_us,
+          "deadline_misses": rep.deadline_misses,
+          "p50_us": rep.p50_us, "p95_us": rep.p95_us, "p99_us": rep.p99_us,
+          "max_us": rep.max_us, "sustained_fps": rep.sustained_fps,
+          "accepts": rep.accepts, "summary": rep.summary()})
 
 
 KERNEL_META = {
@@ -1036,6 +1328,9 @@ def main() -> int:
         design = phase_compile(torch)
         kern = phase_kernels(torch, design)
         sl = phase_slice(torch, design)
+        phase_graphs(torch, design)
+        phase_engine(torch, design)
+        phase_trigger(torch, design)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

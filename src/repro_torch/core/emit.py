@@ -369,7 +369,10 @@ def _simd_fn(g: Graph, device) -> Callable:
             oc, [torch.from_numpy(ai.astype(np.int64)).to(dev)
                  for ai in arg_idx],
             torch.from_numpy(res_idx[keep].astype(np.int64)).to(dev),
-            None if keep.all() else torch.from_numpy(keep).to(dev)))
+            # the kept rows as indices, not a mask: a mask's gather waits
+            # for the card, which a captured CUDA graph cannot
+            None if keep.all() else torch.from_numpy(np.flatnonzero(keep)).to(
+                dev)))
     prologue, epilogue = buffer_io(g, dev)
 
     def run(feeds):

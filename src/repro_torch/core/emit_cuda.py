@@ -432,7 +432,9 @@ def _lower_dfg(g: Graph, *, fmt_obj, fmt_tuple, dev: torch.device,
                     for ai in arg_idx]
             keep = res_idx >= 0
             res = torch.from_numpy(res_idx[keep].astype(np.int64)).to(dev)
-            tkeep = None if keep.all() else torch.from_numpy(keep).to(dev)
+            # indices, not a mask (a mask's gather waits for the card)
+            tkeep = None if keep.all() else torch.from_numpy(
+                np.flatnonzero(keep)).to(dev)
 
             def fb(buf, oc=oc, args=args, res=res, tkeep=tkeep):
                 r = kreg.opcode_compute(oc, [buf[a] for a in args])
@@ -828,7 +830,9 @@ def to_cuda_fn(g: Graph, *, module=None, fmt=None, mode: str = "auto",
             x = x.reshape((x.shape[0],) + in_shape[1:])
         x = x.contiguous()
         with torch.inference_mode():
-            if obs.enabled() and not profiled[0]:
+            # the twin synchronises per step: never inside a graph capture
+            if (obs.enabled() and not profiled[0]
+                    and not devices.capturing(dev)):
                 profiled[0] = True
                 with obs.span("cuda.profile", cat="cuda", mode=mode):
                     return core.profile(x, wdev)
@@ -859,7 +863,9 @@ def _dfg_runner(g: Graph, fmt_obj, fmt_key, fmt_tuple, dev, weights,
             raise TypeError("the DFG tier takes a feed dict (memref name "
                             "-> array or tensor)")
         with torch.inference_mode():
-            if obs.enabled() and not profiled[0]:
+            # the twin synchronises per step: never inside a graph capture
+            if (obs.enabled() and not profiled[0]
+                    and not devices.capturing(dev)):
                 profiled[0] = True
                 with obs.span("cuda.profile", cat="cuda", mode="dfg"):
                     return core.profile(feeds)

@@ -524,27 +524,35 @@ class CompiledDesign:
 # Warm-boot design artifacts
 # ---------------------------------------------------------------------------
 
-#: First bytes-level sanity mark of a ``Design.save`` artifact file.
-ARTIFACT_MAGIC = "repro-design-artifact"
+#: The port's artifact magic: the first bytes of a ``Design.save`` file,
+#: ahead of the pickle.  The reference package writes its own mark inside
+#: its pickle, so neither package unpickles the other's artifacts.
+ARTIFACT_MAGIC = "repro_torch-design-artifact"
+#: the longest header line :func:`load_artifact` reads before it gives up
+_HEADER_MAX = 64
+
+
+def _header() -> bytes:
+    return f"{ARTIFACT_MAGIC} v{CACHE_FORMAT_VERSION}\n".encode()
 
 
 def save_artifact(path: Union[str, Path], payload: dict) -> Path:
-    """Persist a warm-boot design artifact (versioned pickle, atomic write).
+    """Persist a warm-boot design artifact (atomic write).
 
     ``payload`` is the ``Design.save`` bundle: the ``CompiledDesign``, the
     (numpy-ified) bound module, example inputs and the warmed-bucket
-    manifest.  The pickle shares the design cache's format version, so a
-    layout change invalidates saved artifacts the same way it invalidates
-    cached designs — :func:`load_artifact` rejects stale files loudly
-    instead of unpickling into incompatible objects.
+    manifest.  The file is one header line — the magic and the design
+    cache's format version — then the pickle, so a layout change
+    invalidates saved artifacts the same way it invalidates cached
+    designs, and :func:`load_artifact` rejects a stale or foreign file
+    from its header, before anything is unpickled.
     """
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    record = {"magic": ARTIFACT_MAGIC, "version": CACHE_FORMAT_VERSION,
-              **payload}
     tmp = path.with_suffix(path.suffix + ".tmp")
     with open(tmp, "wb") as f:
-        pickle.dump(record, f)
+        f.write(_header())
+        pickle.dump(payload, f)
     tmp.replace(path)
     return path
 
@@ -553,22 +561,26 @@ def load_artifact(path: Union[str, Path]) -> dict:
     """Load and validate a ``save_artifact`` file.
 
     Raises ``FileNotFoundError`` / ``ValueError`` with the exact reason
-    (missing, not an artifact, or saved under a different
-    ``CACHE_FORMAT_VERSION`` — re-save from a fresh compile).
+    (missing, not an artifact of this package — the reference's included,
+    which is never unpickled — or saved under a different
+    ``CACHE_FORMAT_VERSION``: re-save from a fresh compile).
     """
     path = Path(path)
     if not path.exists():
         raise FileNotFoundError(f"no design artifact at {path}")
     with open(path, "rb") as f:
+        line = f.readline(_HEADER_MAX)
+        magic, _, version = line.rstrip(b"\n").partition(b" ")
+        if magic != ARTIFACT_MAGIC.encode():
+            raise ValueError(f"{path} is not a repro_torch design artifact")
+        if line != _header():
+            raise ValueError(
+                f"design artifact {path} was saved with format "
+                f"{version.decode(errors='replace')}, this build expects "
+                f"v{CACHE_FORMAT_VERSION} — recompile and Design.save again")
         record = pickle.load(f)
-    if not isinstance(record, dict) or record.get("magic") != ARTIFACT_MAGIC:
-        raise ValueError(f"{path} is not a repro design artifact")
-    version = record.get("version")
-    if version != CACHE_FORMAT_VERSION:
-        raise ValueError(
-            f"design artifact {path} was saved with format version "
-            f"{version}, this build expects {CACHE_FORMAT_VERSION} — "
-            f"recompile and Design.save again")
+    if not isinstance(record, dict):
+        raise ValueError(f"{path} is not a repro_torch design artifact")
     return record
 
 

@@ -18,7 +18,7 @@ import dataclasses
 import itertools
 import time
 from pathlib import Path
-from typing import Callable, Iterable, Optional, Union
+from typing import Callable, Iterable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -69,6 +69,13 @@ def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", torch.float32).numpy()
     return np.asarray(x, dtype=np.float32)
+
+
+def _copy_tree(tree):
+    """A tensor or dict of tensors, copied (on its device)."""
+    if isinstance(tree, dict):
+        return {k: v.clone() for k, v in tree.items()}
+    return tree.clone()
 
 
 def _to_device(tree, dev: torch.device):
@@ -152,6 +159,8 @@ class Design:
         self._session = session
         self._program = program
         self._module = module
+        #: warmed-bucket manifest when this design came from ``hls.load``
+        self.manifest: Optional[dict] = None
         self.example_inputs = example_inputs
         if example_inputs is not None:           # early shape validation
             if isinstance(example_inputs, dict):
@@ -369,9 +378,12 @@ class Design:
         SIMD design (fp32 only).  Default: tensor when available, else
         cuda.  Weights move to ``device`` (default:
         the session's) once, before the first batch.  The first batch is
-        also run once untimed as the warm-up; every batch is then
+        also run once untimed as the warm-up; on the card that run captures
+        its shape as a CUDA graph, as the first batch of any other shape
+        does, and every later batch of the shape replays it.  Every batch is
         synchronised individually, server-style.  ``on_batch(i, out)`` is
-        called per batch; ``collect=True`` additionally keeps outputs.
+        called per batch; ``collect=True`` additionally keeps outputs; both
+        get copies, which later batches do not overwrite.
         """
         if backend is None:
             backend = ("tensor" if self._module is not None
@@ -406,6 +418,10 @@ class Design:
             report.wall_s += batch_s[-1]
             report.batches += 1
             report.samples += self._batch_size(x)
+            if on_batch is not None or collect:
+                # a replayed graph's outputs are overwritten by the next
+                # batch: hand out copies
+                out = _copy_tree(out) if dev.type == "cuda" else out
             if on_batch is not None:
                 on_batch(i, out)
             if collect:
@@ -428,10 +444,22 @@ class Design:
         dict holding the input memref (for the DFG tier and ``simd``, a
         feed dict may carry weight feeds too, which then take precedence)
         — and returns the outputs on ``dev``.  Weights are uploaded here,
-        once.
+        once.  Shared by :meth:`serve`, the async
+        :class:`~repro_torch.serving.design_engine.DesignEngine` and the
+        trigger, so all three serve through the same programs.
+
+        On a CUDA device ``run_one`` is a
+        :class:`~repro_torch.core.graphs.GraphRunner`: each batch shape's
+        first call runs eagerly and captures a CUDA graph, and every later
+        call copies the batch into the graph's static inputs and replays
+        it, returning outputs that the next replay overwrites.
+        ``run_one.release()`` frees the graphs; ``run_one.eager`` runs a
+        batch with no graph.
         """
+        from repro_torch.core.graphs import GraphRunner
         served = None
         fallbacks: list = []
+        feeds_of = self._feed_dict
         if backend == "tensor":
             if (self._module is None or self._module.forward_fn is None
                     or self._module.params is None):
@@ -441,24 +469,22 @@ class Design:
             fwd = self._module.forward_fn
             name, shape = self._input_memref()
             natural = tuple(shape[1:]) if shape[0] == 1 else tuple(shape)
+            feeds_of = self._input_of
 
-            def run_one(x):
-                x = torch.as_tensor(self._input_of(x)[name],
-                                    dtype=torch.float32, device=dev)
+            def call(feeds):
+                x = torch.as_tensor(feeds[name], dtype=torch.float32,
+                                    device=dev)
                 with torch.inference_mode():
                     return fwd(params, x.reshape((-1,) + natural), fmt=fmt)
         elif backend == "cuda":
-            fn = self.torch_fn(backend="cuda", fmt=fmt, device=dev,
-                               **(cuda_kw or {}))
-            served = fn.plan.summary()
-            fallbacks = list(fn.plan.fallbacks)
-            if fn.plan.mode == "dfg":
-                # weights are bound (on the device) when fn is built
-                def run_one(x):
-                    return fn(self._feed_dict(x))
-            else:
-                def run_one(x):
-                    return fn(self._input_of(x))
+            call = self.torch_fn(backend="cuda", fmt=fmt, device=dev,
+                                 **(cuda_kw or {}))
+            served = call.plan.summary()
+            fallbacks = list(call.plan.fallbacks)
+            if call.plan.mode != "dfg":
+                # weights are bound (on the device) when the fn is built;
+                # the nest tier reads only the input memref
+                feeds_of = self._input_of
         elif backend == "simd":
             if fmt not in (None, "fp32"):
                 raise ValueError("the emitted SIMD design runs fp32; use "
@@ -469,17 +495,142 @@ class Design:
             wdev = {} if self._module is None else _to_device(
                 self._module.weight_feeds(), dev)
 
-            def run_one(x):
-                return fn({**wdev, **self._feed_dict(x)})
+            def call(feeds):
+                return fn({**wdev, **feeds})
         else:
             raise ValueError(f"unknown backend {backend!r} "
                              f"(expected one of {SERVE_BACKENDS})")
+        graphed = GraphRunner(call, dev)
+
+        def run_one(x):
+            return graphed(feeds_of(x))
+
+        run_one.release = graphed.release
+        run_one.graphs = graphed
+        # the same call with no graph, for checks that hold a replay to it
+        run_one.eager = lambda x: call(feeds_of(x))
         return run_one, served, fallbacks
+
+    def engine(self, **kw):
+        """An async adaptive-batching engine over this design.
+
+        Returns a :class:`repro_torch.serving.design_engine.DesignEngine`:
+        requests queue and dispatch in bucket-snapped batches (size or
+        deadline trigger), each bucket a captured CUDA graph on the card,
+        with fault-tolerant replica restart.  ``backend``/``fmt``/
+        ``buckets`` default from the saved artifact's manifest when this
+        design came from :func:`load`; pass ``artifact_path=`` so replica
+        restarts warm-boot from disk.  All :class:`DesignEngine` keywords
+        forward.
+        """
+        from repro_torch.serving.design_engine import DesignEngine
+        manifest = self.manifest or {}
+        for key in ("backend", "fmt"):
+            if kw.get(key) is None and manifest.get(key) is not None:
+                kw[key] = manifest[key]
+        # the saved warmed-bucket set only defaults when the caller pinned
+        # neither buckets nor max_batch — an explicit max_batch must win
+        # (the engine derives its buckets from it)
+        if kw.get("buckets") is None and "max_batch" not in kw \
+                and manifest.get("buckets"):
+            kw["buckets"] = manifest["buckets"]
+        if kw.get("artifact_path") is None and manifest.get("path"):
+            kw["artifact_path"] = manifest["path"]
+        return DesignEngine(self, **kw)
+
+    # -- hard-real-time trigger ----------------------------------------------
+
+    def check_budget(self, budget=None, *, part=None):
+        """Check this design against a trigger envelope.
+
+        ``budget`` is a :class:`repro_torch.trigger.TriggerBudget`;
+        ``part`` is a named/synthetic :class:`repro_torch.trigger.Part`
+        (shorthand for a resource-caps-only budget, and an override of the
+        budget's own part when both are given).  Returns the structured
+        :class:`repro_torch.trigger.BudgetReport` — ``.passed``,
+        ``.failures`` (named offending constraints), ``.summary()``,
+        ``.raise_if_failed()``::
+
+            design.check_budget(part="alveo_u280").raise_if_failed()
+        """
+        from repro_torch.trigger import check_design
+        return check_design(self, budget, part=part)
+
+    def trigger(self, **kw):
+        """A streaming trigger loop over this design.
+
+        Returns a :class:`repro_torch.trigger.TriggerLoop` (warmed on
+        construction: its one window shape captured as a CUDA graph on the
+        card): feed it a :class:`repro_torch.trigger.DetectorFeed` via
+        ``loop.run(feed, n_frames, realtime=...)`` for accept/reject
+        decisions with per-window deadline accounting.  All
+        ``TriggerLoop`` keywords forward (``backend``, ``device``,
+        ``budget``, ``threshold``, ``window``, ``capacity``...).
+        """
+        from repro_torch.trigger import TriggerLoop
+        return TriggerLoop(self, **kw)
+
+    # -- persistence (warm-boot artifacts) -----------------------------------
+
+    def save(self, path: Union[str, Path], *,
+             buckets: Optional[Sequence[int]] = None,
+             backend: Optional[str] = None,
+             fmt: Optional[str] = None) -> Path:
+        """Persist a warm-boot artifact: design + weights + bucket manifest.
+
+        The artifact bundles the full ``CompiledDesign`` (graphs, schedule,
+        pass reports), the bound module with its params as numpy arrays
+        (so an artifact saved on the card loads on the CPU and the other
+        way round; an unpicklable ``forward_fn`` is dropped, disabling only
+        the tensor backend), the example inputs, and a serving manifest
+        (``buckets``/``backend``/``fmt`` defaults for :meth:`engine`).
+        :func:`load` boots a replica from it without re-tracing or
+        re-running passes — and the engine's restart path re-loads it when
+        a replica is poisoned.  Written through
+        :func:`repro_torch.core.pipeline.save_artifact`, whose header a
+        load checks before it unpickles anything.
+        """
+        from repro_torch.core.pipeline import save_artifact
+        module = self._module
+        module_payload = None
+        if module is not None:
+            params = devices.to_host(module.params) \
+                if module.params is not None else None
+            fwd = module.forward_fn
+            if fwd is not None:
+                import pickle
+                try:
+                    pickle.dumps(fwd)
+                except Exception:
+                    fwd = None      # lambda forward: artifact serves via
+                    #                 simd/cuda only
+            module_payload = ModuleGraph(
+                module.name, module.input_shape, module.nodes,
+                input_name=module.input_name, params=params,
+                forward_fn=fwd, meta=module.meta)
+        if buckets is None:
+            from repro_torch.serving.design_engine import default_buckets
+            buckets = default_buckets(32)
+        manifest = {"buckets": list(buckets), "backend": backend,
+                    "fmt": fmt, "name": self.name,
+                    "design_hash": self.design_hash,
+                    "fingerprint": self.fingerprint}
+        example = self.example_inputs
+        if example is not None:
+            example = devices.to_host(example)
+        return save_artifact(path, {
+            "design": self._compiled, "module": module_payload,
+            "example_inputs": example, "manifest": manifest})
 
     # -- reporting ----------------------------------------------------------
 
-    def report(self) -> str:
+    def report(self, *, budget=None, part=None) -> str:
         """Pass / schedule / latency summary of the whole artifact.
+
+        With ``budget=`` (a :class:`repro_torch.trigger.TriggerBudget`)
+        and/or ``part=`` a budget-check section is appended — the same
+        structured verdict :meth:`check_budget` returns, rendered one
+        constraint per line.
 
         For the live span/metric view of a compile-and-serve run, enable
         :mod:`repro_torch.obs` (``obs.enable()`` or ``REPRO_OBS=1``): an
@@ -510,6 +661,9 @@ class Design:
                      f"{t.get('passes_s', 0.0):.2f} / schedule "
                      f"{t.get('schedule_s', 0.0):.2f})")
         lines.append(f"  device   : {self.device}")
+        if budget is not None or part is not None:
+            rep = self.check_budget(budget, part=part)
+            lines += ["  " + ln for ln in rep.summary().splitlines()]
         if obs.enabled():
             counters = obs.snapshot()["counters"]
             lines.append(
@@ -604,6 +758,38 @@ def compile(model: Model, *, name: Optional[str] = None,
     s = session if session is not None else _default_session(cache, device)
     return s.compile(model, name=name, config=config,
                      example_inputs=example_inputs)
+
+
+def load(path: Union[str, Path], *, session: Optional[Session] = None,
+         device=None) -> Design:
+    """Warm-boot a :class:`Design` from a ``Design.save`` artifact.
+
+    No re-trace, no passes, no scheduling: the pickled ``CompiledDesign``
+    (plus the bound module weights and example inputs) is rehydrated as-is,
+    so a replica serves its first request after one disk read.  The params
+    are bound as tensors on the session's device: ``device`` (default
+    ``"cuda"``, which raises without a GPU; ``"cpu"`` when asked for), or a
+    given ``session``'s own.  The artifact's warmed-bucket manifest rides
+    along on ``design.manifest`` and defaults :meth:`Design.engine`'s
+    backend/fmt/buckets; the manifest also remembers this path, so engine
+    replica restarts re-load from it automatically.  A file that is not
+    this package's artifact — the reference package's included — raises
+    ``ValueError`` before anything is unpickled.
+    """
+    from repro_torch.core.pipeline import load_artifact
+    record = load_artifact(path)
+    s = session if session is not None else _default_session(device=device)
+    compiled = record["design"]
+    module = record.get("module")
+    if module is not None and module.params is not None:
+        module = module.bind(_to_device(module.params, s.device))
+    design = Design(compiled, s, module=module,
+                    example_inputs=record.get("example_inputs"))
+    design.manifest = dict(record.get("manifest") or {})
+    design.manifest["path"] = str(path)
+    # seed the session's design cache: a warm boot also warms recompiles
+    s.driver.cache.memory.setdefault(compiled.design_hash, compiled)
+    return design
 
 
 def trace(model: Model, *, forward: bool = True) -> Graph:

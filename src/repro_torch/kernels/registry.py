@@ -197,3 +197,11 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for k in _launch_counters().values():
         k.launches = 0
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches) to the wrappers' counters:
+    what a replayed CUDA graph launched, which no wrapper saw."""
+    counters = _launch_counters()
+    for name, n in counts.items():
+        counters[name].launches += n

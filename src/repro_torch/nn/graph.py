@@ -590,6 +590,8 @@ class ModuleGraph:
                 leaf = sub
                 for k in path:
                     leaf = leaf[k]
+                if hasattr(leaf, "detach"):       # a tensor, on any device
+                    leaf = leaf.detach().cpu()
                 feeds[memref] = np.asarray(leaf, dtype=np.float32)
         return feeds
 
