@@ -53,6 +53,20 @@ Phases, each printing one JSON line (``"phase": ...``):
              2,000 frames of ``DetectorFeed(img=11, seed=11)`` at windows 1
              and 64, against the same loop on the CPU; then in real time at
              the feed's 1 kHz against a stated deadline.
+12. transformer — the transformer encoder block at full width (seq 16,
+             d_model 64, 4 heads, ffn 256): ``hls.compile``; the nest tier
+             (K3 for the projections and the MLP, K2; fp32 and (5,4)), its
+             flash mode (K3, K5), ``tensor`` and the DFG tier (K4; fp32 and
+             (5,4)) served over batches of 256 and a ragged 100, launch
+             counts and outputs held, each path's replay against its eager
+             run, p50/p99 and device operations per batch; the block's
+             kernel calls against their plain versions, timed;
+             ``design.verify()`` on the card.
+13. tune   — ``Design.tune`` on BraggNN(s=1, img=11): the dry bisection
+             over ``braggnn_space()``, its rerun served from the TuningDB,
+             measure mode timing each candidate's DFG tier (K4) on the
+             card; ``apply_tuned`` and the tuned design served at its
+             precision, held to ``Design.run``.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 the last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -335,9 +349,9 @@ def value_diff(torch, a, b) -> int:
     return int(((a != b) & ~(torch.isnan(a) & torch.isnan(b))).sum())
 
 
-def dfg_segment_case(torch, design, x, fmt) -> dict:
+def dfg_segment_case(torch, design, feeds, fmt) -> dict:
     """The design's DFG segment as the DFG tier's runner launches it on
-    batch ``x``: the runner's own prologue buffer, index vector and
+    the batch ``feeds``: the runner's own prologue buffer, index vector and
     descriptor table (and the table on the host, for the plain version),
     and the least traffic the segment needs: each slot it gathers and no
     group of it writes read once, each slot it scatters written once (the
@@ -354,7 +368,7 @@ def dfg_segment_case(torch, design, x, fmt) -> dict:
     check(len(fn.segments) == 1 and not fn.plan.fallbacks,
           f"the DFG tier's plan is {fn.plan.summary()}, not one segment")
     idx, desc = fn.segments[0]
-    buf, b = fn.prologue({"input": x[:, None]})
+    buf, b = fn.prologue(feeds)
     rows = desc.cpu().numpy()
     idx_np = idx.cpu().numpy()
     n_values = buf.shape[0]
@@ -583,7 +597,7 @@ def phase_kernels(torch, design) -> dict:
     for b in (BATCH, RAGGED):
         x = braggnn.synthetic_peaks(b, IMG, peaks)[0]
         for fmt in (None, "5_4"):
-            c = dfg_segment_case(torch, design, x, fmt)
+            c = dfg_segment_case(torch, design, {"input": x[:, None]}, fmt)
             kw = {"fmt": c["fmt"]}
             rec = compare(
                 "dfg_segment", f"segment[{c['groups']} groups]", b, fmt,
@@ -1037,6 +1051,38 @@ def _tensors(out) -> dict:
     return out if isinstance(out, dict) else {"out": out}
 
 
+def replay_vs_eager(torch, label, run_one, xs) -> dict:
+    """For each batch size ``b`` in ``xs`` (three batches each): the first
+    batch runs eagerly and captures the shape's graph; then a replay on the
+    second must equal the eager runner (``run_one.eager``, no graph) value
+    for value and launch, per kernel, what the eager batch launched.
+    Returns per batch size the values differing, the outputs and the
+    launches per replay."""
+    from repro_torch.kernels import registry
+    checks = {}
+    for b, (x0, x1, _) in xs.items():
+        run_one(x0)                                # eager run, then capture
+        registry.reset_launch_counts()
+        want = {k: v.clone() for k, v in _tensors(run_one.eager(x1)).items()}
+        torch.cuda.synchronize()
+        eager = registry.launch_counts()
+        registry.reset_launch_counts()
+        got = _tensors(run_one(x1))
+        torch.cuda.synchronize()
+        replay = registry.launch_counts()
+        diff = sum(value_diff(torch, got[k], want[k]) for k in want)
+        check(diff == 0, f"{label} batch {b}: a replay differs from the "
+                         f"eager runner in {diff} values")
+        check(replay == eager, f"{label} batch {b}: a replay launched "
+                               f"{replay}, an eager batch {eager}")
+        checks[b] = {"value_diff": diff, "outputs": sum(
+            v.numel() for v in want.values()),
+            "launches_per_replay": {k: v for k, v in replay.items() if v}}
+    check(len(run_one.graphs.replay_launches()) == len(xs),
+          f"{label}: not one graph per batch shape")
+    return checks
+
+
 def phase_graphs(torch, design) -> None:
     """Every serving path through the runner that captures a CUDA graph
     per batch shape.  Per path, at batch 256 and the ragged 100: the first
@@ -1055,30 +1101,7 @@ def phase_graphs(torch, design) -> None:
     dev = design.device
     for label, backend, fmt, kw in GRAPH_PATHS:
         run_one, served, _ = design._runner(backend, fmt, dev, kw)
-        checks = {}
-        for b, (x0, x1, _) in xs.items():
-            run_one(x0)                            # eager run, then capture
-            registry.reset_launch_counts()
-            want = {k: v.clone() for k, v in _tensors(
-                run_one.eager(x1)).items()}
-            torch.cuda.synchronize()
-            eager = registry.launch_counts()
-            registry.reset_launch_counts()
-            got = _tensors(run_one(x1))
-            torch.cuda.synchronize()
-            replay = registry.launch_counts()
-            diff = sum(value_diff(torch, got[k], want[k]) for k in want)
-            check(diff == 0, f"graphs {label} batch {b}: a replay differs "
-                             f"from the eager runner in {diff} values")
-            check(replay == eager, f"graphs {label} batch {b}: a replay "
-                                   f"launched {replay}, an eager batch "
-                                   f"{eager}")
-            checks[b] = {"value_diff": diff, "outputs": sum(
-                v.numel() for v in want.values()),
-                "launches_per_replay": {k: v for k, v in replay.items()
-                                        if v}}
-        check(len(run_one.graphs.replay_launches()) == 2,
-              f"graphs {label}: not one graph per batch shape")
+        checks = replay_vs_eager(torch, f"graphs {label}", run_one, xs)
         # the same loop eagerly, in this run: the graph's gain on the host
         eager_s = []
         for i in range(GRAPH_SERVE_BATCHES):
@@ -1284,6 +1307,479 @@ def phase_trigger(torch, design) -> None:
           "accepts": rep.accepts, "summary": rep.summary()})
 
 
+# ---------------------------------------------------------------------------
+# The transformer encoder block and the tuner
+# ---------------------------------------------------------------------------
+
+#: the transformer encoder block at ``transformer.build()``'s own width:
+#: seq, d_model, heads, ffn (head dim 16), nothing cut
+BLOCK = (16, 64, 4, 256)
+#: samples per batch held against ``Design.run`` (the numpy functional
+#: model evaluates the block's 1.26M ops at about 0.25 s per sample)
+BLOCK_CHECKED = 4
+#: the DFG tier's batch: the largest the paths take, 256.  The tier's
+#: value buffer holds 2,696,524 fp32 values per sample (2.8 GB at 256) and
+#: a batch of 256 took 1.6 ms on the card, so it costs the run seconds.
+BLOCK_DFG_BATCH = 256
+#: batches each block path serves, replayed, for its p50 and p99
+BLOCK_SERVE_BATCHES = 100
+#: the nest tier's plan for the block, as the reference records it
+BLOCK_PLAN = {"smallfloat_matmul": 2, "smallfloat_matmul:relu": 1,
+              "fused_softmax": 1}
+_NEST = {"smallfloat_matmul": 3, "fused_softmax": 1}
+_FLASH = {"smallfloat_matmul": 3, "flash_attention": 1}
+#: (label, backend, fmt, cuda_kw, kernel launches per batch, hold).  K3
+#: launches three times a batch: the q/k/v projection, the output
+#: projection, the MLP chain.  hold: "run" against ``Design.run`` (fp32,
+#: SLICE_RTOL / SLICE_ATOL); "cpu" against the same path on the CPU; "exact"
+#: against ``Design.run(fmt)`` value for value
+BLOCK_PATHS = (
+    ("nest fp32", "cuda", None, None, _NEST, "run"),
+    ("nest 5_4", "cuda", "5_4", None, _NEST, "cpu"),
+    ("flash fp32", "cuda", None, {"nlb_flash": True}, _FLASH, "cpu"),
+    ("tensor", "tensor", None, None, {}, "cpu"),
+    ("dfg fp32", "cuda", None, {"mode": "dfg"}, {"dfg_segment": 1}, "exact"),
+    ("dfg 5_4", "cuda", "5_4", {"mode": "dfg"}, {"dfg_segment": 1}, "exact"),
+)
+#: the tuner's trials: the dry bisection, and measure mode on the card
+TUNE_BUDGET, TUNE_MEASURE_BUDGET = 8, 3
+#: BraggNN's testbench feed scale, the tuner CLI's for BraggNN too
+TUNE_SCALE = 0.2
+#: a quantised nest tier against the per-op functional model at the same
+#: format (the reference's tolerance for the quantised transformer block)
+TUNED_RTOL, TUNED_ATOL = 5e-2, 5e-3
+
+
+def ulp_at(scale: float, man_bits: int) -> float:
+    """One ulp of a format with ``man_bits`` fraction bits at ``scale``."""
+    import numpy as np
+    return float(2.0 ** (np.floor(np.log2(max(scale, 2.0 ** -14)))
+                         - man_bits))
+
+
+def kernel_call(torch, call, kern, plain, library, nbytes, flops, *,
+                got=None, want=None, exact=False, rtol=KERNEL_RTOL,
+                atol=KERNEL_ATOL, plain_runs=TIMED_RUNS) -> dict:
+    """One kernel call held against its plain version (``got`` / ``want``
+    where given, else one call of each), then the device times of kernel,
+    plain version and library call beside the bound."""
+    got = kern() if got is None else got
+    want = plain() if want is None else want
+    torch.cuda.synchronize()
+    err = float((got - want).abs().nan_to_num(0.0).max())
+    n_diff = value_diff(torch, got, want)
+    ok = n_diff == 0 if exact else bool(
+        torch.allclose(got, want, rtol=rtol, atol=atol))
+    check(ok, f"{call}: kernel differs from its plain version by {err} "
+              f"({n_diff} values differ)")
+    bound_ms, bound_by = bound(nbytes, flops)
+    return {"call": call, "max_abs_err": err, "values_differing": n_diff,
+            "ms": device_ms(torch, kern, label=call),
+            "plain_ms": device_ms(torch, plain, plain_runs,
+                                  chunk=min(20, plain_runs),
+                                  label=f"{call} plain"),
+            "library_ms": device_ms(torch, library, label=f"{call} library")
+            if library else None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops}
+
+
+def block_kernels(torch, design, dfg_x) -> dict:
+    """K3, K2 and K5 at the block's calls in one nest batch of 256 (M =
+    4,096 rows), and K4 on the block's DFG segment at ``dfg_x``'s batch:
+    each held against its plain version, then timed.  Kernel name -> its
+    calls, and their sums per batch."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.dfg_segment.dfg_segment import dfg_segment
+    from repro_torch.kernels.dfg_segment.ref import dfg_segment_ref
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.fused_softmax.fused_softmax import \
+        fused_softmax
+    from repro_torch.kernels.fused_softmax.ref import fused_softmax_ref
+    from repro_torch.kernels.smallfloat_matmul.ref import (
+        Dense, smallfloat_matmul_chain_ref)
+    from repro_torch.kernels.smallfloat_matmul.smallfloat_matmul import \
+        smallfloat_matmul_chain
+
+    seq, dm, heads, ffn = BLOCK
+    dh, m = dm // heads, BATCH * seq
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    calls = {"smallfloat_matmul": [], "fused_softmax": [],
+             "flash_attention": [], "dfg_segment": []}
+    kw = {"exp_bits": None, "man_bits": None}
+    # K3: the q/k/v projection (one launch over the three kernels side by
+    # side), the output projection, and the MLP as one chain
+    x = randn(m, dm)
+    for call, layers, lib in (
+            ("attn.qkv", [(randn(dm, 3 * dm, scale=dm ** -0.5), None,
+                           False)], None),
+            ("attn.o", [(randn(dm, dm, scale=dm ** -0.5), None, False)],
+             None),
+            ("mlp.fc1..fc2", [(randn(ffn, dm, scale=dm ** -0.5).T,
+                               randn(ffn, scale=0.1), True),
+                              (randn(dm, ffn, scale=ffn ** -0.5).T,
+                               randn(dm, scale=0.1), False)], None)):
+        dense = [Dense(w, b, relu) for w, b, relu in layers]
+
+        def library(layers=layers):
+            # one PyTorch call per layer: torch.mm, or torch.addmm and
+            # torch.relu
+            y = x
+            for w, b, relu in layers:
+                y = torch.mm(y, w) if b is None else torch.addmm(b, y, w)
+                y = torch.relu(y) if relu else y
+            return y
+        nbytes = 4 * (x.numel() + sum(w.numel() + (b.numel() if b is not None
+                                                   else 0)
+                                      for w, b, _ in layers)
+                      + m * layers[-1][0].shape[1])
+        flops = 2 * m * sum(w.numel() for w, _, _ in layers)
+        calls["smallfloat_matmul"].append(kernel_call(
+            torch, call,
+            lambda dense=dense: smallfloat_matmul_chain(x, dense, **kw),
+            lambda dense=dense: smallfloat_matmul_chain_ref(x, dense, **kw),
+            library, nbytes, flops))
+    # K2: the scores' rows, order 8
+    scores = randn(BATCH, heads, seq, seq, scale=SOFTMAX_SCALE)
+    nel = scores.numel()
+    calls["fused_softmax"].append(kernel_call(
+        torch, "attn.softmax",
+        lambda: fused_softmax(scores.view(-1, seq), taylor_order=8),
+        lambda: fused_softmax_ref(scores.view(-1, seq), taylor_order=8),
+        lambda: torch.softmax(scores, dim=-1), 8 * nel,
+        (3 * 8 + 2 + 4) * nel))
+    # K5: the flash mode's core on the projection's (B, L, H, dh) column
+    # blocks, read in place as (B, H, L, dh) views
+    qkv = randn(m, 3 * dm)
+    q, k, v = (qkv[:, i * dm:(i + 1) * dm].view(BATCH, seq, heads, dh)
+               .transpose(1, 2) for i in range(3))
+    out = torch.empty(BATCH, seq, heads, dh, device="cuda").transpose(1, 2)
+    calls["flash_attention"].append(kernel_call(
+        torch, "attn.flash",
+        lambda: flash_attention(q, k, v, causal=False, out=out),
+        lambda: flash_attention_ref(
+            *(t.reshape(-1, seq, dh) for t in (q, k, v)),
+            causal=False).view(BATCH, heads, seq, dh),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        4 * 4 * BATCH * seq * dm, 4 * BATCH * heads * seq * seq * dh,
+        rtol=FLASH_RTOL, atol=FLASH_ATOL))
+    # K4: the block's DFG segment, value for value
+    for fmt in (None, "5_4"):
+        c = dfg_segment_case(torch, design, {"input": dfg_x}, fmt)
+        buf, idx, desc = c["buf"], c["idx"], c["desc"]
+        fkw = {"fmt": c["fmt"]}
+        got = dfg_segment(buf.clone(), idx, desc, **fkw)
+        want = dfg_segment_ref(buf.clone(), idx, c["desc_host"], **fkw)
+        call = f"segment[{c['groups']} groups]" + (f" at {fmt}" if fmt
+                                                    else "")
+        rec = kernel_call(
+            torch, call,
+            lambda: dfg_segment(buf, idx, desc, **fkw),
+            lambda: dfg_segment_ref(buf, idx, c["desc_host"], **fkw), None,
+            c["bytes"], c["flops"], got=got, want=want, exact=True,
+            plain_runs=10)
+        rec["segment"] = {k_: c[k_] for k_ in (
+            "groups", "entries", "stages", "elided", "recomputed",
+            "indices", "bytes_every_scatter")}
+        rec["batch"] = c["batch"]
+        calls["dfg_segment"].append(rec)
+        del c, got, want, buf
+        torch.cuda.empty_cache()
+    rows = {}
+    for name, cs in calls.items():
+        # the fp32 calls of one batch (K4: its fp32 segment)
+        per_batch = [c for c in cs if " at " not in c["call"]]
+        nb = sum(c["bytes"] for c in per_batch)
+        nf = sum(c["flops"] for c in per_batch)
+        bound_ms, bound_by = bound(nb, nf)
+        libs = [c["library_ms"] for c in per_batch]
+        rows[name] = {
+            "ms": sum(c["ms"] for c in per_batch),
+            "plain_ms": sum(c["plain_ms"] for c in per_batch),
+            "library_ms": None if None in libs else sum(libs),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": max(c["max_abs_err"] for c in cs),
+            "calls": cs}
+    return rows
+
+
+def phase_transformer(torch) -> dict:
+    """The transformer encoder block at full width: ``hls.compile``, then
+    every serving path — the nest tier (K3, K2; fp32 and (5,4)), the flash
+    mode (K3, K5), ``tensor`` and the DFG tier (K4; fp32 and (5,4)) — over
+    8 batches of 256 and one of 100 (the DFG tier: two of
+    ``BLOCK_DFG_BATCH`` and one of 100), launch counts per batch and the
+    outputs held (``BLOCK_PATHS``); per path a replay against the eager
+    runner value for value at both batch sizes, ``Design.serve`` over
+    ``BLOCK_SERVE_BATCHES`` replayed batches (p50, p99, us/sample) and the
+    profiler over replays (device operations and busy time per batch);
+    the block's kernel calls against their plain versions, timed; and
+    ``design.verify()`` on the card.  Returns the launches per path and the
+    kernels' rows."""
+    import math
+
+    import numpy as np
+    import repro_torch.hls as hls
+    from repro_torch.core.precision import FORMATS
+    from repro_torch.kernels import registry
+    from repro_torch.models import transformer
+    from repro_torch.nn.module import init_tree
+
+    seq, dm, heads, ffn = BLOCK
+    model = transformer.build(*BLOCK)
+    params = init_tree(model.specs(), torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    design = hls.compile(model.bind(params))
+    emit({"phase": "transformer", "step": "compile",
+          "block": {"seq": seq, "d_model": dm, "n_heads": heads,
+                    "ffn": ffn}, "seconds": time.perf_counter() - t0,
+          "timings": design.timings, "ops": len(design.graph_opt.ops),
+          "values": design.graph_opt.n_values,
+          "design_hash": design.design_hash[:16]})
+    gen = torch.Generator().manual_seed(6)
+
+    def batch(n):
+        return torch.randn((n, seq, dm), generator=gen) * 0.5
+
+    nest_batches = [batch(BATCH) for _ in range(N_BATCHES)] + [batch(RAGGED)]
+    dfg_batches = [batch(BLOCK_DFG_BATCH) for _ in range(2)] + \
+        [batch(RAGGED)]
+    out_name = "ln_post_out"
+    launches = {}
+    for label, backend, fmt, kw, per_batch, hold in BLOCK_PATHS:
+        tag = f"transformer {label}"
+        dfg = bool(kw) and kw.get("mode") == "dfg"
+        batches = dfg_batches if dfg else nest_batches
+        registry.reset_launch_counts()
+        rep = design.serve(batches, backend=backend, fmt=fmt, cuda_kw=kw,
+                           collect=True)
+        torch.cuda.synchronize()
+        counts = registry.launch_counts()
+        want = {k: per_batch.get(k, 0) * (len(batches) + 1) for k in counts}
+        check(counts == want, f"{tag}: launches {counts}, want {want}")
+        line = {"phase": "transformer", "path": label, "backend": backend,
+                "fmt": fmt, "cuda_kw": kw or {}, "served": rep.served,
+                "batches": rep.batches, "samples": rep.samples,
+                "launches": {k: v for k, v in counts.items() if v}}
+        if backend == "cuda":
+            plan = design.torch_fn(backend="cuda", fmt=fmt,
+                                   **(kw or {})).plan
+            if dfg:
+                check(plan.n_segments == 1 and not plan.fallbacks,
+                      f"{tag}: plan {plan.summary()}")
+                line["plan"] = {"segments": plan.n_segments,
+                                "groups": plan.n_groups,
+                                "scatters_elided": plan.fused_scatters,
+                                "stages": plan.n_stages}
+            else:
+                want_plan = dict(BLOCK_PLAN)
+                if kw:
+                    del want_plan["fused_softmax"]
+                    want_plan["flash_attention"] = 1
+                check(plan.kernels == want_plan
+                      and [f.split(":")[0] for f in plan.fallbacks]
+                      == ["ln_post"], f"{tag}: plan {plan.summary()}")
+        outs = [o[out_name] if isinstance(o, dict) else o
+                for o in rep.outputs]
+        check(all(tuple(o.shape) == (len(x), seq, dm) and o.is_cuda
+                  and bool(torch.isfinite(o).all())
+                  for o, x in zip(outs, batches)),
+              f"{tag}: outputs not finite CUDA tensors of the batch shape")
+        got = [o[:BLOCK_CHECKED].cpu() for o in outs]
+        if hold == "cpu":
+            cpu = design.serve([x[:BLOCK_CHECKED] for x in batches],
+                               backend=backend, fmt=fmt, cuda_kw=kw,
+                               device="cpu", collect=True)
+            want_o = [c[out_name] if isinstance(c, dict) else c
+                      for c in cpu.outputs]
+            scale = max(float(c.abs().max()) for c in want_o)
+            err = max(float((g - c).abs().max())
+                      for g, c in zip(got, want_o))
+            n_diff = sum(int((g != c).sum()) for g, c in zip(got, want_o))
+            n_all = sum(c.numel() for c in want_o)
+            tol = (ulp_at(scale, FORMATS[fmt].man_bits) if fmt
+                   else SLICE_ATOL + SLICE_RTOL * scale)
+            check(err <= tol and (not fmt
+                                  or n_diff <= MAX_DIFFER_SHARE * n_all),
+                  f"{tag}: differs from the CPU run by {err} (tolerance "
+                  f"{tol}) in {n_diff} of {n_all} outputs")
+            line["vs_cpu"] = {"max_abs_err": err, "tolerance": tol,
+                              "outputs_differing": n_diff, "outputs": n_all,
+                              "output_scale": scale,
+                              "samples_per_batch": BLOCK_CHECKED}
+        else:
+            fo = FORMATS[fmt] if fmt else None
+            err, n_diff = 0.0, 0
+            for g, x in zip(got, batches):
+                ref = design.run(x[:BLOCK_CHECKED].numpy(), fmt=fo)[out_name]
+                g = g.numpy()
+                err = max(err, float(np.abs(g - ref).max()))
+                n_diff += int(((g != ref)
+                               & ~(np.isnan(g) & np.isnan(ref))).sum())
+                if hold == "run":
+                    check(np.allclose(g, ref, rtol=SLICE_RTOL,
+                                      atol=SLICE_ATOL),
+                          f"{tag}: differs from Design.run by {err}")
+            if hold == "exact":
+                check(n_diff == 0, f"{tag}: {n_diff} outputs differ from "
+                                   f"Design.run")
+            line["vs_evaluate"] = {
+                "max_abs_err": err, "outputs_differing": n_diff,
+                "samples_per_batch": BLOCK_CHECKED,
+                **({"rtol": SLICE_RTOL, "atol": SLICE_ATOL}
+                   if hold == "run" else {"tolerance": "value for value"})}
+        # replays against the eager runner, the profiler over replays,
+        # then the served loop from captured graphs
+        size = BLOCK_DFG_BATCH if dfg else BATCH
+        xs = {b: [batch(b) for _ in range(3)] for b in (size, RAGGED)}
+        run_one, _, _ = design._runner(backend, fmt, design.device, kw)
+        line["replay_vs_eager"] = replay_vs_eager(torch, tag, run_one, xs)
+        line["profile"] = device_profile(torch, lambda: run_one(xs[size][2]))
+        run_one.release()
+        del run_one
+        registry.reset_launch_counts()
+        served = design.serve([xs[size][i % 3]
+                               for i in range(BLOCK_SERVE_BATCHES)],
+                              backend=backend, fmt=fmt, cuda_kw=kw)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in registry.launch_counts().items() if v}
+        want = {k: v * (BLOCK_SERVE_BATCHES + 1)
+                for k, v in per_batch.items()}
+        check(counts == want, f"{tag}: serve launched {counts}, want {want}")
+        line["serve"] = {
+            "batches": served.batches, "batch": size,
+            "p50_ms": served.p50_ms, "p99_ms": served.p99_ms,
+            "us_per_sample": served.us_per_sample,
+            "device_idle_share_at_p50": 1.0 - line["profile"][
+                "device_busy_us_per_batch"] / (served.p50_ms * 1e3)}
+        emit(line)
+        launches[label] = line["launches"]
+        torch.cuda.empty_cache()
+    kernels = block_kernels(torch, design, dfg_batches[0])
+    emit({"phase": "transformer", "step": "kernels", "batch": BATCH,
+          "dfg_batch": BLOCK_DFG_BATCH, "timing_notes": TIMING_NOTES,
+          "kernels": kernels})
+    t0 = time.perf_counter()
+    rep = design.verify(scale=0.2)
+    errs = {k: getattr(rep, k) for k in (
+        "max_abs_err_opt", "max_abs_err_ref", "max_abs_err_quant",
+        "max_abs_err_simd")}
+    emit({"phase": "transformer", "step": "verify", "summary": rep.summary(),
+          "passed": rep.passed, "seconds": time.perf_counter() - t0,
+          **errs})
+    check(rep.passed and all(math.isfinite(v) for v in errs.values()),
+          f"transformer: design.verify failed on the card: "
+          f"{rep.summary()}")
+    return {"launches": launches, "kernels": kernels}
+
+
+def phase_tune(torch, design) -> dict:
+    """``Design.tune`` on BraggNN(s=1, img=11): the paper's bisection,
+    dry, over ``braggnn_space()`` at ``TUNE_BUDGET`` trials, then the same
+    call again, which the TuningDB serves without a search; then measure
+    mode at ``TUNE_MEASURE_BUDGET`` trials, each candidate's DFG tier
+    (K4) timed on the card; then ``apply_tuned`` (the measured entry wins)
+    and the tuned design served through the DFG tier at its precision,
+    equal to ``Design.run(fmt=design.precision)`` value for value, and
+    through the nest tier at its precision, against its CPU run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core.precision import FORMATS
+    from repro_torch.kernels import registry
+    from repro_torch.models import braggnn
+    from repro_torch.tune import TuningDB, braggnn_space
+
+    space = braggnn_space()
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke_tune_", dir=ROOT))
+    try:
+        db = TuningDB(tmp / "tuning_db.json")
+        kw = {"strategy": "bisect", "db": db, "scale": TUNE_SCALE}
+        runs = {}
+        for label, dry, budget in (("dry", True, TUNE_BUDGET),
+                                   ("dry rerun", True, TUNE_BUDGET),
+                                   ("measure", False, TUNE_MEASURE_BUDGET)):
+            registry.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = design.tune(space, budget=budget, dry=dry, **kw)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in registry.launch_counts().items()
+                      if v}
+            runs[label] = counts
+            emit({"phase": "tune", "run": label, "budget": budget,
+                  "seconds": time.perf_counter() - t0,
+                  "from_db": res.from_db, "summary": res.summary(),
+                  "launches": counts,
+                  "trials": [{"candidate": t.candidate.label(),
+                              "latency_us": t.latency_us,
+                              "valid": t.valid, "err": t.err,
+                              "est_roofline_us": t.est_roofline_us,
+                              "measured_us": t.measured_us}
+                             for t in res.trials]})
+            check(res.from_db == (label == "dry rerun"),
+                  f"tune {label}: from_db is {res.from_db}")
+            check(res.best.valid, f"tune {label}: no valid candidate")
+            if dry:
+                check(not counts, f"tune {label} launched {counts}")
+            else:
+                check(counts.get("dfg_segment", 0) > 0
+                      and set(counts) == {"dfg_segment"}
+                      and all(t.measured_us is not None
+                              and 0 < t.measured_us < 1e5
+                              for t in res.trials),
+                      f"tune measure: launches {counts}, measured "
+                      f"{[t.measured_us for t in res.trials]}")
+        tuned, cand = design.apply_tuned(space, db=db)
+        check(cand is not None, "tune: apply_tuned found no entry")
+        fmt = tuned.precision
+        x = braggnn.synthetic_peaks(BATCH, IMG,
+                                    torch.Generator().manual_seed(8))[0]
+        fo = FORMATS[fmt] if fmt else None
+        rep = tuned.serve([x, x[:RAGGED]], backend="cuda", fmt=fmt,
+                          cuda_kw={"mode": "dfg"}, collect=True)
+        out_name = next(iter(rep.outputs[0]))
+        n_diff = 0
+        for o, xb in zip(rep.outputs, (x, x[:RAGGED])):
+            ref = tuned.run(xb[:N_CHECKED].numpy(), fmt=fo)[out_name]
+            got = o[out_name][:N_CHECKED].cpu().numpy().reshape(ref.shape)
+            n_diff += int(((got != ref)
+                           & ~(np.isnan(got) & np.isnan(ref))).sum())
+        check(n_diff == 0, f"tune: the tuned design's DFG tier differs from "
+                           f"Design.run at {fmt} in {n_diff} outputs")
+        # the nest tier rounds per kernel, the functional model per op: at
+        # a format the two part by more than fp32 sums do, so the
+        # reference's tolerance for a quantised design against its
+        # functional model holds them
+        nest = tuned.serve([x], backend="cuda", fmt=fmt, collect=True)
+        got = nest.outputs[0][out_name][:N_CHECKED].cpu().numpy()
+        ref = tuned.run(x[:N_CHECKED].numpy(), fmt=fo)[out_name]
+        got = got.reshape(ref.shape)
+        err = float(np.abs(got - ref).max())
+        rtol, atol = ((TUNED_RTOL, TUNED_ATOL) if fo
+                      else (SLICE_RTOL, SLICE_ATOL))
+        check(bool(np.allclose(got, ref, rtol=rtol, atol=atol)),
+              f"tune: the tuned nest tier differs from Design.run at {fmt} "
+              f"by {err} (rtol {rtol}, atol {atol})")
+        emit({"phase": "tune", "run": "apply_tuned",
+              "candidate": cand.label(), "precision": fmt,
+              "report": tuned.report().splitlines()[-1],
+              "dfg_vs_evaluate": {"outputs_differing": n_diff,
+                                  "samples_per_batch": N_CHECKED},
+              "nest_vs_evaluate": {"max_abs_err": err, "rtol": rtol,
+                                   "atol": atol},
+              "served": [rep.served, nest.served]})
+        return runs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 KERNEL_META = {
     "conv2d_vmem": ("src/repro_torch/csrc/conv2d_vmem.cu",
                     "src/repro/kernels/conv2d_vmem/conv2d_vmem.py:82"),
@@ -1331,14 +1827,23 @@ def main() -> int:
         phase_graphs(torch, design)
         phase_engine(torch, design)
         phase_trigger(torch, design)
+        blk = phase_transformer(torch)
+        tn = phase_tune(torch, design)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    # each kernel's launches on every path that runs it: BraggNN's serve
+    # phase (the main path), the block's paths, the tuner's measure mode
+    by_path = {"braggnn": sl["launches"]}
+    by_path.update({f"transformer {k}": v
+                    for k, v in blk["launches"].items()})
+    by_path["tune measure"] = tn["measure"]
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         rec = kern[name]
         bound_ms, bound_by = bound(rec["bytes"], rec["flops"])
         n = sl["launches"].get(name, 0)
+        paths = {p: c[name] for p, c in by_path.items() if c.get(name)}
         if n == 0:
             print(f"chip_smoke: FAIL: {name} was not launched on the main "
                   f"path", file=sys.stderr)
@@ -1352,7 +1857,18 @@ def main() -> int:
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": rec["library_ms"],
                      "per": f"one batch of {BATCH}: the sum over the "
-                            f"kernel's {len(rec['calls'])} calls"})
+                            f"kernel's {len(rec['calls'])} calls",
+                     "launches_by_path": paths})
+        if name in blk["kernels"]:
+            # the same numbers at the transformer block's calls
+            b = blk["kernels"][name]
+            per = BLOCK_DFG_BATCH if name == "dfg_segment" else BATCH
+            n_calls = sum(" at " not in c["call"] for c in b["calls"])
+            rows[-1]["transformer_block"] = {
+                **{k: b[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms",
+                                     "max_abs_err")},
+                "per": f"one batch of {per}: the sum over {n_calls} calls"}
         if name in NO_LIBRARY:
             rows[-1]["library_ms_null_because"] = NO_LIBRARY[name]
     emit({"kernels": rows})

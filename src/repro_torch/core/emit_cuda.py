@@ -4,25 +4,30 @@ The counterpart of the reference's ``repro/core/emit_pallas.py``, with its
 two tiers.
 
 **Nest-pattern tier** (``mode='nests'``; ``_lower_module``, ``_nlb_step``,
-``_normalize_weights``).  When the design carries the ``ModuleGraph`` it
-was bridged from, each node lowers through the kernel registry
-(:mod:`repro_torch.kernels.registry`): ``Conv2d`` -> the weights-resident
-conv, ``Linear`` -> the smallfloat matmul, ``Softmax`` and the NLB
-attention softmax -> the fused Taylor softmax, or, with ``nlb_flash=True``
-at fp32, the NLB attention core -> flash attention.  ReLU nodes fuse into
-the preceding conv/matmul kernel.  Nodes
+``_attention_step``, ``_mlp_step``, ``_normalize_weights``).  When the
+design carries the ``ModuleGraph`` it was bridged from, each node lowers
+through the kernel registry (:mod:`repro_torch.kernels.registry`):
+``Conv2d`` -> the weights-resident conv, ``Linear`` and the transformer
+block's projections and MLP -> the smallfloat matmul, ``Softmax`` and the
+NLB and ``Attention`` softmaxes -> the fused Taylor softmax, or, with
+``nlb_flash=True`` at fp32, the NLB and ``Attention`` cores -> flash
+attention.  ReLU nodes fuse into the preceding conv/matmul kernel.  Nodes
 without a registered kernel (batch norm, pooling, strided/padded conv,
-RMS norm) run as plain PyTorch and are recorded as fallbacks in the
-:class:`KernelPlan`, exactly as the reference records them.  The two NLB
-contractions (scores and mix) are ``torch.bmm`` calls outside any kernel,
-as the reference leaves them to ``jnp.einsum``.
+RMS norm, the pre-norms inside ``Attention`` and ``MLP``) run as plain
+PyTorch; the plan records the nodes among them as fallbacks and the
+kernels the composites launch through, exactly as the reference's plan
+does, so the two plans compare key for key.  The attention contractions
+(scores and mix) are ``torch.bmm``/``torch.matmul`` calls outside any
+kernel, as the reference leaves them to ``jnp.einsum``.
 
 With a ``fmt`` every kernel result is rounded to the format, as the
 reference rounds it after each kernel.  The kernels do that rounding
 themselves — conv and matmul in their epilogue, the NLB residual in the
 out-projection conv's epilogue, the NLB scores as the softmax reads them
-— so the quantised path launches the same kernels as the fp32 one and
-nothing beside them but the two ``torch.bmm``.
+— so BraggNN's quantised path launches the same kernels as the fp32 one
+and nothing beside them but the two ``torch.bmm``.  The transformer
+block's residual sums and RMS norms are rounded by the kernels' shared
+device quantiser, one launch each.
 
 **Generic DFG tier** (``mode='dfg'``; ``_plan_segments``,
 ``_segment_layout``, ``_lower_dfg``) — works for *any* traced design.  The
@@ -46,9 +51,6 @@ hand-written kernel; on the CPU (only when asked for with
 ``device="cpu"``) the same steps run the kernels' plain versions.  Bound
 weights are uploaded to the device once, when the runner is built; per
 batch only the input moves.
-
-Not ported yet: the ``Attention``/``MLP`` steps of the transformer slice
-(ROADMAP queue 1 item 12), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -390,21 +392,13 @@ def _lower_dfg(g: Graph, *, fmt_obj, fmt_tuple, dev: torch.device,
                opcode_table, plan: KernelPlan, bound=None):
     from repro_torch.kernels.dfg_segment import ops as seg_ops
     from repro_torch.kernels.dfg_segment.dfg_segment import FLAG_STAGE
-    from repro_torch.kernels.quantize import device_quantize
 
     groups = emit.compile_groups(g.cols(), g.n_values)
     plan.n_groups = len(groups)
     _, _, _, output_gather = emit.io_tables(g)
     all_out_vids = (np.concatenate([v for v, _ in output_gather.values()])
                     if output_gather else np.zeros(0, np.int32))
-    q = None
-    if fmt_obj is not None:
-        def q(x):
-            # the kernels' shared device quantiser on the card (one launch),
-            # the torch quantiser on the CPU: bit for bit the same
-            if x.is_cuda:
-                return device_quantize(x.contiguous(), fmt_tuple)
-            return quantize(x, fmt_obj)
+    q = _quantizer(fmt_obj, fmt_tuple) if fmt_obj is not None else None
     steps = _plan_segments(groups, all_out_vids, opcode_table, plan)
 
     n_values = max(g.n_values, 1)
@@ -487,7 +481,7 @@ def _lower_module(module, *, fmt_obj, fmt_tuple, nlb_flash: bool,
     mm_e = kreg.for_pattern("Linear")
     sm_e = kreg.for_pattern("Softmax")
     fa_e = kreg.for_pattern("NonLocalBlock.attention")
-    q = (lambda x: quantize(x, fmt_obj)) if fmt_obj is not None \
+    q = _quantizer(fmt_obj, fmt_tuple) if fmt_obj is not None \
         else (lambda x: x)
 
     nodes = list(module.nodes)
@@ -609,18 +603,21 @@ def _lower_module(module, *, fmt_obj, fmt_tuple, nlb_flash: bool,
             pre = node.prefix
 
             def step(x, w, pre=pre, node=node):
-                ga = w[f"{pre}.gamma"]
-                if fmt_obj is not None:
-                    x, ga = q(x), q(ga)
-                ms = torch.sum(x * x, dim=-1, keepdim=True) \
-                    * (1.0 / x.shape[-1])
-                return q(x * (1.0 / torch.sqrt(ms + node.eps)) * ga)
+                return _rms(x, w[f"{pre}.gamma"], node.eps, q)
             fuse_relu = False
-        elif isinstance(node, (nng.Attention, nng.MLP)):
-            raise NotImplementedError(
-                f"{node.name}: the nest tier's {type(node).__name__} step "
-                f"comes with the transformer slice (ROADMAP queue 1 item "
-                f"12; its attention needs kernel K5)")
+        elif isinstance(node, nng.Attention):
+            steps.append(_attention_step(node, mm_e, sm_e, fa_e, q,
+                                         fmt_obj, fmt_tuple, nlb_flash,
+                                         plan))
+            step_labels.append(_node_label(node))
+            i += 1
+            continue
+        elif isinstance(node, nng.MLP):
+            steps.append(_mlp_step(node, mm_e, q, fmt_obj, fmt_tuple, plan,
+                                   device))
+            step_labels.append(_node_label(node))
+            i += 1
+            continue
         elif isinstance(node, (nng.ReLU, nng.OutputReLU)):
             def step(x, w):
                 return torch.relu(x)
@@ -726,6 +723,127 @@ def _nlb_step(node, conv_e, sm_e, fa_e, fmt_tuple, nlb_flash: bool,
         y4 = yc.reshape(b, c2, h, h)          # a view of a contiguous yc
         # the residual sum goes in the out-projection conv's epilogue
         return conv(y4, w[f"{pre}.out_cnn.weight"], residual=x)
+
+    return step
+
+
+def _quantizer(fmt_obj: FloatFormat, fmt_tuple) -> Callable:
+    """Rounding to ``fmt``: the kernels' shared device quantiser on the card
+    (one launch), the torch quantiser on the CPU — bit for bit the same."""
+    from repro_torch.kernels.quantize import device_quantize
+
+    def q(x):
+        if x.is_cuda:
+            return device_quantize(x.contiguous(), fmt_tuple)
+        return quantize(x, fmt_obj)
+    return q
+
+
+def _rms(x, gamma, eps: float, q):
+    """RMSNorm as the reference's nest tier computes it, in plain torch
+    (the reference in jnp): input and gain rounded to ``fmt``, then
+    ``x * (1 / sqrt(sum(x*x) * (1/D) + eps)) * gamma`` rounded."""
+    x, gamma = q(x), q(gamma)
+    ms = torch.sum(x * x, dim=-1, keepdim=True) * (1.0 / x.shape[-1])
+    return q(x * (1.0 / torch.sqrt(ms + eps)) * gamma)
+
+
+def _attention_step(node, mm_e, sm_e, fa_e, q, fmt_obj, fmt_tuple,
+                    flash: bool, plan: KernelPlan):
+    """The Attention composite: optional pre-norm -> q/k/v projections ->
+    scaled scores -> softmax -> mix -> out-projection -> residual.
+
+    The q, k and v projections are one smallfloat-matmul launch over the
+    concatenated (D, 3*H*dh) weight (``{prefix}.qkv``, made when the
+    weights are bound): each output is the same ascending fmaf chain as in
+    three launches, so the results are equal value for value.  Scores and
+    mix are ``torch.matmul`` outside any kernel, as the reference leaves
+    them to ``jnp.einsum``; the softmax is the fused Taylor-mode kernel,
+    which rounds the scores to ``fmt`` as it reads them.  With ``flash`` at
+    fp32 the attention core is one flash-attention launch on the
+    projections' (B, L, H, dh) views, read in place as (B, H, L, dh).
+
+    The reference rounds q/k/v, the scores, the mix, the projection and
+    the residual sum to ``fmt``.  Here the matmul rounds its results in
+    its epilogue and its operands as it loads them (so the mix needs no
+    rounding of its own), the softmax rounds the scores, and the residual
+    sum is rounded after the add."""
+    pre = node.prefix
+    h, dh = node.n_heads, node.head_dim
+    eb = fmt_obj.exp_bits if fmt_obj is not None else None
+    mb = fmt_obj.man_bits if fmt_obj is not None else None
+    use_flash = flash and fmt_tuple is None
+    plan.record_kernel(mm_e.name)            # q/k/v and out projections
+    if use_flash:
+        plan.record_kernel(fa_e.name)
+        plan.notes.append(
+            f"{node.name}: flash-attention throughput mode — true-exp "
+            f"softmax, not the order-{node.taylor_order} Taylor model")
+    else:
+        plan.record_kernel(sm_e.name)
+    # the reference's 1 / sqrt(float32(dh)), rounded to fp32
+    inv_sqrt = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    hd = h * dh
+
+    def mm(x2, wt):
+        return mm_e.fn(x2, wt, None, exp_bits=eb, man_bits=mb,
+                       out_fmt=fmt_tuple)
+
+    def step(x, w):
+        b, l, d = x.shape
+        src = x
+        if node.pre_norm:
+            src = _rms(src, w[f"{pre}.norm.gamma"], node.eps, q)
+        qkv = mm(src.reshape(b * l, d), w[f"{pre}.qkv"])   # (B*L, 3*H*dh)
+        # (B, L, H, dh) views of the three column blocks
+        qh, kh, vh = (qkv[:, i * hd:(i + 1) * hd].view(b, l, h, dh)
+                      for i in range(3))
+        if use_flash:
+            # flash divides logits by sqrt(dh) — exactly the DFG's scale
+            y = torch.empty((b, l, h, dh), device=x.device,
+                            dtype=torch.float32)
+            fa_e.fn(qh, kh, vh, causal=False, out=y)
+        else:
+            scores = torch.matmul(qh.transpose(1, 2),
+                                  kh.permute(0, 2, 3, 1)) * inv_sqrt
+            attn = sm_e.fn(scores, taylor_order=node.taylor_order,
+                           in_fmt=fmt_tuple)
+            y = torch.matmul(attn, vh.transpose(1, 2)).transpose(1, 2)
+        z = mm(y.reshape(b * l, hd), w[f"{pre}.o.kernel"].reshape(hd, d))
+        z = z.reshape(b, l, d)
+        return q(x + z) if node.residual else z
+
+    return step
+
+
+def _mlp_step(node, mm_e, q, fmt_obj, fmt_tuple, plan: KernelPlan, device):
+    """The MLP composite: optional pre-norm -> fc1 + ReLU -> fc2 ->
+    residual.  Both layers go to one smallfloat-matmul chain launch where
+    the kernel takes the widths (as the BraggNN dense layers do; each
+    output is the same fmaf chain as with the layers one at a time), else
+    to one launch each."""
+    pre = node.prefix
+    eb = fmt_obj.exp_bits if fmt_obj is not None else None
+    mb = fmt_obj.man_bits if fmt_obj is not None else None
+    plan.record_kernel(mm_e.name + ":relu")  # fc1
+    plan.record_kernel(mm_e.name)            # fc2
+    one_launch = mm_kernel.chain_fits(
+        [node.d_model, node.hidden, node.d_model], device)
+
+    def step(x, w):
+        b, l, d = x.shape
+        src = x
+        if node.pre_norm:
+            src = _rms(src, w[f"{pre}.norm.gamma"], node.eps, q)
+        layers = [Dense(w[f"{pre}.fc1.weight"].T, w[f"{pre}.fc1.bias"],
+                        True, fmt_tuple),
+                  Dense(w[f"{pre}.fc2.weight"].T, w[f"{pre}.fc2.bias"],
+                        False, fmt_tuple)]
+        z = src.reshape(b * l, d)
+        for chain in ([layers] if one_launch else [[ly] for ly in layers]):
+            z = mm_ops.matmul_chain(z, chain, exp_bits=eb, man_bits=mb)
+        z = z.reshape(b, l, d)
+        return q(x + z) if node.residual else z
 
     return step
 
@@ -899,8 +1017,11 @@ def _plan_metrics(plan: KernelPlan) -> None:
 def _normalize_weights(w: dict[str, np.ndarray], module) -> dict:
     """Unbatch weight feeds (the nest tier shares one weight set across the
     batch, like the tensor path).  A *varying* batched weight feed cannot
-    be expressed as shared kernel weights — fail loudly.
+    be expressed as shared kernel weights — fail loudly.  Each
+    ``Attention`` node also gets its q, k and v kernels side by side as
+    ``{prefix}.qkv`` (D, 3*H*dh), the one weight of its projection launch.
     """
+    from repro_torch.nn import graph as nng
     out = {}
     shapes = {}
     for n in module.nodes:
@@ -922,4 +1043,9 @@ def _normalize_weights(w: dict[str, np.ndarray], module) -> dict:
                     f"mode='dfg' for per-sample weights")
             arr = arr[0]
         out[name] = arr
+    for n in module.nodes:
+        if isinstance(n, nng.Attention):
+            out[f"{n.prefix}.qkv"] = np.concatenate(
+                [out[f"{n.prefix}.{nm}.kernel"].reshape(n.d_model, -1)
+                 for nm in ("q", "k", "v")], axis=1)
     return out

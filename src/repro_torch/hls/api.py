@@ -5,8 +5,9 @@ The hls4ml-shaped front door (``convert(model) -> hls_model`` with
 (auto-lowered through :mod:`repro_torch.hls.bridge`), a hand-written
 loop-nest build function, or an already-traced ``Graph``, and returns a
 :class:`Design` handle over the internal ``CompiledDesign`` artifact — run,
-serve, report, all from one object.  ``repro_torch.core`` remains the
-internal layer underneath; nothing here re-implements the flow.
+verify, tune, serve, report, all from one object.  ``repro_torch.core``
+remains the internal layer underneath; nothing here re-implements the
+flow.
 
 Every session has a device, ``"cuda"`` unless the caller asks for the CPU
 (``device="cpu"``); without a GPU the default raises.
@@ -18,7 +19,7 @@ import dataclasses
 import itertools
 import time
 from pathlib import Path
-from typing import Callable, Iterable, Optional, Sequence, Union
+from typing import Any, Callable, Iterable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -148,17 +149,19 @@ class Design:
     ``schedule``, ``timings``, ``pass_reports``, ``design_hash``, ... —
     are delegated, so ``design.makespan`` etc. work directly) and keeps
     the session, source program and module-graph context needed for the
-    verbs: :meth:`run`, :meth:`torch_fn`, :meth:`verify`,
-    :meth:`with_config`, :meth:`serve`, :meth:`report`.
+    verbs: :meth:`run`, :meth:`torch_fn`, :meth:`verify`, :meth:`tune`,
+    :meth:`apply_tuned`, :meth:`with_config`, :meth:`serve`,
+    :meth:`report`.
     """
 
     def __init__(self, compiled: CompiledDesign, session: "Session", *,
                  program=None, module: Optional[ModuleGraph] = None,
-                 example_inputs=None):
+                 example_inputs=None, tuned_candidate=None):
         self._compiled = compiled
         self._session = session
         self._program = program
         self._module = module
+        self._tuned_candidate = tuned_candidate
         #: warmed-bucket manifest when this design came from ``hls.load``
         self.manifest: Optional[dict] = None
         self.example_inputs = example_inputs
@@ -186,6 +189,19 @@ class Design:
     @property
     def module(self) -> Optional[ModuleGraph]:
         return self._module
+
+    @property
+    def tuned_candidate(self):
+        """The ``Candidate`` this design was tuned to, if any."""
+        return self._tuned_candidate
+
+    @property
+    def precision(self) -> Optional[str]:
+        """FloPoCo format key carried by the tuned candidate (None=fp32)."""
+        if self._tuned_candidate is None:
+            return None
+        fmt = self._tuned_candidate.get("precision")
+        return None if fmt in (None, "fp32") else fmt
 
     @property
     def device(self) -> torch.device:
@@ -359,6 +375,99 @@ class Design:
         return Design(compiled, self._session, program=self._program,
                       module=self._module,
                       example_inputs=self.example_inputs)
+
+    # -- tuning -------------------------------------------------------------
+
+    def tune(self, space, *, strategy: str = "hillclimb", budget=8,
+             db=None, dry: bool = True, force: bool = False,
+             target_us: Optional[float] = None, on_trial=None,
+             batch: int = 2, seed: int = 0, scale: float = 0.4,
+             tol_abs: float = 1e-3, tol_rel: float = 5e-2,
+             measure_reps: int = 5, trigger_budget=None, part=None,
+             trials: Optional[int] = None):
+        """Search ``space`` over this design (delegates to
+        ``repro_torch.tune``).
+
+        Results auto-persist to the ``TuningDB`` (the port's versioned
+        cache root unless ``db`` overrides) keyed by this design's
+        fingerprint; a covered rerun is served from the DB without
+        searching.  Candidates compile through this design's session, so
+        they share the trace, the design cache and the pass-stage memo.
+        With ``dry=False`` each candidate's DFG tier is also timed on the
+        session's device (``Trial.measured_us``).  Returns a
+        ``TuneResult``; apply the win with :meth:`apply_tuned`.
+
+        ``budget`` is the trial count (int) — but a
+        :class:`repro_torch.trigger.TriggerBudget` passed here (or via the
+        explicit ``trigger_budget=`` / ``part=`` keywords) becomes a hard
+        feasibility gate instead: a candidate whose compiled schedule
+        blows the latency/II/resource envelope scores ``None`` and can
+        never win, mirroring the numerics gate.  When ``budget`` carries
+        the envelope, the trial count comes from ``trials`` (default 8).
+        """
+        from repro_torch.trigger import TriggerBudget
+        from repro_torch.tune import Evaluator, Tuner, TuningDB
+        from repro_torch.tune.strategies import Bisection, make_strategy
+        if isinstance(budget, TriggerBudget):
+            if trigger_budget is not None:
+                raise ValueError("pass the TriggerBudget either as budget= "
+                                 "or trigger_budget=, not both")
+            trigger_budget, budget = budget, (trials or 8)
+        elif trials is not None:
+            budget = trials
+        if part is not None:
+            trigger_budget = (TriggerBudget(part=part)
+                              if trigger_budget is None
+                              else dataclasses.replace(trigger_budget,
+                                                       part=part))
+        db = db if db is not None else TuningDB()
+        if space.base.forward == self._compiled.config.forward:
+            program = self._compiled.graph_raw
+        elif self._program is not None and not isinstance(self._program,
+                                                          Graph):
+            program = self._program
+        else:
+            raise ValueError(
+                "space.base.forward differs from this design's trace mode "
+                "and no build program is available to re-trace")
+        evaluator = Evaluator(program, space, driver=self._session.driver,
+                              name=self.name, batch=batch, seed=seed,
+                              scale=scale, tol_abs=tol_abs, tol_rel=tol_rel,
+                              measure=not dry, measure_reps=measure_reps,
+                              budget=trigger_budget, device=self.device)
+        strat = (Bisection(target_us=target_us) if strategy == "bisect"
+                 else make_strategy(strategy)) if isinstance(strategy, str) \
+            else strategy
+        tuner = Tuner(evaluator, strat, db=db, budget=budget,
+                      on_trial=on_trial)
+        return tuner.run(force=force)
+
+    def apply_tuned(self, space, *, db=None, verbose: bool = True
+                    ) -> tuple["Design", Optional[Any]]:
+        """Auto-load the best tuned config for this design from the DB.
+
+        Returns ``(tuned design, candidate)`` on a hit; on a miss returns
+        ``(self, None)`` and — no silent fallback — says exactly which DB
+        path was probed and how to populate it.  Serve the tuned design at
+        its format with ``serve(fmt=design.precision)``.
+        """
+        from repro_torch.tune import TuningDB, best_config_for
+        db = db if db is not None else TuningDB()
+        hit = best_config_for(self._compiled.graph_raw, space, db=db)
+        if hit is None:
+            if verbose:
+                log.warning(
+                    "no tuned config for design %s / space %r: probed "
+                    "TuningDB %s (cache root %s) — run "
+                    "`python -m repro_torch.tune` or design.tune(space) "
+                    "first; keeping the current config",
+                    self.fingerprint[:12], space.name, db.path,
+                    db.path.parent)
+            return self, None
+        config, candidate = hit
+        design = self.with_config(config)
+        design._tuned_candidate = candidate
+        return design, candidate
 
     # -- serving ------------------------------------------------------------
 
@@ -661,6 +770,8 @@ class Design:
                      f"{t.get('passes_s', 0.0):.2f} / schedule "
                      f"{t.get('schedule_s', 0.0):.2f})")
         lines.append(f"  device   : {self.device}")
+        if self._tuned_candidate is not None:
+            lines.append(f"  tuned    : {self._tuned_candidate.label()}")
         if budget is not None or part is not None:
             rep = self.check_budget(budget, part=part)
             lines += ["  " + ln for ln in rep.summary().splitlines()]
@@ -702,13 +813,42 @@ class Session:
 
     def compile(self, model: Model, *, name: Optional[str] = None,
                 config: Optional[CompilerConfig] = None,
-                example_inputs=None) -> Design:
+                example_inputs=None, tuned=None, db=None) -> Design:
         program, module = _as_program(model)
+        to_compile: Union[Graph, Callable] = program
+        candidate = None
+        if tuned is not None:
+            # resolve the tuned config BEFORE the (only) compile: trace,
+            # probe the TuningDB by fingerprint, then lower once.  ``tuned``
+            # is a SearchSpace; a miss keeps ``config`` and says which DB
+            # path was probed (never a silent fallback).
+            from repro_torch.tune import TuningDB, best_config_for
+            db = db if db is not None else TuningDB()
+            cfg_fwd = (config or self.driver.config).forward
+            if not isinstance(to_compile, Graph):
+                to_compile = self.driver.trace(program, forward=cfg_fwd)
+            hit = best_config_for(to_compile, tuned, db=db)
+            if hit is not None:
+                config, candidate = hit
+                if config.forward != cfg_fwd:
+                    if isinstance(program, Graph):
+                        raise ValueError(
+                            "tuned config.forward differs from the given "
+                            "graph's trace mode; pass a build callable")
+                    to_compile = self.driver.trace(program,
+                                                   forward=config.forward)
+            else:
+                log.warning(
+                    "no tuned config for design %s / space %r: probed "
+                    "TuningDB %s — run `python -m repro_torch.tune` or "
+                    "design.tune(space) first; compiling the given config",
+                    graph_fingerprint(to_compile)[:12], tuned.name, db.path)
         compiled = self.driver.compile(
-            program, name=name or _default_name(model, module),
+            to_compile, name=name or _default_name(model, module),
             config=config)
         return Design(compiled, self, program=program, module=module,
-                      example_inputs=example_inputs)
+                      example_inputs=example_inputs,
+                      tuned_candidate=candidate)
 
     def stats(self) -> dict[str, int]:
         """Compile-side telemetry of the session: design-cache hits and
@@ -743,7 +883,8 @@ def _default_session(cache: Union[bool, str, Path, None] = False,
 def compile(model: Model, *, name: Optional[str] = None,
             config: Optional[CompilerConfig] = None, example_inputs=None,
             cache: Union[bool, str, Path, None] = False,
-            session: Optional[Session] = None, device=None) -> Design:
+            session: Optional[Session] = None, device=None, tuned=None,
+            db=None) -> Design:
     """Compile a model to a deployable :class:`Design` (the front door).
 
     ``model`` is a :class:`~repro_torch.nn.graph.ModuleGraph` (auto-lowered
@@ -754,10 +895,13 @@ def compile(model: Model, *, name: Optional[str] = None,
     the port's versioned cache root (``cache=<path>`` under a private
     one).  ``device`` (default ``"cuda"``, which raises without a GPU) is
     where the design serves; a given ``session`` brings its own.
+    ``tuned`` (a ``SearchSpace``) resolves the best known config from the
+    ``TuningDB`` (``db`` overrides the port's own) before the single
+    compile — a miss logs the probed DB path and keeps ``config``.
     """
     s = session if session is not None else _default_session(cache, device)
     return s.compile(model, name=name, config=config,
-                     example_inputs=example_inputs)
+                     example_inputs=example_inputs, tuned=tuned, db=db)
 
 
 def load(path: Union[str, Path], *, session: Optional[Session] = None,

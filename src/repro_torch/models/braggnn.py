@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.precision import FORMATS, quantize
 from repro_torch.nn import graph as nng
+from repro_torch.nn.module import map_tree, params_from_numpy
 
 ACCUM = torch.float32
 
@@ -77,12 +78,6 @@ def specs(s: int = 1, img: int = 11) -> dict:
     return build(s, img).specs()
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _conv(x: torch.Tensor, w: torch.Tensor,
           b: Optional[torch.Tensor]) -> torch.Tensor:
     """Valid-padding NCHW conv (matches the loop-nest semantics)."""
@@ -101,7 +96,7 @@ def forward(params: dict, x: torch.Tensor, *, s: int = 1,
     datapath end to end.  ``params`` lie on ``x``'s device.
     """
     q = (lambda a: quantize(a, FORMATS[fmt])) if fmt else (lambda a: a)
-    p = _map(q, params)
+    p = map_tree(q, params)
 
     feat = q(_conv(x, p["conv1"]["w"], p["conv1"]["b"]))       # (B,c1,9,9)
     b, c1, h, w = feat.shape
@@ -130,13 +125,6 @@ def forward(params: dict, x: torch.Tensor, *, s: int = 1,
         flat = q(flat @ d["w"].to(ACCUM).T + d["b"].to(ACCUM))
         flat = torch.relu(flat)
     return flat
-
-
-def params_from_numpy(tree: dict, device=None) -> dict:
-    """A nested dict of arrays (e.g. the JAX package's parameters as numpy)
-    -> the same tree of fp32 tensors on ``device`` (default: the CPU)."""
-    return _map(lambda a: torch.tensor(np.asarray(a, dtype=np.float32),
-                                       device=device), tree)
 
 
 def params_from_feeds(feeds: dict[str, np.ndarray], s: int = 1) -> dict:

@@ -66,6 +66,20 @@ def init_tree(specs: SpecTree, generator: torch.Generator) -> Any:
     return map_specs(make, specs)
 
 
+def map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """Apply ``fn`` to every leaf of a nested dict (a param tree)."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_numpy(tree: Any, device=None) -> Any:
+    """A nested dict of arrays (e.g. the JAX package's parameters as numpy)
+    -> the same tree of fp32 tensors on ``device`` (default: the CPU)."""
+    return map_tree(lambda a: torch.tensor(np.asarray(a, dtype=np.float32),
+                                           device=device), tree)
+
+
 def param_count(specs: SpecTree) -> int:
     counts: list[int] = []
     map_specs(lambda s: counts.append(int(np.prod(s.shape))), specs)

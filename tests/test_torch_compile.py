@@ -171,6 +171,7 @@ def test_runtime_imports_neither_jax_nor_repro():
     code = ("import sys\n"
             "import repro_torch.hls, repro_torch.models.braggnn\n"
             "import repro_torch.core.emit_cuda, repro_torch.kernels.build\n"
+            "import repro_torch.models.transformer, repro_torch.tune.cli\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

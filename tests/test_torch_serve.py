@@ -321,11 +321,24 @@ def test_fallback_steps_match_reference(ref, fmt):
         np.testing.assert_allclose(got[k].numpy(), w, rtol=RTOL, atol=atol)
 
 
-def test_transformer_steps_and_flash_mode_wait_for_their_slices(design):
-    attn = nng.ModuleGraph("attn", (4, 8), [
-        nng.Attention("attn", d_model=8, n_heads=2, pre_norm=False)])
-    with pytest.raises(NotImplementedError, match="transformer slice"):
-        to_cuda_fn(None, module=attn, device="cpu")
+def test_transformer_steps_and_flash_mode_wait_for_their_slices(ref, design):
+    """The transformer slice has landed: an Attention-only graph lowers
+    through the nest tier with the reference's kernel counts, with the
+    Taylor softmax and in the flash mode."""
+    def attn(ng, params=None):
+        return ng.ModuleGraph("attn", (4, 8), [
+            ng.Attention("attn", d_model=8, n_heads=2, pre_norm=False)],
+            params=params)
+    p = ref.jax.tree_util.tree_map(
+        np.asarray, attn(ref.nng).init_params(ref.jax.random.PRNGKey(0)))
+    for kw in ({}, {"nlb_flash": True}):
+        fn = to_cuda_fn(None, module=attn(nng, braggnn.params_from_numpy(p)),
+                        device="cpu", **kw)
+        rfn = ref.to_pallas_fn(None, module=attn(ref.nng, p), **kw)
+        assert fn.plan.kernels == rfn.plan.kernels
+        assert fn.plan.kernels["smallfloat_matmul"] == 1
+        assert fn.plan.fallbacks == rfn.plan.fallbacks == []
+    assert "flash_attention" in fn.plan.kernels
     # K5 has landed: the NLB flash-attention mode builds
     fn = design.torch_fn(backend="cuda", device="cpu", nlb_flash=True)
     assert fn.plan.kernels["flash_attention"] == 1
