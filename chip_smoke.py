@@ -67,6 +67,19 @@ Phases, each printing one JSON line (``"phase": ...``):
              measure mode timing each candidate's DFG tier (K4) on the
              card; ``apply_tuned`` and the tuned design served at its
              precision, held to ``Design.run``.
+14. train  — ``ste_quantize`` on the card (the device quantiser, bitwise;
+             the identity gradient); BraggNN(s=1, img=11) trained with the
+             reference convergence test's recipe (200 AdamW steps at batch
+             64), its held-out loss drop, step times and one step profiled,
+             its first 20 steps against the same steps on the CPU; the
+             Fig. 7 exponent histogram and the pixel error at fp32, (5,11),
+             (5,4), (5,3); the trained weights bound, compiled and served
+             through the nest tier (fp32, (5,4)), the NLB flash mode and
+             the DFG tier at (5,4), held as phase serve holds them; the
+             ``TrainingDriver`` with a failure injected, bit for bit
+             against an uninterrupted run; ``examples/quickstart`` and
+             ``examples/braggnn_serve`` (``--save``, then ``--load
+             --engine``).
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 the last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -76,7 +89,9 @@ the repository's ``src/repro_torch`` beside this script.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -111,6 +126,12 @@ TIMED_RUNS = 120
 FLASH_RTOL = FLASH_ATOL = 1e-4
 #: the NLB flash mode (true exp) vs the Taylor functional model
 FLASH_VS_TAYLOR_ATOL = 5e-2
+#: the nest tier's plan on BraggNN, and its launches per batch (the four
+#: dense layers are one K3 chain launch)
+NEST_PLAN = {"conv2d_vmem": 2, "conv2d_vmem:relu": 2, "fused_softmax": 1,
+             "smallfloat_matmul:relu": 4}
+NEST_PER_BATCH = {"conv2d_vmem": 7, "fused_softmax": 1,
+                  "smallfloat_matmul": 1}
 #: batches for the DFG tier and simd: two of 256 and the ragged 100
 DFG_BATCHES = (0, 1, -1)
 #: the DFG tier's plan at img 11: segments, groups, elided scatters
@@ -135,6 +156,17 @@ TRIGGER_FRAMES, TRIGGER_WINDOWS, TRIGGER_DEADLINE_US = 2000, (1, 64), 1000.0
 #: card vs CPU trigger decisions may differ only this close to the
 #: threshold (relative to max(1, |threshold|))
 DECISION_BAND = 1e-4
+#: phase train: the recipe of the reference's convergence test (steps and
+#: batch), its bar (the held-out loss drops by more than 5x), and the
+#: steps run again on the CPU from the same init and batches
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_MIN_DROP, TRAIN_CPU_STEPS = 200, 64, 5.0, 20
+#: card against CPU losses over those steps: the same operands, summed in
+#: another order by cuDNN/cuBLAS than by ATen on the CPU, and Adam's
+#: normalised update amplifies the differences where a gradient is near 0
+TRAIN_LOSS_RTOL = 1e-3
+#: the TrainingDriver's run: steps, a checkpoint every so many, and the
+#: step a failure is injected at
+DRIVER_STEPS, DRIVER_EVERY, DRIVER_FAIL_AT = 12, 4, 7
 
 
 class SmokeFailure(Exception):
@@ -263,7 +295,9 @@ def phase_device(torch) -> dict:
             "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                            "cudnn": torch.backends.cudnn.allow_tf32},
             "float32_matmul_precision":
-                torch.get_float32_matmul_precision()}
+                torch.get_float32_matmul_precision(),
+            "cublas_workspace_config":
+                os.environ.get("CUBLAS_WORKSPACE_CONFIG")}
     emit(info)
     return info
 
@@ -711,100 +745,30 @@ def phase_compile(torch):
 
 
 def phase_slice(torch, design) -> dict:
-    import numpy as np
-    from repro_torch.kernels import registry
     from repro_torch.models import braggnn
 
     gen = torch.Generator().manual_seed(1)
     batches = [braggnn.synthetic_peaks(n, IMG, gen)[0]
                for n in [BATCH] * N_BATCHES + [RAGGED]]
-    want_plan = {"conv2d_vmem": 2, "conv2d_vmem:relu": 2,
-                 "fused_softmax": 1, "smallfloat_matmul:relu": 4}
-    # the four dense layers are one K3 chain launch
-    per_batch = {"conv2d_vmem": 7, "fused_softmax": 1,
-                 "smallfloat_matmul": 1}
-    runs = len(batches) + 1            # serve warms up on the first batch
+    want_plan, per_batch = NEST_PLAN, NEST_PER_BATCH
     evaluated = [design.run(x[:N_CHECKED].numpy()) for x in batches]
     out_name = next(iter(evaluated[0]))
     launches = {}
     results = {}
     for backend, fmt in (("cuda", None), ("cuda", "5_4"), ("tensor", None)):
-        tag = f"{backend}:{fmt or 'fp32'}"
-        registry.reset_launch_counts()
-        rep = design.serve(batches, backend=backend, fmt=fmt, collect=True)
-        torch.cuda.synchronize()
-        counts = registry.launch_counts()
-        outs = [o[out_name] if isinstance(o, dict) else o
-                for o in rep.outputs]
-        check(all(tuple(o.shape[:1]) == (len(x),) and o.is_cuda
-                  and bool(torch.isfinite(o).all())
-                  for o, x in zip(outs, batches)),
-              f"{tag}: outputs not finite CUDA tensors of the batch size")
-        line = {"phase": "serve", "backend": backend, "fmt": fmt,
-                "batches": rep.batches, "samples": rep.samples,
-                "us_per_sample": rep.us_per_sample, "p50_ms": rep.p50_ms,
-                "p99_ms": rep.p99_ms, "warmup_s": rep.warmup_s,
-                "served": rep.served, "launches": counts}
-        if backend == "cuda":
-            fn = design.torch_fn(backend="cuda", fmt=fmt)
-            check(fn.plan.kernels == want_plan and not fn.plan.fallbacks,
-                  f"{tag}: plan {fn.plan.summary()}")
-            want = {k: per_batch.get(k, 0) * runs for k in counts}
-            check(counts == want, f"{tag}: launches {counts}, want {want}")
-            if fmt is None:
-                launches = counts
-        else:
-            check(not any(counts.values()),
-                  f"tensor backend launched kernels: {counts}")
-        if fmt is None and backend == "cuda":
-            # fp32: against the numpy functional model of the design
-            err = 0.0
-            for o, ref in zip(outs, evaluated):
-                got = o[:N_CHECKED].reshape(ref[out_name].shape).cpu()
-                err = max(err, float(np.abs(got.numpy()
-                                            - ref[out_name]).max()))
-                check(np.allclose(got.numpy(), ref[out_name],
-                                  rtol=SLICE_RTOL, atol=SLICE_ATOL),
-                      f"{tag}: differs from Design.run by {err}")
-            line["vs_evaluate"] = {"max_abs_err": err, "rtol": SLICE_RTOL,
-                                   "atol": SLICE_ATOL,
-                                   "samples_per_batch": N_CHECKED}
-        else:
-            # the same backend on the CPU (the kernels' plain versions)
-            cpu = design.serve([x[:N_CHECKED] for x in batches],
-                               backend=backend, fmt=fmt, device="cpu",
-                               collect=True)
-            err, scale, n_diff, n_all = 0.0, 0.0, 0, 0
-            for o, c in zip(outs, cpu.outputs):
-                c = c[out_name] if isinstance(c, dict) else c
-                got = o[:N_CHECKED].cpu().reshape(c.shape)
-                err = max(err, float((got - c).abs().max()))
-                scale = max(scale, float(c.abs().max()))
-                n_diff += int((got != c).sum())
-                n_all += c.numel()
-            # (5,4): the operands of every sum are on the (5,4) lattice, so
-            # most fp32 sums are exact in any order and the two runs agree
-            # bit for bit; only a sum that is not exact (the softmax's, the
-            # mix) can land a later rounding one (5,4) ulp apart
-            tol = (2.0 ** (np.floor(np.log2(max(scale, 2 ** -14))) - 4)
-                   if fmt else SLICE_ATOL + SLICE_RTOL * scale)
-            check(err <= tol, f"{tag}: differs from the CPU run by {err} "
-                              f"(tolerance {tol})")
-            if fmt:
-                check(n_diff <= MAX_DIFFER_SHARE * n_all,
-                      f"{tag}: {n_diff} of {n_all} outputs differ from the "
-                      f"CPU run")
-            line["vs_cpu"] = {"max_abs_err": err, "tolerance": tol,
-                              "outputs_differing": n_diff,
-                              "outputs": n_all, "output_scale": scale,
-                              "samples_per_batch": N_CHECKED}
-        emit(line)
-        results[tag] = line
-    launches.update(serve_flash(torch, design, batches, evaluated, out_name,
-                                want_plan, per_batch))
+        line, counts, _ = serve_held(torch, design, batches, evaluated,
+                                     out_name, backend, fmt, want_plan,
+                                     per_batch)
+        if backend == "cuda" and fmt is None:
+            launches = counts
+        results[f"{backend}:{fmt or 'fp32'}"] = line
+    launches["flash_attention"] = serve_flash(
+        torch, design, batches, evaluated, out_name, want_plan,
+        per_batch)["flash_attention"]
     serve_wide(torch, want_plan, per_batch)
     dfg_batches = [batches[i] for i in DFG_BATCHES]
-    launches.update(serve_dfg(torch, design, dfg_batches, out_name))
+    launches["dfg_segment"] = serve_dfg(
+        torch, design, dfg_batches, out_name)[None]["dfg_segment"]
     serve_simd(torch, design, dfg_batches, out_name)
     verify_on_card(torch, design)
     for fmt in (None, "5_4"):
@@ -813,6 +777,89 @@ def phase_slice(torch, design) -> dict:
     for fmt in (None, "5_4"):
         phase_profile(torch, design, batches[0], fmt, {"mode": "dfg"})
     return {"launches": launches, "serve": results}
+
+
+def serve_held(torch, design, batches, evaluated, out_name, backend, fmt,
+               want_plan, per_batch, **extra):
+    """``Design.serve`` over ``batches`` through ``backend`` at ``fmt``,
+    its launches counted from 0: the cuda backend's plan and launches per
+    batch, the tensor backend's none; fp32 on the cuda backend held to
+    ``Design.run`` (``evaluated``), every other path to its own CPU run.
+    Returns the emitted line, the counts and the outputs."""
+    import numpy as np
+    from repro_torch.kernels import registry
+
+    runs = len(batches) + 1            # serve warms up on the first batch
+    tag = f"{backend}:{fmt or 'fp32'}"
+    registry.reset_launch_counts()
+    rep = design.serve(batches, backend=backend, fmt=fmt, collect=True)
+    torch.cuda.synchronize()
+    counts = registry.launch_counts()
+    outs = [o[out_name] if isinstance(o, dict) else o
+            for o in rep.outputs]
+    check(all(tuple(o.shape[:1]) == (len(x),) and o.is_cuda
+              and bool(torch.isfinite(o).all())
+              for o, x in zip(outs, batches)),
+          f"{tag}: outputs not finite CUDA tensors of the batch size")
+    line = {"phase": "serve", "backend": backend, "fmt": fmt,
+            "batches": rep.batches, "samples": rep.samples,
+            "us_per_sample": rep.us_per_sample, "p50_ms": rep.p50_ms,
+            "p99_ms": rep.p99_ms, "warmup_s": rep.warmup_s,
+            "served": rep.served, "launches": counts}
+    if backend == "cuda":
+        fn = design.torch_fn(backend="cuda", fmt=fmt)
+        check(fn.plan.kernels == want_plan and not fn.plan.fallbacks,
+              f"{tag}: plan {fn.plan.summary()}")
+        want = {k: per_batch.get(k, 0) * runs for k in counts}
+        check(counts == want, f"{tag}: launches {counts}, want {want}")
+    else:
+        check(not any(counts.values()),
+              f"tensor backend launched kernels: {counts}")
+    if fmt is None and backend == "cuda":
+        # fp32: against the numpy functional model of the design
+        err = 0.0
+        for o, ref in zip(outs, evaluated):
+            got = o[:N_CHECKED].reshape(ref[out_name].shape).cpu()
+            err = max(err, float(np.abs(got.numpy()
+                                        - ref[out_name]).max()))
+            check(np.allclose(got.numpy(), ref[out_name],
+                              rtol=SLICE_RTOL, atol=SLICE_ATOL),
+                  f"{tag}: differs from Design.run by {err}")
+        line["vs_evaluate"] = {"max_abs_err": err, "rtol": SLICE_RTOL,
+                               "atol": SLICE_ATOL,
+                               "samples_per_batch": N_CHECKED}
+    else:
+        # the same backend on the CPU (the kernels' plain versions)
+        cpu = design.serve([x[:N_CHECKED] for x in batches],
+                           backend=backend, fmt=fmt, device="cpu",
+                           collect=True)
+        err, scale, n_diff, n_all = 0.0, 0.0, 0, 0
+        for o, c in zip(outs, cpu.outputs):
+            c = c[out_name] if isinstance(c, dict) else c
+            got = o[:N_CHECKED].cpu().reshape(c.shape)
+            err = max(err, float((got - c).abs().max()))
+            scale = max(scale, float(c.abs().max()))
+            n_diff += int((got != c).sum())
+            n_all += c.numel()
+        # (5,4): the operands of every sum are on the (5,4) lattice, so
+        # most fp32 sums are exact in any order and the two runs agree
+        # bit for bit; only a sum that is not exact (the softmax's, the
+        # mix) can land a later rounding one (5,4) ulp apart
+        tol = (2.0 ** (np.floor(np.log2(max(scale, 2 ** -14))) - 4)
+               if fmt else SLICE_ATOL + SLICE_RTOL * scale)
+        check(err <= tol, f"{tag}: differs from the CPU run by {err} "
+                          f"(tolerance {tol})")
+        if fmt:
+            check(n_diff <= MAX_DIFFER_SHARE * n_all,
+                  f"{tag}: {n_diff} of {n_all} outputs differ from the "
+                  f"CPU run")
+        line["vs_cpu"] = {"max_abs_err": err, "tolerance": tol,
+                          "outputs_differing": n_diff,
+                          "outputs": n_all, "output_scale": scale,
+                          "samples_per_batch": N_CHECKED}
+    line.update(extra)
+    emit(line)
+    return line, counts, outs
 
 
 def _outputs(torch, tag, rep, batches, out_name):
@@ -838,7 +885,8 @@ def serve_flash(torch, design, batches, evaluated, out_name, nest_plan,
                 per_batch, **extra) -> dict:
     """The NLB flash-attention mode: K5 in place of K2 and the two
     contractions.  Held against the CPU run of the same backend and, at
-    the true-exp-vs-Taylor tolerance, against ``Design.run``."""
+    the true-exp-vs-Taylor tolerance, against ``Design.run``.  Returns
+    the launch counts."""
     import numpy as np
     from repro_torch.kernels import registry
 
@@ -883,7 +931,7 @@ def serve_flash(torch, design, batches, evaluated, out_name, nest_plan,
                                   "atol": FLASH_VS_TAYLOR_ATOL,
                                   "samples_per_batch": N_CHECKED},
                      **extra))
-    return {"flash_attention": counts["flash_attention"]}
+    return counts
 
 
 def serve_wide(torch, nest_plan, per_batch) -> None:
@@ -910,15 +958,17 @@ def serve_wide(torch, nest_plan, per_batch) -> None:
                 head_dim=8 * WIDE_S, compile_s=compile_s)
 
 
-def serve_dfg(torch, design, batches, out_name) -> dict:
+def serve_dfg(torch, design, batches, out_name, fmts=(None, "5_4"),
+              **extra) -> dict:
     """The generic DFG tier: one K4 launch per batch, outputs equal to the
-    numpy functional model value for value, at fp32 and (5,4)."""
+    numpy functional model value for value, at each of ``fmts``.  Returns
+    the launch counts by format."""
     import numpy as np
     from repro_torch.core.precision import FORMATS
     from repro_torch.kernels import registry
 
     launches = {}
-    for fmt in (None, "5_4"):
+    for fmt in fmts:
         tag, kw = f"cuda:dfg:{fmt or 'fp32'}", {"mode": "dfg"}
         plan = design.torch_fn(backend="cuda", fmt=fmt, **kw).plan
         got_plan = (plan.n_segments, plan.n_groups, plan.fused_scatters)
@@ -948,9 +998,9 @@ def serve_dfg(torch, design, batches, out_name) -> dict:
                                "stages": plan.n_stages,
                                "fallbacks": len(plan.fallbacks)},
                          vs_evaluate={"outputs_differing": n_diff,
-                                      "samples_per_batch": N_CHECKED}))
-        if fmt is None:
-            launches["dfg_segment"] = counts["dfg_segment"]
+                                      "samples_per_batch": N_CHECKED},
+                         **extra))
+        launches[fmt] = counts
     return launches
 
 
@@ -1012,7 +1062,8 @@ def device_profile(torch, step, reps: int = 5) -> dict:
     """``torch.profiler`` over ``reps`` calls of ``step``, each ending in a
     synchronise, after one untraced call: device operations and device
     time per call by kernel name, busy time and idle share of the host's
-    wall time."""
+    wall time, and the host operations that take the most of the host's
+    own time (under the profiler, which adds its own)."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -1023,8 +1074,12 @@ def device_profile(torch, step, reps: int = 5) -> dict:
             step()
             torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = []
+    kernels, host = [], []
     for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU \
+                and e.self_cpu_time_total > 0:
+            host.append({"name": e.key[:60], "calls": e.count / reps,
+                         "host_us_per_batch": e.self_cpu_time_total / reps})
         # device-side events only: a host op (aten::bmm) also reports its
         # kernels' time as its own, which would count them twice; CUPTI's
         # own buffer requests are the profiler's cost, not the batch's
@@ -1044,7 +1099,9 @@ def device_profile(torch, step, reps: int = 5) -> dict:
             "device_busy_us_per_batch": busy,
             "device_idle_share": (1.0 - busy * reps / wall_us
                                   if kernels else None),
-            "device_time_seen": bool(kernels), "kernels": kernels}
+            "device_time_seen": bool(kernels), "kernels": kernels,
+            "host_top": sorted(host, key=lambda h: -h["host_us_per_batch"]
+                               )[:6]}
 
 
 def _tensors(out) -> dict:
@@ -1780,6 +1837,325 @@ def phase_tune(torch, design) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+class PeaksPipeline:
+    """A seekable stream of synthetic-peak batches on the card for the
+    ``TrainingDriver``: batch ``step`` comes from a generator seeded by
+    (seed, step), so a seek replays the stream bit for bit."""
+
+    def __init__(self, torch, batch: int, seed: int = 5):
+        self.torch, self.batch, self.seed = torch, batch, seed
+
+    def seek(self, step: int) -> None:
+        pass
+
+    def get(self, step: int) -> dict:
+        from repro_torch.models import braggnn
+        gen = self.torch.Generator().manual_seed(self.seed * 100_003 + step)
+        x, y = braggnn.synthetic_peaks(self.batch, IMG, gen)
+        return {"x": x.cuda(), "y": y.cuda()}
+
+    def stop(self) -> None:
+        pass
+
+
+def pixel_error(torch, pred, y) -> float:
+    """Mean localisation error in pixels (labels are centres / IMG, the
+    model predicts 10x them), as the reference's precision study takes
+    it."""
+    pred = pred.reshape(len(y), -1).cpu()
+    return float(torch.mean(torch.abs(pred / 10.0 - y.cpu()))) * IMG
+
+
+def phase_train(torch) -> dict:
+    """Training on the card, then the trained weights served through the
+    kernels: ``ste_quantize``; the reference convergence test's recipe,
+    timed per step, against its first steps on the CPU; the Fig. 7
+    exponent histogram and the §4.2 precision sweep; the trained design
+    through the nest tier (fp32, (5,4)), the NLB flash mode and the DFG
+    tier at (5,4); the ``TrainingDriver``'s restart against an
+    uninterrupted run, bit for bit; both examples."""
+    import numpy as np
+    from repro_torch.core.precision import (FORMATS, exponent_histogram,
+                                            quantize, quantize_np,
+                                            required_exponent_bits,
+                                            ste_quantize)
+    from repro_torch.kernels.quantize import probe_values
+    from repro_torch.models import braggnn
+    from repro_torch.nn.module import init_tree, map_tree
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    # 1. ste_quantize: the device quantiser forward, the identity backward
+    res = {}
+    for key, fmt in FORMATS.items():
+        x = probe_values(fmt, 1 << 20, seed=12)
+        xd = torch.from_numpy(x).cuda()
+        got = ste_quantize(xd, fmt.exp_bits, fmt.man_bits)
+        bits = got.cpu().numpy().view(np.int32)
+        with np.errstate(over="ignore"):
+            host = quantize_np(x, fmt)
+        res[key] = {"values": int(x.size), "differ_from_quantize": int(
+            (bits != quantize(xd, fmt).cpu().numpy().view(np.int32)).sum()),
+            "differ_from_numpy": int((bits != host.view(np.int32)).sum())}
+        check(not res[key]["differ_from_quantize"]
+              and not res[key]["differ_from_numpy"],
+              f"ste_quantize differs bitwise at {key}: {res[key]}")
+    xg = torch.linspace(-2.0, 2.0, 4096, device="cuda", requires_grad=True)
+    (grad,) = torch.autograd.grad(torch.sum(3.0 * ste_quantize(xg, 5, 4)),
+                                  xg)
+    check(bool((grad == 3.0).all()), "ste_quantize: the gradient of "
+                                     "sum(3 q(x)) is not 3 everywhere")
+    emit({"phase": "train", "step": "ste_quantize", "formats": res,
+          "gradient_of_sum_3q": 3.0})
+
+    # 2. the recipe of tests/test_braggnn_paper.py's convergence test
+    model = braggnn.build(S, IMG)
+    init = init_tree(model.specs(), torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    batches = [braggnn.synthetic_peaks(TRAIN_BATCH, IMG, gen)
+               for _ in range(TRAIN_STEPS)]
+    eval_x, eval_y = braggnn.synthetic_peaks(
+        BATCH, IMG, torch.Generator().manual_seed(99))
+    cfg = adamw.AdamWConfig(peak_lr=3e-2, warmup_steps=20,
+                            total_steps=10 * TRAIN_STEPS, weight_decay=0.0)
+    step = braggnn.make_step(cfg)
+
+    def held_out(params) -> float:
+        with torch.no_grad():
+            return float(braggnn.loss_fn(
+                params, eval_x.to(params["conv1"]["w"].device),
+                eval_y.to(params["conv1"]["w"].device)))
+
+    def train(dev, n):
+        params = map_tree(lambda t: t.to(dev), init)
+        state = adamw.init_state(params)
+        data = [(x.to(dev), y.to(dev)) for x, y in batches[:n]]
+        losses, ms = [], []
+        for x, y in data:
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, x, y)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+        return params, state, [float(v) for v in losses], ms
+
+    cuda = torch.device("cuda")
+    first = held_out(map_tree(lambda t: t.cuda(), init))
+    params, state, losses, ms = train(cuda, TRAIN_STEPS)
+    last = held_out(params)
+    x0, y0 = batches[0][0].cuda(), batches[0][1].cuda()
+    prof = device_profile(torch, lambda: step(params, state, x0, y0))
+    _, _, cpu_losses, _ = train(torch.device("cpu"), TRAIN_CPU_STEPS)
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(losses[:TRAIN_CPU_STEPS], cpu_losses))
+    emit({"phase": "train", "step": "train", "steps": TRAIN_STEPS,
+          "batch": TRAIN_BATCH, "recipe": dataclasses.asdict(cfg),
+          "held_out_loss_first": first, "held_out_loss_last": last,
+          "held_out_drop": first / last, "loss_first": losses[0],
+          "loss_last": losses[-1],
+          "step_ms": {"first": ms[0], "p50": statistics.median(ms[1:]),
+                      "p99": float(np.percentile(ms[1:], 99))},
+          "step_profile": {k: v for k, v in prof.items()
+                           if k not in ("kernels", "host_top")},
+          "step_profile_host_top": prof["host_top"],
+          "step_profile_top": prof["kernels"][:8],
+          "vs_cpu": {"steps": TRAIN_CPU_STEPS, "max_rel_diff": rel,
+                     "rtol": TRAIN_LOSS_RTOL, "cpu_losses": cpu_losses,
+                     "card_losses": losses[:TRAIN_CPU_STEPS]}})
+    check(last < first / TRAIN_MIN_DROP,
+          f"train: held-out loss {first} -> {last}, not a "
+          f"{TRAIN_MIN_DROP}x drop")
+    check(rel <= TRAIN_LOSS_RTOL, f"train: the card's losses differ from "
+                                  f"the CPU's by {rel} (rtol "
+                                  f"{TRAIN_LOSS_RTOL})")
+
+    # 3. Fig. 7 and the §4.2 precision sweep on the trained weights
+    hist = exponent_histogram(params)
+    ex, ey = eval_x.cuda(), eval_y.cuda()
+    with torch.no_grad():
+        pixel = {fmt or "fp32": pixel_error(
+            torch, braggnn.forward(params, ex, fmt=fmt), ey)
+            for fmt in (None, "5_11", "5_4", "5_3")}
+    emit({"phase": "train", "step": "precision",
+          "exponent_histogram": dict(sorted(hist.items())),
+          "exp_min": min(hist), "exp_max": max(hist),
+          "required_we_100": required_exponent_bits(hist, 1.0),
+          "required_we_999": required_exponent_bits(hist, 0.999),
+          "paper_we": 5, "pixel_error_tensor_twin": pixel})
+
+    # 4. the trained weights through the kernels
+    trained = served_trained(torch, model, params, (eval_x, eval_y))
+    trained["pixel_error_tensor_twin_5_4"] = pixel["5_4"]
+
+    # 5. the TrainingDriver: a restart equals an uninterrupted run
+    driver_restart(torch, init, step)
+
+    # 6. the examples, in-process
+    run_examples()
+    emit({"phase": "train", "step": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return trained
+
+
+def served_trained(torch, model, params, held_out) -> dict:
+    """The trained weights bound and compiled (the session's design cache
+    serves the schedule phase compile made: the weights are feeds, not
+    part of the design), then served: the nest tier at fp32 and (5,4)
+    (K1, K2, K3), the NLB flash mode (K1, K3, K5) and the DFG tier at
+    (5,4) (K4), each held as phase serve holds it.  Returns the launches
+    of the four runs, each counted from 0, and the nest tier's (5,4)
+    pixel error on the held-out peaks."""
+    import repro_torch.hls as hls
+    from repro_torch.models import braggnn
+    from repro_torch.nn.module import map_tree
+
+    eval_x, eval_y = held_out
+    t0 = time.perf_counter()
+    design = hls.compile(model.bind(map_tree(lambda t: t.detach().cpu(),
+                                             params)))
+    compile_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(3)
+    batches = [eval_x, braggnn.synthetic_peaks(BATCH, IMG, gen)[0],
+               braggnn.synthetic_peaks(RAGGED, IMG, gen)[0]]
+    evaluated = [design.run(x[:N_CHECKED].numpy()) for x in batches]
+    out_name = next(iter(evaluated[0]))
+    tag = {"weights": "trained"}
+    runs = {}
+    for fmt in (None, "5_4"):
+        _, runs[f"nest {fmt or 'fp32'}"], outs = serve_held(
+            torch, design, batches, evaluated, out_name, "cuda", fmt,
+            NEST_PLAN, NEST_PER_BATCH, **tag)
+    nest_px = pixel_error(torch, outs[0], eval_y)
+    runs["flash fp32"] = serve_flash(torch, design, batches, evaluated,
+                                     out_name, NEST_PLAN, NEST_PER_BATCH,
+                                     **tag)
+    runs["dfg 5_4"] = serve_dfg(torch, design, batches, out_name,
+                                fmts=("5_4",), **tag)["5_4"]
+    launches = {}
+    for counts in runs.values():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    emit({"phase": "train", "step": "serve trained", "compile_s": compile_s,
+          "design_cache": design.session.stats(),
+          "launches_by_run": runs, "launches": launches,
+          "pixel_error_nest_5_4": nest_px})
+    missing = [k for k in KERNEL_META if not launches.get(k)]
+    check(not missing, f"train: {missing} not launched with the trained "
+                       f"weights")
+    return {"launches": launches, "pixel_error_nest_5_4": nest_px}
+
+
+def driver_restart(torch, init, step) -> None:
+    """``TrainingDriver`` for DRIVER_STEPS steps, a checkpoint every
+    DRIVER_EVERY, once clean and once with a failure injected at
+    DRIVER_FAIL_AT: the restarted run's losses and final checkpoint equal
+    the clean run's bit for bit.  Deterministic cuDNN and cuBLAS for the
+    two runs only (``CUBLAS_WORKSPACE_CONFIG`` is set when the script
+    starts, before cuBLAS is first used)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.nn.module import map_tree, tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import (DriverConfig, FailureInjector,
+                                     TrainingDriver)
+
+    def train_step(params, opt, batch):
+        params, opt, loss = step(params, opt, batch["x"], batch["y"])
+        return params, opt, {"loss": loss}
+
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke_train_", dir=ROOT))
+    try:
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        reps, drivers, t0 = {}, {}, time.perf_counter()
+        for label, fail_at in (("clean", ()), ("failure", (DRIVER_FAIL_AT,))):
+            params = map_tree(lambda t: t.cuda(), init)
+            drivers[label] = TrainingDriver(
+                DriverConfig(total_steps=DRIVER_STEPS,
+                             checkpoint_every=DRIVER_EVERY, max_restarts=3),
+                train_step=train_step,
+                pipeline=PeaksPipeline(torch, TRAIN_BATCH),
+                ckpt=CheckpointManager(str(tmp / label), keep=3),
+                injector=FailureInjector(fail_at))
+            reps[label] = drivers[label].run(params,
+                                             adamw.init_state(params))
+        seconds = time.perf_counter() - t0
+        a, b = reps["clean"].losses, reps["failure"].losses
+        # the failed run: steps 0..FAIL_AT-1, then from the last checkpoint
+        resumed = DRIVER_FAIL_AT // DRIVER_EVERY * DRIVER_EVERY
+        want = a[:DRIVER_FAIL_AT] + a[resumed:]
+        final = [CheckpointManager(str(tmp / k)).restore(
+            {"params": init, "opt": adamw.init_state(init)}, device="cpu")
+            for k in ("clean", "failure")]
+        differ = sum(x.numpy().tobytes() != y.numpy().tobytes()
+                     for x, y in zip(tree_leaves(final[0][0]),
+                                     tree_leaves(final[1][0])))
+        emit({"phase": "train", "step": "driver", "steps": DRIVER_STEPS,
+              "checkpoint_every": DRIVER_EVERY, "fail_at": DRIVER_FAIL_AT,
+              "restarts": reps["failure"].restarts,
+              "fired": drivers["failure"].injector.fired,
+              "losses_clean": a, "losses_failure": b,
+              "losses_equal_bitwise": b == want,
+              "final_checkpoint_steps": [f[1] for f in final],
+              "final_checkpoint_leaves_differing": differ,
+              "seconds": seconds, "deterministic": True})
+        check(reps["failure"].restarts == 1
+              and drivers["failure"].injector.fired == [DRIVER_FAIL_AT],
+              f"driver: restarts {reps['failure'].restarts}, fired "
+              f"{drivers['failure'].injector.fired}")
+        check(b == want, f"driver: the restarted run's losses {b} differ "
+                         f"from the clean run's {a}")
+        check(differ == 0 and final[0][1] == final[1][1] == DRIVER_STEPS,
+              f"driver: final checkpoints differ in {differ} leaves")
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
+        torch.backends.cudnn.benchmark = saved[2]
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_examples() -> None:
+    """``quickstart.main([])`` and ``braggnn_serve.main``: ``--save``, then
+    ``--load ... --engine``, on the card, with the port's cache root in a
+    temporary directory of the checkout."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.examples import braggnn_serve, quickstart
+
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke_examples_", dir=ROOT))
+    saved = os.environ.get("REPRO_TORCH_CACHE_DIR")
+    os.environ["REPRO_TORCH_CACHE_DIR"] = str(tmp / "cache")
+    try:
+        art = tmp / "braggnn.design"
+        wall = {}
+        for label, fn, argv in (
+                ("quickstart", quickstart.main, []),
+                ("braggnn_serve --save", braggnn_serve.main,
+                 ["--save", str(art)]),
+                ("braggnn_serve --load --engine", braggnn_serve.main,
+                 ["--load", str(art), "--engine"])):
+            t0 = time.perf_counter()
+            fn(argv)
+            wall[label] = time.perf_counter() - t0
+        emit({"phase": "train", "step": "examples", "wall_s": wall,
+              "artifact_bytes": art.stat().st_size})
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_TORCH_CACHE_DIR", None)
+        else:
+            os.environ["REPRO_TORCH_CACHE_DIR"] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 KERNEL_META = {
     "conv2d_vmem": ("src/repro_torch/csrc/conv2d_vmem.cu",
                     "src/repro/kernels/conv2d_vmem/conv2d_vmem.py:82"),
@@ -1812,6 +2188,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # deterministic cuBLAS for phase train's restart check: the workspace
+    # is sized when cuBLAS is first used (32 MiB, Hopper's default size)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: no CUDA device (torch.cuda.is_available() "
@@ -1829,6 +2208,7 @@ def main() -> int:
         phase_trigger(torch, design)
         blk = phase_transformer(torch)
         tn = phase_tune(torch, design)
+        tr = phase_train(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1838,6 +2218,7 @@ def main() -> int:
     by_path.update({f"transformer {k}": v
                     for k, v in blk["launches"].items()})
     by_path["tune measure"] = tn["measure"]
+    by_path["train"] = tr["launches"]
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         rec = kern[name]

@@ -13,7 +13,14 @@ Subpackages:
     models   — BraggNN (graph + the plain tensor twin)
     kernels  — the CUDA kernels, each beside its plain PyTorch version
     obs      — tracing and metrics (stdlib only)
-    serving  — queue and percentile bookkeeping
+    serving  — queue and percentile bookkeeping, the request engine
+    trigger  — trigger budgets and the streaming trigger loop
+    tune     — design-space search and its TuningDB
+    optim    — AdamW and int8 error-feedback gradient compression
+    data     — the seekable, host-sharded synthetic token pipeline
+    checkpoint — atomic, async checkpoints (the reference's layout)
+    runtime  — failure injection, the watchdog, the training driver
+    examples — quickstart and BraggNN train-compile-serve
 """
 
 __version__ = "0.1.0"

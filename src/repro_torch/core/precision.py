@@ -10,7 +10,9 @@ which is exactly the width used in the paper's SLL-crossing computation
 
 We emulate the value lattice of these formats inside fp32 containers:
 round-to-nearest-even on the fraction, exponent clamping with flush-to-zero
-below ``emin`` and saturation above ``emax``.
+below ``emin`` and saturation above ``emax``.  A straight-through-estimator
+wrapper (:func:`ste_quantize`) makes the quantiser differentiable for
+quantisation-aware training.
 
 Two quantisers with one contract: ``quantize_np`` (numpy, the functional
 model's) and ``quantize`` (torch, the tensor path's and the CUDA kernels'
@@ -27,6 +29,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.nn.module import tree_flatten, tree_leaves, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,3 +146,79 @@ def quantize(x: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
     out = torch.where(v == 0.0, x, out)
     return torch.where(torch.isfinite(x), out, x)
 
+
+
+class _SteQuantize(torch.autograd.Function):
+    """Quantise forward, pass the gradient straight through."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, exp_bits: int, man_bits: int
+                ) -> torch.Tensor:
+        if x.is_cuda:
+            from repro_torch.kernels.quantize import device_quantize
+            return device_quantize(x.detach().to(torch.float32).contiguous(),
+                                   (exp_bits, man_bits))
+        return quantize(x.detach(), FloatFormat(exp_bits, man_bits))
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None, None
+
+
+def ste_quantize(x: torch.Tensor, exp_bits: int, man_bits: int
+                 ) -> torch.Tensor:
+    """Quantise with a straight-through gradient (for QAT of BraggNN).
+
+    On a CUDA tensor the forward launches the kernels' device quantiser
+    (``kernels/quantize.device_quantize``) on a contiguous copy; on the
+    CPU it runs :func:`quantize`.  Both equal :func:`quantize_np` bit for
+    bit.  The gradient is the identity.
+    """
+    return _SteQuantize.apply(x, int(exp_bits), int(man_bits))
+
+
+def quantize_tree(tree, fmt: FloatFormat):
+    """Quantise every floating leaf of a parameter tree (weights to
+    registers); integer leaves pass through."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [
+        quantize(x, fmt) if x.is_floating_point() else x for x in leaves])
+
+
+def exponent_histogram(tree) -> dict[int, int]:
+    """Histogram of weight exponents (paper Fig. 7) over a parameter tree."""
+    hist: dict[int, int] = {}
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu().numpy()
+        arr = np.asarray(leaf, dtype=np.float32).ravel()
+        arr = arr[np.isfinite(arr) & (arr != 0.0)]
+        if arr.size == 0:
+            continue
+        _, e = np.frexp(np.abs(arr))
+        e = e - 1
+        vals, counts = np.unique(e, return_counts=True)
+        for v, c in zip(vals.tolist(), counts.tolist()):
+            hist[int(v)] = hist.get(int(v), 0) + int(c)
+    return hist
+
+
+def required_exponent_bits(hist: dict[int, int], coverage: float = 1.0) -> int:
+    """Smallest wE covering ``coverage`` of the exponent mass (Fig. 7 logic)."""
+    if not hist:
+        return 1
+    total = sum(hist.values())
+    items = sorted(hist.items(), key=lambda kv: -kv[1])
+    kept: list[int] = []
+    acc = 0
+    for e, c in items:
+        kept.append(e)
+        acc += c
+        if acc >= coverage * total:
+            break
+    lo, hi = min(kept), max(kept)
+    for we in range(2, 12):
+        fmt = FloatFormat(we, 1)
+        if fmt.emin <= lo and hi <= fmt.emax:
+            return we
+    return 12

@@ -1,0 +1,4 @@
+"""Seekable, host-sharded, prefetched synthetic data."""
+from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+
+__all__ = ["DataConfig", "SyntheticTokenPipeline"]

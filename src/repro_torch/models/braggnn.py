@@ -4,7 +4,8 @@ tensor twin.
 ``build`` is the single-source model description that
 ``repro_torch.hls.compile`` lowers through the nn -> loop-nest bridge;
 ``forward`` is the tensor-level twin the ``tensor`` serving backend runs
-(fp32 accumulation, per-layer quantisation, a true-exp softmax).
+(fp32 accumulation, per-layer quantisation, a true-exp softmax);
+``loss_fn`` and ``make_step`` train that twin by autograd and AdamW.
 Parameters are nested dicts of tensors (the reference's param-tree layout);
 :func:`params_from_numpy` carries the JAX package's parameters across.
 """
@@ -20,7 +21,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.precision import FORMATS, quantize
 from repro_torch.nn import graph as nng
-from repro_torch.nn.module import map_tree, params_from_numpy
+from repro_torch.nn.module import (map_tree, params_from_numpy, tree_flatten,
+                                   tree_unflatten)
+from repro_torch.optim import adamw
 
 ACCUM = torch.float32
 
@@ -125,6 +128,27 @@ def forward(params: dict, x: torch.Tensor, *, s: int = 1,
         flat = q(flat @ d["w"].to(ACCUM).T + d["b"].to(ACCUM))
         flat = torch.relu(flat)
     return flat
+
+
+def loss_fn(params: dict, x: torch.Tensor, y: torch.Tensor, *,
+            s: int = 1) -> torch.Tensor:
+    """Mean squared error of the peak centre, labels scaled by 10."""
+    return torch.mean((forward(params, x, s=s) - y * 10.0) ** 2)
+
+
+def make_step(opt_cfg: adamw.AdamWConfig, *, s: int = 1):
+    """``step(params, state, x, y) -> (params, state, loss)``: the loss and
+    its gradients by autograd over the tensor twin, then one AdamW update.
+    Functional: the given params and state are left as they were."""
+    def step(params, state, x, y):
+        leaves, treedef = tree_flatten(params)
+        live = [p.detach().requires_grad_() for p in leaves]
+        loss = loss_fn(tree_unflatten(treedef, live), x, y, s=s)
+        grads = torch.autograd.grad(loss, live)
+        new_p, new_s, _ = adamw.apply_updates(
+            opt_cfg, params, tree_unflatten(treedef, list(grads)), state)
+        return new_p, new_s, loss.detach()
+    return step
 
 
 def params_from_feeds(feeds: dict[str, np.ndarray], s: int = 1) -> dict:

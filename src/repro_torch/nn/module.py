@@ -73,6 +73,46 @@ def map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_flatten(tree: Any) -> tuple[list, Any]:
+    """``(leaves, treedef)`` of a tree of dicts, lists and tuples.
+
+    Leaves come in the reference's pytree order (dict keys sorted,
+    sequences in order), so a checkpoint's ``leaf_%05d`` files line up
+    between the two packages.  :func:`tree_unflatten` rebuilds the tree.
+    """
+    leaves: list = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            keys = tuple(sorted(t))
+            return (dict, keys, tuple(walk(t[k]) for k in keys))
+        if isinstance(t, (list, tuple)):
+            return (type(t), None, tuple(walk(v) for v in t))
+        leaves.append(t)
+        return None
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef: Any, leaves: list) -> Any:
+    """The tree ``treedef`` describes, with ``leaves`` in flatten order."""
+    it = iter(leaves)
+
+    def build(d):
+        if d is None:
+            return next(it)
+        kind, keys, kids = d
+        if kind is dict:
+            return {k: build(c) for k, c in zip(keys, kids)}
+        return kind(build(c) for c in kids)
+
+    return build(treedef)
+
+
+def tree_leaves(tree: Any) -> list:
+    return tree_flatten(tree)[0]
+
+
 def params_from_numpy(tree: Any, device=None) -> Any:
     """A nested dict of arrays (e.g. the JAX package's parameters as numpy)
     -> the same tree of fp32 tensors on ``device`` (default: the CPU)."""

@@ -1,4 +1,7 @@
-"""Fault tolerance shared by the serving paths."""
-from repro_torch.runtime.fault import FailureInjector, StepWatchdog
+"""Fault tolerance shared by the serving paths and the training driver."""
+from repro_torch.runtime.fault import (DriverConfig, DriverReport,
+                                       FailureInjector, StepWatchdog,
+                                       TrainingDriver)
 
-__all__ = ["FailureInjector", "StepWatchdog"]
+__all__ = ["DriverConfig", "DriverReport", "FailureInjector", "StepWatchdog",
+           "TrainingDriver"]

@@ -1,16 +1,39 @@
-"""Failure injection and the straggler watchdog of the serving engine.
+"""Fault-tolerant training driver: watchdog, failure injection, restart.
 
-``FailureInjector`` raises at chosen units of work and ``StepWatchdog``
-flags slow ones.  :class:`repro_torch.serving.design_engine.DesignEngine`
-wires the pair around its dispatch loop: a poisoned replica restarts from
-its saved artifact with in-flight requests re-queued.  Both use only the
-standard library; the training driver that shares them in the reference
-comes with the port's training slice.
+The driver owns the production loop:
+    pipeline.get(step) -> train_step -> metrics -> periodic async checkpoint
+
+and layers three protections around it:
+
+  * **checkpoint/restart** — on any step exception the driver restores the
+    latest complete checkpoint, seeks the (seekable) data pipeline, and
+    replays from there; bounded by ``max_restarts``.  Because both the
+    pipeline and the optimizer are deterministic, a restarted run equals an
+    uninterrupted one bit for bit (on the card, with deterministic cuDNN
+    and cuBLAS).
+  * **step watchdog** — steps slower than ``deadline_factor`` x the running
+    median are recorded as stragglers.
+  * **failure injection** — ``FailureInjector`` raises at configured steps,
+    which the tests use to prove the restart path.
+
+``FailureInjector`` and ``StepWatchdog`` use only the standard library:
+:class:`repro_torch.serving.design_engine.DesignEngine` wires the same pair
+around its dispatch loop, so a poisoned replica restarts from its saved
+artifact with in-flight requests re-queued — the serving twin of the
+checkpoint/restart discipline here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import statistics
+import time
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.checkpoint.ckpt import CheckpointManager
+from repro_torch.core import device as devices
 
 
 class FailureInjector:
@@ -61,3 +84,96 @@ class StepWatchdog:
                 self.stragglers.append(step)
                 return True
         return False
+
+
+@dataclasses.dataclass
+class DriverConfig:
+    total_steps: int
+    checkpoint_every: int = 10
+    max_restarts: int = 3
+    deadline_factor: float = 3.0
+
+
+@dataclasses.dataclass
+class DriverReport:
+    steps_run: int
+    restarts: int
+    straggler_steps: list
+    final_metrics: dict
+    losses: list
+
+
+class TrainingDriver:
+    """Runs ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` for ``cfg.total_steps`` steps with checkpoint/restart.
+
+    ``pipeline`` is any seekable source of batches: ``seek(step)``,
+    ``get(step)`` and ``stop()`` (a
+    :class:`repro_torch.data.SyntheticTokenPipeline`, or one of peaks).
+    ``metrics["loss"]`` is a scalar tensor or a number; the step's device
+    work is waited for before its time is taken.  ``train_step`` must not
+    write its inputs in place: a failure before the first checkpoint
+    restarts from the ``params`` and ``opt_state`` given to :meth:`run`.
+    """
+
+    def __init__(self, cfg: DriverConfig, *, train_step: Callable,
+                 pipeline: Any, ckpt: CheckpointManager,
+                 injector: Optional[FailureInjector] = None):
+        self.cfg = cfg
+        self.train_step = train_step
+        self.pipeline = pipeline
+        self.ckpt = ckpt
+        self.injector = injector or FailureInjector()
+
+    def run(self, params: Any, opt_state: Any) -> DriverReport:
+        state = initial = {"params": params, "opt": opt_state}
+        start_step = 0
+        restarts = 0
+        losses: list[float] = []
+        watchdog = StepWatchdog(self.cfg.deadline_factor)
+        metrics: dict = {}
+
+        while True:
+            try:
+                self.pipeline.seek(start_step)
+                step = start_step
+                while step < self.cfg.total_steps:
+                    t0 = time.monotonic()
+                    batch = self.pipeline.get(step)
+                    self.injector.check(step)
+                    new_params, new_opt, metrics = self.train_step(
+                        state["params"], state["opt"], batch)
+                    loss = metrics["loss"]
+                    if isinstance(loss, torch.Tensor):
+                        devices.synchronize(loss.device)
+                    state = {"params": new_params, "opt": new_opt}
+                    losses.append(float(loss))
+                    watchdog.observe(step, time.monotonic() - t0)
+                    step += 1
+                    if step % self.cfg.checkpoint_every == 0:
+                        self.ckpt.save_async(step, state)
+                self.ckpt.wait()
+                self.ckpt.save(self.cfg.total_steps, state)
+                break
+            except Exception:
+                # the restart boundary: any step failure is retried from
+                # the latest checkpoint, up to max_restarts, then re-raised
+                restarts += 1
+                if restarts > self.cfg.max_restarts:
+                    raise
+                self.ckpt.wait()
+                latest = self.ckpt.latest_step()
+                if latest is None:
+                    # restart from scratch: the state the run began with
+                    # (the update is functional, so it is intact)
+                    state, start_step = initial, 0
+                else:
+                    state, start_step = (
+                        self.ckpt.restore(state, latest)[0], latest)
+        self.pipeline.stop()
+        return DriverReport(steps_run=self.cfg.total_steps,
+                            restarts=restarts,
+                            straggler_steps=watchdog.stragglers,
+                            final_metrics={k: float(v)
+                                           for k, v in metrics.items()},
+                            losses=losses)

@@ -172,6 +172,11 @@ def test_runtime_imports_neither_jax_nor_repro():
             "import repro_torch.hls, repro_torch.models.braggnn\n"
             "import repro_torch.core.emit_cuda, repro_torch.kernels.build\n"
             "import repro_torch.models.transformer, repro_torch.tune.cli\n"
+            "import repro_torch.optim.adamw, repro_torch.optim.compress\n"
+            "import repro_torch.data.pipeline, repro_torch.checkpoint.ckpt\n"
+            "import repro_torch.runtime.fault\n"
+            "import repro_torch.examples.quickstart\n"
+            "import repro_torch.examples.braggnn_serve\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
