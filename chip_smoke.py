@@ -80,6 +80,20 @@ Phases, each printing one JSON line (``"phase": ...``):
              against an uninterrupted run; ``examples/quickstart`` and
              ``examples/braggnn_serve`` (``--save``, then ``--load
              --engine``).
+15. lm     — the decoder LM's serving path at Qwen2.5-3B's full width
+             (3,085,938,688 parameters drawn on the card from a seed,
+             bf16 activations, nothing cut): K5 at the LM's shapes (B*H
+             64, S 1,024, D 128, causal; S 333 with window 128 and cap 50)
+             against its plain version, beside SDPA and the bound;
+             ``lm.prefill`` at batch 4 x 1,024 timed, profiled and counted
+             (36 K5 launches a call, nothing else of the port's);
+             ``forward`` against 64 cached decode steps (1% of the logit
+             scale); one 8-lane decode tick profiled; ``ServingEngine``
+             (8 lanes, max_len 1,024) over 32 requests of 16-256 prompt
+             tokens and 64 new tokens, and one of them again alone; the
+             card against the CPU at two layers (2% of the logit scale);
+             ``python -m repro_torch.launch.serve --arch qwen2.5-3b
+             --no-tiny --requests 8`` in a subprocess.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 the last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -2156,6 +2170,327 @@ def run_examples() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# The decoder LM at Qwen2.5-3B's full width
+# ---------------------------------------------------------------------------
+
+#: phase lm serves the LM launcher's default architecture at its published
+#: width and depth (36 layers, d_model 2048, 16 heads over 2 KV heads,
+#: head dim 128, d_ff 11008, vocab 151936, bf16 activations), nothing cut
+LM_ARCH, LM_PARAMS = "qwen2.5-3b", 3_085_938_688
+#: K5 at the LM's shapes: a Qwen2.5-3B prefill of batch 4 (B*H = 64, S =
+#: 1,024, D = 128, causal), and gemma2's local options at a ragged S
+LM_FLASH_CASES = ((64, 1024, 128, {"causal": True}),
+                  (64, 333, 128, {"causal": True, "window": 128,
+                                  "logit_cap": 50.0}))
+#: prefill: batch, sequence, timed calls (host clock, each synchronised)
+LM_PREFILL_B, LM_PREFILL_S, LM_PREFILL_RUNS = 4, 1024, 7
+#: forward against decode: batch and sequence; the reference's own bar
+#: (tests/test_nn_blocks.py), relative to the logit scale (max |logit|)
+LM_DECODE_B, LM_DECODE_S, LM_DECODE_TOL = 2, 64, 0.01
+#: the card against the CPU at reduced depth: layers, sequence, and the
+#: bf16 bar of PERF.md (max |difference| over the logit scale): the card's
+#: cuBLAS GEMMs and K5 sum in other orders than the CPU's widened fp32
+#: products and the plain attention, which moves bf16 roundings
+LM_CPU_LAYERS, LM_CPU_S, LM_BF16_TOL = 2, 256, 0.02
+#: the engine: lanes, cache length, requests, prompt lengths, new tokens
+LM_LANES, LM_MAX_LEN, LM_REQUESTS, LM_PROMPT, LM_NEW = 8, 1024, 32, \
+    (16, 256), 64
+
+
+def causal_pairs(s: int, window: int = 0) -> int:
+    """(query, key) pairs a causal (optionally windowed) head of S rows
+    scores: the work K5's data needs."""
+    if not window:
+        return s * (s + 1) // 2
+    return sum(min(i + 1, window) for i in range(s))
+
+
+def lm_flash(torch) -> dict:
+    """K5 at the LM's shapes against its plain version, timed beside
+    ``F.scaled_dot_product_attention`` (where one call computes the same
+    function: not with a soft-cap) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, launch_shape)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    calls, shapes = [], {}
+    for bh, s, d, kw in LM_FLASH_CASES:
+        q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                   for _ in range(3))
+        call = f"({bh}, {s}, {d}) " + ",".join(f"{a}={b}"
+                                              for a, b in kw.items())
+        library = None
+        if "logit_cap" not in kw:
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True)
+        pairs = causal_pairs(s, kw.get("window", 0))
+        calls.append(kernel_call(
+            torch, call, lambda: flash_attention(q, k, v, **kw),
+            lambda: flash_attention_ref(q, k, v, **kw), library,
+            4 * 4 * bh * s * d, 4 * bh * pairs * d,
+            rtol=FLASH_RTOL, atol=FLASH_ATOL, plain_runs=20))
+        shapes[call] = launch_shape(bh, s, s, d)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return {"calls": calls, "launch_shapes": shapes}
+
+
+def lm_forward_vs_decode(torch, cfg, params, dev, b: int, s: int) -> dict:
+    """``transformer.forward``'s logits against ``s`` decode steps through
+    the bf16 cache: the largest difference over the logit scale, and the
+    share of positions whose greedy tokens agree."""
+    from repro_torch.nn import transformer
+    gen = torch.Generator().manual_seed(21)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen).to(dev)
+    full = transformer.forward(cfg, params, toks)
+    cache = transformer.init_cache(cfg, b, s, device=dev)
+    steps = []
+    for t in range(s):
+        lg, cache = transformer.decode_step(
+            cfg, params, toks[:, t:t + 1], cache,
+            torch.full((b,), t, device=dev))
+        steps.append(lg)
+    dec = torch.stack(steps, 1)
+    scale = float(full.abs().max())
+    return {"batch": b, "seq": s, "logit_scale": scale,
+            "max_abs_err": float((dec - full).abs().max()),
+            "err_over_scale": float((dec - full).abs().max()) / scale,
+            "greedy_agree_share": float(
+                (dec.argmax(-1) == full.argmax(-1)).float().mean())}
+
+
+def lm_engine_run(torch, cfg, params, *, lanes: int, max_len: int,
+                  requests: int, prompt: tuple, new: int) -> dict:
+    """The continuous-batching engine over ``requests`` seeded prompts,
+    each tick timed on the host (a tick ends in the next tokens' copy to
+    the host); then one of them again, alone in the same engine."""
+    from repro_torch.serving import ServingEngine, percentiles
+    eng = ServingEngine(cfg, params, max_batch=lanes, max_len=max_len)
+    gen = torch.Generator().manual_seed(22)
+    prompts = []
+    for _ in range(requests):
+        n = int(torch.randint(prompt[0], prompt[1] + 1, (), generator=gen))
+        prompts.append(torch.randint(1, cfg.vocab_size, (n,),
+                                     generator=gen).tolist())
+        eng.submit(prompts[-1], max_new_tokens=new)
+    ticks = []
+    t0 = time.perf_counter()
+    while len(eng.queue) or any(lane.req for lane in eng.lanes):
+        t1 = time.perf_counter()
+        eng.tick()
+        ticks.append((time.perf_counter() - t1) * 1e3)
+        check(len(ticks) < 100_000, "the engine did not drain")
+    wall = time.perf_counter() - t0
+    done = {r.rid: r for r in eng.finished}
+    check(len(done) == requests and all(
+        len(r.output) == new for r in done.values()),
+        f"engine: {len(done)} of {requests} requests finished, lengths "
+        f"{sorted({len(r.output) for r in done.values()})} (want {new})")
+    # one request again, alone among idle lanes: a request packed in the
+    # middle of the run, so it shared its ticks with others
+    rid = requests // 2
+    eng.finished.clear()
+    eng.submit(prompts[rid], max_new_tokens=new)
+    alone = eng.run_until_drained()[0].output
+    check(alone == done[rid].output,
+          f"engine: request {rid} alone gave {alone}, among the others "
+          f"{done[rid].output}")
+    lat = percentiles([r.latency_s * 1e3 for r in done.values()])
+    ttft = percentiles([(r.first_token_t - r.submit_t) * 1e3
+                        for r in done.values()])
+    tick = percentiles(ticks)
+    return {"lanes": lanes, "max_len": max_len, "requests": requests,
+            "prompt_tokens": sum(len(p) for p in prompts),
+            "generated_tokens": requests * new, "ticks": len(ticks),
+            "wall_s": wall,
+            "generated_tokens_per_s": requests * new / wall,
+            "tick_ms_p50": tick["p50"], "tick_ms_p99": tick["p99"],
+            "ttft_ms_p50": ttft["p50"], "request_ms_p50": lat["p50"],
+            "request_ms_p99": lat["p99"],
+            "alone_equals_packed": True, "request_checked": rid}
+
+
+def phase_lm(torch) -> dict:
+    """The decoder LM's serving path at Qwen2.5-3B's full width: K5 at the
+    LM's shapes; the model drawn on the card; ``lm.prefill`` timed,
+    profiled and counted (36 K5 launches a call); ``forward`` against the
+    cached decode; the card against the CPU at two layers; the engine; the
+    launcher's CLI in a subprocess."""
+    from repro_torch.configs import registry as configs
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+    from repro_torch.nn import module, transformer
+
+    t_phase = time.perf_counter()
+    flash = lm_flash(torch)
+    emit({"phase": "lm", "step": "flash_attention", **flash})
+
+    # the model, drawn on the card from a seed
+    cfg = configs.get_config(LM_ARCH)
+    specs = transformer.model_specs(cfg)
+    n_params = module.param_count(specs)
+    check(n_params == LM_PARAMS and cfg.n_layers == 36,
+          f"{LM_ARCH}: {n_params} parameters in {cfg.n_layers} layers, "
+          f"want {LM_PARAMS} in 36")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = module.init_tree(
+        specs, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cache_bytes = sum(t.numel() * t.element_size() for t in module.tree_leaves(
+        transformer.init_cache(cfg, 1, 1, device="meta")))
+    emit({"phase": "lm", "step": "model", "arch": LM_ARCH,
+          "parameters": n_params, "param_bytes": module.param_bytes(specs),
+          "activation_dtype": cfg.activation_dtype,
+          "cache_bytes_per_token_slot": cache_bytes,
+          "cache_bytes_engine": cache_bytes * LM_LANES * LM_MAX_LEN,
+          "init_s": init_s,
+          "device_bytes": torch.cuda.memory_allocated()})
+
+    # prefill: ms per call, K5's launches, and where the time goes
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    toks = torch.randint(0, cfg.vocab_size, (LM_PREFILL_B, LM_PREFILL_S),
+                         generator=gen, device="cuda")
+    logits = lm.prefill(cfg, params, toks)
+    torch.cuda.synchronize()
+    registry.reset_launch_counts()
+    times = []
+    for _ in range(LM_PREFILL_RUNS):
+        t0 = time.perf_counter()
+        logits = lm.prefill(cfg, params, toks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: v for k, v in registry.launch_counts().items() if v}
+    per_call = {k: v / LM_PREFILL_RUNS for k, v in counts.items()}
+    check(per_call == {"flash_attention": cfg.n_layers},
+          f"prefill launched {per_call} per call, want flash_attention "
+          f"{cfg.n_layers} and nothing else")
+    check(tuple(logits.shape) == (LM_PREFILL_B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"prefill logits {tuple(logits.shape)} not finite")
+    prof = device_profile(torch, lambda: lm.prefill(cfg, params, toks),
+                          reps=2)
+    k5_us = sum(k["device_us_per_batch"] for k in prof["kernels"]
+                if "flash_attention" in k["name"])
+    p50 = statistics.median(times)
+    emit({"phase": "lm", "step": "prefill", "batch": LM_PREFILL_B,
+          "seq": LM_PREFILL_S, "runs": LM_PREFILL_RUNS, "ms_p50": p50,
+          "ms": times, "tokens_per_s": LM_PREFILL_B * LM_PREFILL_S / p50
+          * 1e3, "launches_per_call": per_call,
+          "flash_attention_share_of_busy":
+              k5_us / prof["device_busy_us_per_batch"]
+              if prof["device_time_seen"] else None,
+          "flash_attention_us_per_call": k5_us,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          **{k: v for k, v in prof.items() if k != "kernels"},
+          "kernels_top": prof["kernels"][:12]})
+    del logits, toks
+
+    # forward (K5) against the cached decode (plain attention)
+    registry.reset_launch_counts()
+    fvd = lm_forward_vs_decode(torch, cfg, params, "cuda", LM_DECODE_B,
+                               LM_DECODE_S)
+    fvd["flash_attention_launches"] = registry.launch_counts()[
+        "flash_attention"]
+    emit({"phase": "lm", "step": "forward vs decode", **fvd,
+          "tolerance_over_scale": LM_DECODE_TOL})
+    check(fvd["flash_attention_launches"] == cfg.n_layers,
+          f"forward launched K5 {fvd['flash_attention_launches']} times")
+    check(fvd["err_over_scale"] <= LM_DECODE_TOL,
+          f"forward against decode: {fvd['err_over_scale']:.4g} of the "
+          f"logit scale, over {LM_DECODE_TOL}")
+
+    # one decode tick of the engine's width, profiled
+    cache = transformer.init_cache(cfg, LM_LANES, LM_MAX_LEN, device="cuda")
+    tok8 = torch.randint(1, cfg.vocab_size, (LM_LANES, 1), generator=gen,
+                         device="cuda")
+    pos8 = torch.arange(LM_LANES, device="cuda") * 100 + 100
+    tick_prof = device_profile(
+        torch, lambda: lm.serve_step(cfg, params, tok8, cache, pos8), reps=3)
+    emit({"phase": "lm", "step": "decode tick", "lanes": LM_LANES,
+          "positions": pos8.tolist(),
+          **{k: v for k, v in tick_prof.items() if k != "kernels"},
+          "kernels_top": tick_prof["kernels"][:12]})
+    del cache
+
+    # the engine
+    registry.reset_launch_counts()
+    eng = lm_engine_run(torch, cfg, params, lanes=LM_LANES,
+                        max_len=LM_MAX_LEN, requests=LM_REQUESTS,
+                        prompt=LM_PROMPT, new=LM_NEW)
+    eng["port_kernel_launches"] = {
+        k: v for k, v in registry.launch_counts().items() if v}
+    emit({"phase": "lm", "step": "engine", **eng})
+    del params
+    torch.cuda.empty_cache()
+
+    # the card against the CPU at reduced depth, the same numpy weights
+    cpu_check = lm_card_vs_cpu(torch, cfg.replace(n_layers=LM_CPU_LAYERS))
+    emit({"phase": "lm", "step": "card vs cpu", **cpu_check,
+          "tolerance_over_scale": LM_BF16_TOL})
+
+    # the launcher's CLI at the published config, in a subprocess
+    cli = lm_cli()
+    emit({"phase": "lm", "step": "cli", **cli})
+    emit({"phase": "lm", "step": "done",
+          "seconds": time.perf_counter() - t_phase})
+    # the launches of one prefill, as counted over the timed calls
+    return {"launches": {k: int(v) for k, v in per_call.items()},
+            "flash": flash}
+
+
+def lm_card_vs_cpu(torch, cfg) -> dict:
+    """``forward`` of ``cfg`` on the card (K5) and on the CPU (K5's plain
+    version) from the same numpy weights and prompt: the largest logit
+    difference over the scale, held to ``LM_BF16_TOL``."""
+    from repro_torch.kernels import registry
+    from repro_torch.nn import module, transformer
+    weights = module.map_tree(lambda t: t.numpy(), module.init_tree(
+        transformer.model_specs(cfg), torch.Generator().manual_seed(24)))
+    toks = torch.randint(0, cfg.vocab_size, (1, LM_CPU_S),
+                         generator=torch.Generator().manual_seed(25))
+    registry.reset_launch_counts()
+    card = transformer.forward(cfg, module.params_from_numpy(
+        weights, device="cuda"), toks.cuda()).cpu()
+    launches = registry.launch_counts()["flash_attention"]
+    check(launches == cfg.n_layers, f"card forward launched K5 {launches} "
+                                    f"times, want {cfg.n_layers}")
+    t0 = time.perf_counter()
+    cpu = transformer.forward(cfg, module.params_from_numpy(weights), toks)
+    cpu_s = time.perf_counter() - t0
+    scale = float(cpu.abs().max())
+    err = float((card - cpu).abs().max())
+    check(bool(torch.isfinite(card).all()) and err <= LM_BF16_TOL * scale,
+          f"card against CPU at {cfg.n_layers} layers: {err / scale:.4g} of "
+          f"the logit scale, over {LM_BF16_TOL}")
+    return {"layers": cfg.n_layers, "seq": LM_CPU_S, "logit_scale": scale,
+            "max_abs_err": err, "err_over_scale": err / scale,
+            "greedy_agree_share": float(
+                (card.argmax(-1) == cpu.argmax(-1)).float().mean()),
+            "flash_attention_launches": launches, "cpu_forward_s": cpu_s}
+
+
+def lm_cli() -> dict:
+    """``python -m repro_torch.launch.serve --arch qwen2.5-3b --no-tiny
+    --requests 8`` in a subprocess: it must exit 0."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           LM_ARCH, "--no-tiny", "--requests", "8"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ,
+                                               PYTHONPATH=str(SRC)))
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"{' '.join(cmd[1:])} exited "
+                               f"{res.returncode}: {res.stderr[-2000:]}")
+    return {"command": " ".join(cmd[1:]), "returncode": res.returncode,
+            "wall_s": wall, "stdout": res.stdout.strip()[-400:]}
+
+
 KERNEL_META = {
     "conv2d_vmem": ("src/repro_torch/csrc/conv2d_vmem.cu",
                     "src/repro/kernels/conv2d_vmem/conv2d_vmem.py:82"),
@@ -2209,6 +2544,7 @@ def main() -> int:
         blk = phase_transformer(torch)
         tn = phase_tune(torch, design)
         tr = phase_train(torch)
+        lmp = phase_lm(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2219,6 +2555,7 @@ def main() -> int:
                     for k, v in blk["launches"].items()})
     by_path["tune measure"] = tn["measure"]
     by_path["train"] = tr["launches"]
+    by_path["lm_prefill"] = lmp["launches"]
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         rec = kern[name]
@@ -2250,6 +2587,15 @@ def main() -> int:
                                      "bound_by", "library_ms",
                                      "max_abs_err")},
                 "per": f"one batch of {per}: the sum over {n_calls} calls"}
+        if name == "flash_attention":
+            # the same numbers at the LM's shapes, per call
+            rows[-1]["lm"] = {
+                "per": "one call; launches_by_path['lm_prefill'] counts "
+                       "one Qwen2.5-3B prefill",
+                "calls": [{k: c[k] for k in (
+                    "call", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err")}
+                    for c in lmp["flash"]["calls"]]}
         if name in NO_LIBRARY:
             rows[-1]["library_ms_null_because"] = NO_LIBRARY[name]
     emit({"kernels": rows})

@@ -1,0 +1,65 @@
+"""Architecture registry over the configs ported so far.
+
+The dense decoder configs whose layers are only ``global``/``local``
+attention plus a gated MLP, and BraggNN.  The reference's other
+architectures (MoE, RG-LRU and xLSTM, the encoder-decoder, the VLM) come
+with their families: asking for one raises a ``KeyError`` that says so.
+The dry-run's ``input_specs``/``input_axes`` come with the dry-run.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs import (braggnn, gemma2_27b, qwen2_7b, qwen25_3b,
+                                 stablelm_3b)
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, \
+    supports_shape
+
+_MODULES = {
+    "gemma2-27b": gemma2_27b,
+    "qwen2-7b": qwen2_7b,
+    "stablelm-3b": stablelm_3b,
+    "qwen2.5-3b": qwen25_3b,
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+#: the reference's architectures whose families are not ported yet
+NOT_PORTED = ("recurrentgemma-9b", "whisper-tiny", "qwen2-moe-a2.7b",
+              "mixtral-8x7b", "xlstm-1.3b", "qwen2-vl-2b")
+
+
+def _module(arch: str):
+    if arch in _MODULES:
+        return _MODULES[arch]
+    if arch in NOT_PORTED:
+        raise KeyError(f"{arch!r} is not ported yet: its family comes with "
+                       f"the LM substrate, ROADMAP.md queue 1 item 8")
+    raise KeyError(f"unknown architecture {arch!r}; known: "
+                   f"{', '.join(ARCH_IDS + ('braggnn',))}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch == "braggnn":
+        return braggnn.CONFIG
+    return _module(arch).CONFIG
+
+
+def get_tiny(arch: str):
+    if arch == "braggnn":
+        return braggnn.tiny()
+    return _module(arch).tiny()
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def all_cells(include_skipped: bool = False):
+    """Yield (arch_id, shape_name, supported, reason) over the ported
+    architectures."""
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for sname, shape in SHAPES.items():
+            ok, why = supports_shape(cfg, shape)
+            if ok or include_skipped:
+                yield arch, sname, ok, why

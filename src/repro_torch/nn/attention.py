@@ -1,24 +1,37 @@
-"""Attention parameter specs and the q/k/v and output projections.
+"""Attention: GQA/MQA/MHA with causal, local-window (SWA) and
+logit-softcapped variants, and full and rolling-window KV caches for
+decode.
 
-``attn_specs`` is the spec builder the ``Attention`` graph node needs
-(``nn.graph.Attention.param_specs``); ``qkv_project`` and ``out_project``
-are the projections of the transformer block's tensor twin
-(``models/transformer.py``): torch einsums at fp32 with fp32 accumulation
-and an optional weight quantised to a FloPoCo format.  Rope, masks and the
-decode path come with the LM substrate.
+The reference's ``repro.nn.attention`` in torch.  Projections take their
+operands in the activation dtype and sum in fp32; scores, softmax and the
+probabilities-by-values product are fp32.  Prefill's self-attention runs
+the flash-attention kernel (K5, ``kernels/flash_attention``) at positions
+``arange(S)``, the reference's ``blockwise_attention`` forward on the
+card; a one-token decode step attends to the cache with the plain
+:func:`full_attention`, as the reference does.  ``attn_specs``,
+``qkv_project`` and ``out_project`` also serve the transformer encoder
+block's tensor twin (``models/transformer.py``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from repro_torch.core.precision import FORMATS, quantize
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.nn.layers import maybe_quantize, matmul_f32, softcap
 from repro_torch.nn.module import ParamSpec
+from repro_torch.nn.rope import apply_rope
 
 ACCUM = torch.float32
+NEG_INF = -2.3819763e38  # large negative, safe in bf16/f32
+#: the key position of an empty or out-of-window cache slot
+INVALID_POS = -1_000_000
 
+
+# -- specs -------------------------------------------------------------------
 
 def attn_specs(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
                *, qkv_bias: bool = False) -> dict:
@@ -42,19 +55,16 @@ def attn_specs(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
     return s
 
 
-def maybe_quantize(w: torch.Tensor, quant: Optional[str]) -> torch.Tensor:
-    """``w`` rounded to the FloPoCo format ``quant`` (a ``FORMATS`` key), or
-    ``w`` itself for ``None``."""
-    return w if quant is None else quantize(w, FORMATS[quant])
-
-
 def qkv_project(p: dict, x: torch.Tensor, *, quant: Optional[str] = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> q, k, v: (B, S, H, dh) each (``p``: the
-    :func:`attn_specs` tree)."""
+    """x: (B, S, D) -> q, k, v: (B, S, H, dh) each, in x's dtype: weights
+    cast to x's dtype, fp32 sums and bias (``p``: the :func:`attn_specs`
+    tree)."""
     def proj(sub):
-        w = maybe_quantize(sub["kernel"], quant).to(ACCUM)
-        y = torch.einsum("bsd,dhk->bshk", x.to(ACCUM), w)
+        w = maybe_quantize(sub["kernel"], quant).to(x.dtype)
+        d, h, k = w.shape
+        y = matmul_f32(x, w.reshape(d, h * k))
+        y = y.reshape(*x.shape[:-1], h, k)
         if "bias" in sub:
             y = y + sub["bias"].to(ACCUM)
         return y.to(x.dtype)
@@ -63,6 +73,165 @@ def qkv_project(p: dict, x: torch.Tensor, *, quant: Optional[str] = None
 
 def out_project(p: dict, y: torch.Tensor, *, quant: Optional[str] = None
                 ) -> torch.Tensor:
-    """y: (B, S, H, dh) -> (B, S, D)."""
-    w = maybe_quantize(p["o"]["kernel"], quant).to(ACCUM)
-    return torch.einsum("bshk,hkd->bsd", y.to(ACCUM), w).to(y.dtype)
+    """y: (B, S, H, dh) -> (B, S, D), in y's dtype (fp32 sums)."""
+    w = maybe_quantize(p["o"]["kernel"], quant).to(y.dtype)
+    h, k, d = w.shape
+    return matmul_f32(y.reshape(*y.shape[:-2], h * k),
+                      w.reshape(h * k, d)).to(y.dtype)
+
+
+# -- masks -------------------------------------------------------------------
+
+def mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+              window: Optional[int]) -> torch.Tensor:
+    """Additive fp32 mask bias of shape broadcastable to (..., Q, K).
+
+    Negative key positions are the universal "invalid" sentinel (empty or
+    padded cache slots) and are masked regardless of the causal/window
+    flags — a bare causal test would *pass* for a negative sentinel since
+    it looks like the distant past.
+    """
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None and window > 0:
+        ok = ok & ((qp - kp) < window)
+    return torch.where(ok, 0.0, NEG_INF).to(ACCUM)
+
+
+# -- reference full-matrix attention -----------------------------------------
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   q_pos: torch.Tensor, k_pos: torch.Tensor,
+                   causal: bool = True, window: Optional[int] = None,
+                   logit_cap: float = 0.0) -> torch.Tensor:
+    """Materialised-scores attention (the decode step's, and the plain
+    path for a caller's positions).
+
+    q: (B,S,H,D); k,v: (B,T,K,D); q_pos: (B,S); k_pos: (B,T).  Scores,
+    softmax and sums are fp32 on widened operands; the probabilities are
+    rounded to v's dtype before they meet v, as the reference rounds them
+    (the flash kernel keeps them in fp32: at bf16 the decode step and
+    prefill differ by that rounding).
+    """
+    b, s, h, d = q.shape
+    n_kv = k.shape[2]
+    qr = q.reshape(b, s, n_kv, h // n_kv, d)
+    # sqrt(d) rounds to the same fp32 as the reference's jnp.sqrt
+    scores = torch.einsum("bskgd,btkd->bkgst", qr.to(ACCUM),
+                          k.to(ACCUM)) / math.sqrt(d)
+    scores = softcap(scores, logit_cap)
+    bias = mask_bias(q_pos, k_pos, causal=causal, window=window)
+    scores = scores + bias[:, None, None, :, :]
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(ACCUM), v.to(ACCUM))
+    return out.reshape(b, s, h, d).to(v.dtype)
+
+
+# -- top-level self-attention ------------------------------------------------
+
+def self_attention(p: dict, x: torch.Tensor,
+                   positions: Optional[torch.Tensor] = None, *,
+                   n_kv_heads: int, causal: bool = True,
+                   window: Optional[int] = None, logit_cap: float = 0.0,
+                   rope_theta: float = 10000.0, rope_fraction: float = 1.0,
+                   mrope_sections=None, quant: Optional[str] = None
+                   ) -> torch.Tensor:
+    """Self-attention for prefill (no cache).
+
+    ``positions=None`` means ``arange(S)`` for every sequence: the flash
+    kernel's contract, which it serves on the card (its plain version on
+    the CPU).  A caller's positions ((B, S), or (B, 3, S) for M-RoPE) need
+    the materialised scores, which only the CPU computes: on the card no
+    kernel of the port takes them yet (they come with the VLM, ROADMAP.md
+    queue 1 item 8), so there they raise.
+    """
+    if positions is not None and x.device.type != "cpu":
+        raise NotImplementedError(
+            "self-attention at a caller's positions has no kernel on the "
+            "card (positions=None serves arange(S) through flash "
+            "attention); it comes with the VLM, ROADMAP.md queue 1 item 8")
+    q, k, v = qkv_project(p, x, quant=quant)
+    b, s = x.shape[:2]
+    pos = positions
+    if pos is None:
+        pos = torch.arange(s, device=x.device).expand(b, s)
+    q, k = apply_rope(q, k, pos, theta=rope_theta, fraction=rope_fraction,
+                      mrope_sections=mrope_sections)
+    kw = dict(causal=causal, window=window, logit_cap=logit_cap)
+    if positions is None:
+        y = flash_ops.attention(q, k, v, **kw)
+    else:
+        pos_1d = positions if positions.dim() == 2 else positions[:, 0, :]
+        y = full_attention(q, k, v, q_pos=pos_1d, k_pos=pos_1d, **kw)
+    return out_project(p, y, quant=quant)
+
+
+# -- KV caches ---------------------------------------------------------------
+
+def init_kv_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
+                  *, window: Optional[int] = None, dtype=torch.bfloat16,
+                  device=None) -> dict:
+    """Cache entry for one attention layer (bf16 k/v whatever the
+    activation dtype, as the reference keeps them).
+
+    Full cache:   k/v (B, max_len, K, D)
+    Rolling SWA:  k/v (B, window, K, D) + kpos (B, window) actual positions
+                  (-1 = empty), written at pos % window.
+    """
+    size = min(window, max_len) if window else max_len
+    shape = (batch, size, n_kv_heads, head_dim)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if window:
+        cache["kpos"] = torch.full((batch, size), -1, dtype=torch.int32,
+                                   device=device)
+    return cache
+
+
+def _write_at(cache_arr: torch.Tensor, val: torch.Tensor,
+              slot: torch.Tensor) -> None:
+    """Write one step per sequence, ``val[b]`` (B, ...) into
+    ``cache_arr[b, slot[b]]``, in place: O(1) work per step, and the cache
+    (a view into the model's stacked cache) is never copied."""
+    lanes = torch.arange(cache_arr.shape[0], device=cache_arr.device)
+    cache_arr[lanes, slot] = val.to(cache_arr.dtype)
+
+
+def decode_attention(p: dict, x: torch.Tensor, cache: dict,
+                     pos: torch.Tensor, *, n_kv_heads: int,
+                     window: Optional[int] = None, logit_cap: float = 0.0,
+                     rope_theta: float = 10000.0, rope_fraction: float = 1.0,
+                     mrope_sections=None, quant: Optional[str] = None
+                     ) -> tuple[torch.Tensor, dict]:
+    """One decode step: x (B,1,d), per-sequence positions pos (B,).
+
+    Writes this step's k/v (and, for a window, its position) into
+    ``cache`` in place and returns ``(out, cache)``; the reference returns
+    an updated copy with the same values.
+    """
+    q, k, v = qkv_project(p, x, quant=quant)
+    positions = pos[:, None]                                  # (B,1)
+    if mrope_sections:
+        positions = torch.stack([positions] * 3, dim=1)       # (B,3,1)
+    q, k = apply_rope(q, k, positions, theta=rope_theta,
+                      fraction=rope_fraction, mrope_sections=mrope_sections)
+    size = cache["k"].shape[1]
+    slot = pos % size if window else torch.clamp(pos, max=size - 1)
+    _write_at(cache["k"], k[:, 0], slot)
+    _write_at(cache["v"], v[:, 0], slot)
+    now = pos[:, None]
+    if window:
+        _write_at(cache["kpos"], pos, slot)
+        k_pos = cache["kpos"]
+        # valid = written and within window of the current position
+        valid = (k_pos >= 0) & (now - k_pos < window) & (k_pos <= now)
+    else:
+        k_pos = torch.arange(size, device=x.device).expand(x.shape[0], size)
+        valid = k_pos <= now
+    k_pos = torch.where(valid, k_pos, INVALID_POS)
+    y = full_attention(q, cache["k"], cache["v"], q_pos=now, k_pos=k_pos,
+                       causal=True, window=None, logit_cap=logit_cap)
+    return out_project(p, y, quant=quant), cache

@@ -1,0 +1,161 @@
+"""Basic layers: norms, dense projections, embeddings, MLPs.
+
+The reference's ``repro.nn.layers`` in torch.  Params are plain dicts
+produced from the matching ``*_specs`` function; apply functions are pure.
+Matmuls take their operands in the activation dtype (bf16 by default) and
+accumulate in fp32 (:func:`matmul_f32`, the reference's
+``preferred_element_type=float32``); norms run in fp32.  When a ``quant``
+format is supplied, weights pass through the paper's (wE,wF) quantiser
+first.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.precision import FORMATS, quantize
+from repro_torch.nn.module import ParamSpec
+
+ACCUM = torch.float32
+
+
+def maybe_quantize(w: torch.Tensor, quant: Optional[str]) -> torch.Tensor:
+    """``w`` rounded to the FloPoCo format ``quant`` (a ``FORMATS`` key), or
+    ``w`` itself for ``None``."""
+    return w if quant is None else quantize(w, FORMATS[quant])
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)``, operands of one dtype, summed in fp32 and
+    returned in fp32.
+
+    fp32 operands multiply as they are.  bf16 operands go to cuBLAS on the
+    card with an fp32 result (``torch.mm(..., out_dtype=float32)``, tensor
+    cores, fp32 accumulation); ATen has no such kernel for the CPU, so
+    there they are widened first: a product of two bf16 values is exact in
+    fp32, so the widened product is the same fp32 sum.
+    """
+    if x.dtype == torch.float32:
+        return x @ w
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda:
+        y = torch.mm(x2, w, out_dtype=ACCUM)
+    else:
+        y = x2.to(ACCUM) @ w.to(ACCUM)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def activation(name: str):
+    return {
+        "silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": torch.relu,
+        "tanh": torch.tanh,
+    }[name]
+
+
+# -- norms -------------------------------------------------------------------
+
+def rmsnorm_specs(d: int) -> dict:
+    return {"scale": ParamSpec((d,), ("embed",), init="ones")}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, *, eps: float = 1e-6,
+            zero_centered: bool = False) -> torch.Tensor:
+    xf = x.to(ACCUM)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    scale = p["scale"].to(ACCUM)
+    if zero_centered:           # gemma-style (1 + scale)
+        scale = 1.0 + scale
+    return (y * scale).to(x.dtype)
+
+
+def layernorm_specs(d: int) -> dict:
+    return {"scale": ParamSpec((d,), ("embed",), init="ones"),
+            "bias": ParamSpec((d,), ("embed",), init="zeros")}
+
+
+def layernorm(p: dict, x: torch.Tensor, *, eps: float = 1e-5
+              ) -> torch.Tensor:
+    xf = x.to(ACCUM)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(ACCUM) + p["bias"].to(ACCUM)).to(x.dtype)
+
+
+# -- dense -------------------------------------------------------------------
+
+def dense_specs(d_in: int, d_out: int, *, axes: tuple = ("embed", "mlp"),
+                bias: bool = False, bias_axis: Optional[str] = None) -> dict:
+    out = {"kernel": ParamSpec((d_in, d_out), axes)}
+    if bias:
+        out["bias"] = ParamSpec((d_out,), (bias_axis,), init="zeros")
+    return out
+
+
+def dense(p: dict, x: torch.Tensor, *, quant: Optional[str] = None
+          ) -> torch.Tensor:
+    w = maybe_quantize(p["kernel"], quant).to(x.dtype)
+    y = matmul_f32(x, w)
+    if "bias" in p:
+        y = y + p["bias"].to(ACCUM)
+    return y.to(x.dtype)
+
+
+# -- embedding ----------------------------------------------------------------
+
+def embedding_specs(vocab: int, d: int) -> dict:
+    return {"table": ParamSpec((vocab, d), ("vocab", "embed"), scale=1.0)}
+
+
+def embed(p: dict, ids: torch.Tensor, *, dtype=torch.bfloat16
+          ) -> torch.Tensor:
+    """The rows of ``ids``, cast after the gather: the reference casts the
+    whole table first, which gives the same values."""
+    return p["table"][ids].to(dtype)
+
+
+def unembed(p: dict, x: torch.Tensor, *, quant: Optional[str] = None
+            ) -> torch.Tensor:
+    """Project to vocabulary logits (fp32) with the (possibly tied)
+    table."""
+    w = maybe_quantize(p["table"], quant).to(x.dtype)
+    return matmul_f32(x, w.T)
+
+
+# -- MLPs ---------------------------------------------------------------------
+
+def mlp_specs(d: int, d_ff: int, *, gated: bool = True) -> dict:
+    out = {
+        "wi": ParamSpec((d, d_ff), ("embed", "mlp")),
+        "wo": ParamSpec((d_ff, d), ("mlp", "embed")),
+    }
+    if gated:
+        out["wg"] = ParamSpec((d, d_ff), ("embed", "mlp"))
+    return out
+
+
+def mlp(p: dict, x: torch.Tensor, *, act: str = "silu",
+        quant: Optional[str] = None) -> torch.Tensor:
+    f = activation(act)
+    wi = maybe_quantize(p["wi"], quant).to(x.dtype)
+    wo = maybe_quantize(p["wo"], quant).to(x.dtype)
+    h = matmul_f32(x, wi)
+    if "wg" in p:
+        wg = maybe_quantize(p["wg"], quant).to(x.dtype)
+        h = f(matmul_f32(x, wg)) * h
+    else:
+        h = f(h)
+    return matmul_f32(h.to(x.dtype), wo).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)

@@ -52,18 +52,30 @@ def map_specs(fn: Callable[[ParamSpec], Any], specs: SpecTree) -> Any:
     return {k: map_specs(fn, specs[k]) for k in sorted(specs)}
 
 
-def init_tree(specs: SpecTree, generator: torch.Generator) -> Any:
-    """Materialise parameters (CPU tensors) from one seeded generator."""
+def init_tree(specs: SpecTree, generator: torch.Generator, *,
+              device=None) -> Any:
+    """Materialise parameters from one seeded generator, drawn on
+    ``device`` (default: the CPU), where ``generator`` must live too: a
+    model of billions of parameters is drawn where it runs, not copied
+    there."""
     def make(spec: ParamSpec) -> torch.Tensor:
         if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=spec.dtype)
+            return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
         if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=spec.dtype)
+            return torch.ones(spec.shape, dtype=spec.dtype, device=device)
         std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(
             spec.fan_in())
-        return (torch.randn(spec.shape, generator=generator,
-                            dtype=torch.float32) * std).to(spec.dtype)
+        return torch.randn(spec.shape, generator=generator, device=device,
+                           dtype=torch.float32).mul_(std).to(spec.dtype)
     return map_specs(make, specs)
+
+
+def stack(specs: SpecTree, n: int) -> SpecTree:
+    """Prepend a ``layers`` dimension of ``n`` to every spec: the stacked
+    parameters of ``n`` layers of one kind."""
+    return map_specs(
+        lambda s: dataclasses.replace(
+            s, shape=(n,) + s.shape, axes=("layers",) + s.axes), specs)
 
 
 def map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
@@ -124,3 +136,10 @@ def param_count(specs: SpecTree) -> int:
     counts: list[int] = []
     map_specs(lambda s: counts.append(int(np.prod(s.shape))), specs)
     return sum(counts)
+
+
+def param_bytes(specs: SpecTree) -> int:
+    sizes: list[int] = []
+    map_specs(lambda s: sizes.append(int(np.prod(s.shape))
+                                     * s.dtype.itemsize), specs)
+    return sum(sizes)

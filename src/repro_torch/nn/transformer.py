@@ -1,0 +1,242 @@
+"""Decoder assembly: blocks, prefill forward, cached decode step.
+
+The reference's ``repro.nn.transformer`` in torch, for the layer kinds
+``global`` and ``local`` (attention plus a gated MLP).  Layers are grouped
+into *superblocks* of ``len(cfg.attn_pattern)`` layers whose parameters are
+stacked (``blocks/<i>``, leading dim = superblock), with remainder layers
+(n_layers mod period) in ``extra/<j>``: the reference's tree, so its
+parameters and checkpoints carry straight over.  Where the reference scans
+the stack with ``lax.scan``, the port loops over the stacked index in
+Python.  KV caches mirror the parameter layout, and the decode step
+writes each layer's slice of the stacked cache in place.
+
+Recurrent kinds (RG-LRU, xLSTM), MoE blocks, patches (VLM), learned
+positions (the encoder-decoder) and bf16 cross-device sums are not ported
+yet: a config that asks for one raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.nn import attention, layers, module
+from repro_torch.nn.module import map_tree
+
+Params = Any
+
+#: what the port does not run yet, and where it comes (ROADMAP.md queue 1,
+#: item 8)
+_LATER = "ROADMAP.md queue 1 item 8"
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config that needs a part of the
+    LM substrate the port has not ported yet."""
+    later = [f"layer kind {k!r} (RG-LRU/xLSTM)" for k in dict.fromkeys(
+        cfg.attn_pattern) if k not in ("global", "local")]
+    if cfg.n_experts:
+        later.append("MoE blocks (the MoE family)")
+    if cfg.n_patches:
+        later.append("patches (qwen2-vl)")
+    if cfg.learned_positions or cfg.is_encoder_decoder:
+        later.append("learned positions and the encoder (whisper)")
+    if cfg.bf16_reduce:
+        later.append("bf16 cross-device sums (the sharded pieces)")
+    if later:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(later)} not ported yet ({_LATER})")
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.activation_dtype)
+
+
+def _norm_specs(cfg: ModelConfig) -> dict:
+    if cfg.norm == "layernorm":
+        return layers.layernorm_specs(cfg.d_model)
+    return layers.rmsnorm_specs(cfg.d_model)
+
+
+def _apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layers.layernorm(p, x, eps=cfg.norm_eps)
+    return layers.rmsnorm(p, x, eps=cfg.norm_eps,
+                          zero_centered=cfg.zero_centered_norm)
+
+
+# -- one block ---------------------------------------------------------------
+
+def mixer_specs(cfg: ModelConfig, kind: str) -> dict:
+    if kind in ("global", "local"):
+        return attention.attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.resolved_head_dim,
+                                    qkv_bias=cfg.qkv_bias)
+    raise NotImplementedError(f"layer kind {kind!r} not ported yet "
+                              f"({_LATER})")
+
+
+def block_specs(cfg: ModelConfig, kind: str) -> dict:
+    s: dict = {"ln1": _norm_specs(cfg), "mixer": mixer_specs(cfg, kind)}
+    if cfg.n_experts > 0:
+        raise NotImplementedError(f"MoE blocks not ported yet ({_LATER})")
+    if cfg.d_ff > 0:
+        s["ln2"] = _norm_specs(cfg)
+        s["mlp"] = layers.mlp_specs(cfg.d_model, cfg.d_ff, gated=True)
+    if cfg.post_norms:
+        s["post1"] = _norm_specs(cfg)
+        if cfg.d_ff > 0:
+            s["post2"] = _norm_specs(cfg)
+    return s
+
+
+def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None, *,
+                cache: Optional[dict] = None,
+                pos: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, Optional[dict]]:
+    """One layer: prefill when ``cache`` is None (``positions``: see
+    :func:`attention.self_attention`), else one decode step at ``pos``
+    (B,), which writes ``cache`` in place.  Returns (x_out, cache)."""
+    if kind not in ("global", "local"):
+        raise NotImplementedError(f"layer kind {kind!r} not ported yet "
+                                  f"({_LATER})")
+    window = cfg.window if kind == "local" else None
+    attn_kw = dict(logit_cap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
+                   rope_fraction=cfg.rope_fraction,
+                   mrope_sections=cfg.mrope_sections or None,
+                   quant=cfg.quant_format, n_kv_heads=cfg.n_kv_heads)
+    h = _apply_norm(cfg, p["ln1"], x)
+    if cache is None:
+        y = attention.self_attention(p["mixer"], h, positions, causal=True,
+                                     window=window, **attn_kw)
+    else:
+        y, cache = attention.decode_attention(
+            p["mixer"], h, cache, pos, window=window or None, **attn_kw)
+    if cfg.post_norms:
+        y = _apply_norm(cfg, p["post1"], y)
+    x = x + y
+
+    if "mlp" in p:
+        h = _apply_norm(cfg, p["ln2"], x)
+        y = layers.mlp(p["mlp"], h, act=cfg.act, quant=cfg.quant_format)
+        if cfg.post_norms:
+            y = _apply_norm(cfg, p["post2"], y)
+        x = x + y
+    return x, cache
+
+
+# -- cache construction ------------------------------------------------------
+
+def _kind_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     device) -> dict:
+    return attention.init_kv_cache(
+        batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
+        window=cfg.window if kind == "local" else None, device=device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """The model's decode cache on ``device`` (default: the CPU), laid out
+    as the reference's: ``blocks/<i>`` stacked over superblocks,
+    ``extra/<j>`` per remainder layer."""
+    _check_supported(cfg)
+    out: dict = {"blocks": {}, "extra": {}}
+    for i, kind in enumerate(cfg.attn_pattern):
+        per = _kind_cache_init(cfg, kind, batch, max_len, device)
+        out["blocks"][str(i)] = map_tree(
+            lambda a: a.expand(cfg.n_superblocks, *a.shape).clone(), per)
+    for j in range(cfg.n_remainder_layers):
+        out["extra"][str(j)] = _kind_cache_init(
+            cfg, cfg.attn_pattern[j], batch, max_len, device)
+    return out
+
+
+# -- model specs -------------------------------------------------------------
+
+def model_specs(cfg: ModelConfig) -> dict:
+    _check_supported(cfg)
+    s: dict = {
+        "embed": layers.embedding_specs(cfg.vocab_size, cfg.d_model),
+        "final_norm": _norm_specs(cfg),
+        "blocks": {},
+        "extra": {},
+    }
+    for i, kind in enumerate(cfg.attn_pattern):
+        s["blocks"][str(i)] = module.stack(block_specs(cfg, kind),
+                                           cfg.n_superblocks)
+    for j in range(cfg.n_remainder_layers):
+        s["extra"][str(j)] = block_specs(cfg, cfg.attn_pattern[j])
+    if not cfg.tie_embeddings:
+        s["unembed"] = {"kernel": module.ParamSpec(
+            (cfg.d_model, cfg.vocab_size), ("embed", "vocab"))}
+    return s
+
+
+# -- forward (prefill) and decode --------------------------------------------
+
+def _layers(cfg: ModelConfig, params: Params, cache: Optional[dict] = None):
+    """Each layer in order as (kind, params, cache): views into the stacked
+    trees, so a decode step's cache writes land in the stack."""
+    for li in range(cfg.n_superblocks):
+        for i, kind in enumerate(cfg.attn_pattern):
+            at = (lambda a, li=li: a[li])
+            yield (kind, map_tree(at, params["blocks"][str(i)]),
+                   None if cache is None
+                   else map_tree(at, cache["blocks"][str(i)]))
+    for j in range(cfg.n_remainder_layers):
+        yield (cfg.attn_pattern[j], params["extra"][str(j)],
+               None if cache is None else cache["extra"][str(j)])
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    dt = _dtype(cfg)
+    x = layers.embed(params["embed"], tokens, dtype=dt)
+    if cfg.embed_scale:
+        # the reference's fp32 sqrt, rounded to the activation dtype
+        x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(dt)
+    return x
+
+
+def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor
+            ) -> torch.Tensor:
+    x = _apply_norm(cfg, params["final_norm"], x)
+    if cfg.tie_embeddings:
+        logits = layers.unembed(params["embed"], x, quant=cfg.quant_format)
+    else:
+        logits = layers.dense(params["unembed"], x, quant=cfg.quant_format)
+    return layers.softcap(logits.to(torch.float32), cfg.final_softcap)
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None,
+            last_logit_only: bool = False) -> torch.Tensor:
+    """Full-sequence forward: fp32 logits (B, S, vocab), or (B, 1, vocab)
+    with ``last_logit_only``.
+
+    tokens: (B, S) integer ids.  ``positions=None`` is ``arange(S)``, which
+    every attention layer serves with the flash kernel on the card.
+    """
+    _check_supported(cfg)
+    x = _embed(cfg, params, tokens)
+    for kind, p, _ in _layers(cfg, params):
+        x, _ = apply_block(cfg, kind, p, x, positions)
+    if last_logit_only:
+        x = x[:, -1:, :]
+    return _logits(cfg, params, x)
+
+
+def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                cache: dict, pos: torch.Tensor
+                ) -> tuple[torch.Tensor, dict]:
+    """One token for every sequence.  tokens (B,1); pos (B,) current index.
+
+    Returns (logits (B, vocab), cache), the cache written in place.
+    """
+    x = _embed(cfg, params, tokens)
+    for kind, p, c in _layers(cfg, params, cache):
+        x, _ = apply_block(cfg, kind, p, x, cache=c, pos=pos)
+    return _logits(cfg, params, x)[:, 0, :], cache

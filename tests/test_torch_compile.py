@@ -175,6 +175,8 @@ def test_runtime_imports_neither_jax_nor_repro():
             "import repro_torch.optim.adamw, repro_torch.optim.compress\n"
             "import repro_torch.data.pipeline, repro_torch.checkpoint.ckpt\n"
             "import repro_torch.runtime.fault\n"
+            "import repro_torch.models.lm, repro_torch.serving.engine\n"
+            "import repro_torch.launch.serve\n"
             "import repro_torch.examples.quickstart\n"
             "import repro_torch.examples.braggnn_serve\n"
             "bad = sorted(m for m in sys.modules\n"
