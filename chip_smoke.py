@@ -70,8 +70,11 @@ Phases, each printing one JSON line (``"phase": ...``):
 14. train  — ``ste_quantize`` on the card (the device quantiser, bitwise;
              the identity gradient); BraggNN(s=1, img=11) trained with the
              reference convergence test's recipe (200 AdamW steps at batch
-             64), its held-out loss drop, step times and one step profiled,
-             its first 20 steps against the same steps on the CPU; the
+             64, each replayed from the step's captured CUDA graph), its
+             held-out loss drop, step times and one step profiled replayed
+             and eager, its first 20 steps against the same steps on the
+             CPU; under deterministic cuDNN/cuBLAS 5 replayed steps against
+             the eager step, losses and state bit for bit; the
              Fig. 7 exponent histogram and the pixel error at fp32, (5,11),
              (5,4), (5,3); the trained weights bound, compiled and served
              through the nest tier (fp32, (5,4)), the NLB flash mode and
@@ -88,12 +91,29 @@ Phases, each printing one JSON line (``"phase": ...``):
              ``lm.prefill`` at batch 4 x 1,024 timed, profiled and counted
              (36 K5 launches a call, nothing else of the port's);
              ``forward`` against 64 cached decode steps (1% of the logit
-             scale); one 8-lane decode tick profiled; ``ServingEngine``
-             (8 lanes, max_len 1,024) over 32 requests of 16-256 prompt
-             tokens and 64 new tokens, and one of them again alone; the
-             card against the CPU at two layers (2% of the logit scale);
-             ``python -m repro_torch.launch.serve --arch qwen2.5-3b
-             --no-tiny --requests 8`` in a subprocess.
+             scale); one 8-lane decode tick replayed from its captured
+             graph against the eager step (tokens, logits and cache value
+             for value), both profiled; ``ServingEngine`` (8 lanes,
+             max_len 1,024, its step a captured graph) over 32 requests of
+             16-256 prompt tokens and 64 new tokens, and one of them again
+             alone; the card against the CPU at two layers (2% of the
+             logit scale); ``python -m repro_torch.launch.serve --arch
+             qwen2.5-3b --no-tiny --requests 8`` in a subprocess.
+16. moe    — the MoE family's serving path: K5 at Mixtral's prefill shape
+             (B*H 128, S 1,024, D 128, window 4,096) against its plain
+             version, beside SDPA and the bound; qwen2-moe-a2.7b at its
+             published width and depth (15,146,452,992 parameters drawn on
+             the card, nothing cut): ``lm.prefill`` at 4 x 1,024 timed,
+             profiled and counted (24 K5 launches a call, nothing else of
+             the port's), one 8-lane decode tick replayed against eager
+             and profiled, the share of routed assignments kept within
+             the capacity in both, ``forward`` against 64 cached decode
+             steps at ``capacity_factor = n_experts`` (dropless, 1%), the
+             engine over the lm phase's 32 requests, the card against the
+             CPU at two layers (2%), the launcher's CLI at ``--no-tiny``
+             and ``examples/serve_moe`` in subprocesses; Mixtral-8x7b at
+             full width cut to 4 of its 32 layers (prefill with 4 K5
+             launches, 16 engine ticks).
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 the last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -181,6 +201,8 @@ TRAIN_LOSS_RTOL = 1e-3
 #: the TrainingDriver's run: steps, a checkpoint every so many, and the
 #: step a failure is injected at
 DRIVER_STEPS, DRIVER_EVERY, DRIVER_FAIL_AT = 12, 4, 7
+#: steps of the captured training step held against the eager one
+GRAPHED_STEPS = 5
 
 
 class SmokeFailure(Exception):
@@ -1960,6 +1982,8 @@ def phase_train(torch) -> dict:
     last = held_out(params)
     x0, y0 = batches[0][0].cuda(), batches[0][1].cuda()
     prof = device_profile(torch, lambda: step(params, state, x0, y0))
+    prof_eager = device_profile(torch,
+                                lambda: step.eager(params, state, x0, y0))
     _, _, cpu_losses, _ = train(torch.device("cpu"), TRAIN_CPU_STEPS)
     rel = max(abs(a - b) / abs(b)
               for a, b in zip(losses[:TRAIN_CPU_STEPS], cpu_losses))
@@ -1974,6 +1998,8 @@ def phase_train(torch) -> dict:
                            if k not in ("kernels", "host_top")},
           "step_profile_host_top": prof["host_top"],
           "step_profile_top": prof["kernels"][:8],
+          "step_profile_eager": {k: v for k, v in prof_eager.items()
+                                 if k not in ("kernels", "host_top")},
           "vs_cpu": {"steps": TRAIN_CPU_STEPS, "max_rel_diff": rel,
                      "rtol": TRAIN_LOSS_RTOL, "cpu_losses": cpu_losses,
                      "card_losses": losses[:TRAIN_CPU_STEPS]}})
@@ -2002,8 +2028,10 @@ def phase_train(torch) -> dict:
     trained = served_trained(torch, model, params, (eval_x, eval_y))
     trained["pixel_error_tensor_twin_5_4"] = pixel["5_4"]
 
-    # 5. the TrainingDriver: a restart equals an uninterrupted run
-    driver_restart(torch, init, step)
+    # 5. under deterministic cuDNN/cuBLAS: the replayed step against the
+    # eager one, and the TrainingDriver's restart against an uninterrupted
+    # run
+    deterministic_steps(torch, init, cfg, batches)
 
     # 6. the examples, in-process
     run_examples()
@@ -2060,13 +2088,58 @@ def served_trained(torch, model, params, held_out) -> dict:
     return {"launches": launches, "pixel_error_nest_5_4": nest_px}
 
 
+def deterministic_steps(torch, init, cfg, batches) -> None:
+    """Deterministic cuDNN and cuBLAS for these runs only
+    (``CUBLAS_WORKSPACE_CONFIG`` is set when the script starts, before
+    cuBLAS is first used), with a step made and so captured under them:
+    GRAPHED_STEPS steps replayed from the captured graph against
+    ``step.eager``, losses and the final parameters and moments bit for
+    bit; then the ``TrainingDriver``'s restart."""
+    from repro_torch.models import braggnn
+    from repro_torch.nn.module import map_tree, tree_leaves
+    from repro_torch.optim import adamw
+
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    try:
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        step = braggnn.make_step(cfg)
+        runs = {}
+        for label, fn in (("replayed", step), ("eager", step.eager)):
+            params = map_tree(lambda t: t.cuda(), init)
+            state = adamw.init_state(params)
+            losses = []
+            for x, y in batches[:GRAPHED_STEPS]:
+                params, state, loss = fn(params, state, x.cuda(), y.cuda())
+                losses.append(loss)
+            runs[label] = ([float(v) for v in losses],
+                           tree_leaves((params, state)))
+        differ = sum(value_diff(torch, a, b) for a, b in zip(
+            runs["replayed"][1], runs["eager"][1]))
+        emit({"phase": "train", "step": "replayed vs eager",
+              "steps": GRAPHED_STEPS, "losses_replayed": runs["replayed"][0],
+              "losses_eager": runs["eager"][0],
+              "losses_equal": runs["replayed"][0] == runs["eager"][0],
+              "state_values_differing": differ, "deterministic": True})
+        check(runs["replayed"][0] == runs["eager"][0] and differ == 0,
+              f"train: the replayed step's losses {runs['replayed'][0]} "
+              f"and state ({differ} values differing) are not the eager "
+              f"step's {runs['eager'][0]}")
+        driver_restart(torch, init, step)
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
+        torch.backends.cudnn.benchmark = saved[2]
+
+
 def driver_restart(torch, init, step) -> None:
     """``TrainingDriver`` for DRIVER_STEPS steps, a checkpoint every
     DRIVER_EVERY, once clean and once with a failure injected at
     DRIVER_FAIL_AT: the restarted run's losses and final checkpoint equal
-    the clean run's bit for bit.  Deterministic cuDNN and cuBLAS for the
-    two runs only (``CUBLAS_WORKSPACE_CONFIG`` is set when the script
-    starts, before cuBLAS is first used)."""
+    the clean run's bit for bit (``step`` replays its captured graph)."""
     import shutil
     import tempfile
 
@@ -2080,14 +2153,8 @@ def driver_restart(torch, init, step) -> None:
         params, opt, loss = step(params, opt, batch["x"], batch["y"])
         return params, opt, {"loss": loss}
 
-    saved = (torch.are_deterministic_algorithms_enabled(),
-             torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark)
     tmp = Path(tempfile.mkdtemp(prefix=".smoke_train_", dir=ROOT))
     try:
-        torch.use_deterministic_algorithms(True)
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.benchmark = False
         reps, drivers, t0 = {}, {}, time.perf_counter()
         for label, fail_at in (("clean", ()), ("failure", (DRIVER_FAIL_AT,))):
             params = map_tree(lambda t: t.cuda(), init)
@@ -2129,9 +2196,6 @@ def driver_restart(torch, init, step) -> None:
         check(differ == 0 and final[0][1] == final[1][1] == DRIVER_STEPS,
               f"driver: final checkpoints differ in {differ} leaves")
     finally:
-        torch.use_deterministic_algorithms(saved[0])
-        torch.backends.cudnn.deterministic = saved[1]
-        torch.backends.cudnn.benchmark = saved[2]
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -2263,10 +2327,16 @@ def lm_forward_vs_decode(torch, cfg, params, dev, b: int, s: int) -> dict:
 
 
 def lm_engine_run(torch, cfg, params, *, lanes: int, max_len: int,
-                  requests: int, prompt: tuple, new: int) -> dict:
+                  requests: int, prompt: tuple, new: int,
+                  hold_alone: bool = True, max_ticks: int = 0) -> dict:
     """The continuous-batching engine over ``requests`` seeded prompts,
     each tick timed on the host (a tick ends in the next tokens' copy to
-    the host); then one of them again, alone in the same engine."""
+    the host; the first captures the decode step's graph, the rest replay
+    it); then one of them again, alone in the same engine, whose tokens
+    must equal those it got among the others where ``hold_alone`` (an
+    MoE's capacity drops depend on the other lanes' routing, so there the
+    comparison is reported).  ``max_ticks`` > 0 stops after that many
+    ticks and skips the rest."""
     from repro_torch.serving import ServingEngine, percentiles
     eng = ServingEngine(cfg, params, max_batch=lanes, max_len=max_len)
     gen = torch.Generator().manual_seed(22)
@@ -2283,7 +2353,20 @@ def lm_engine_run(torch, cfg, params, *, lanes: int, max_len: int,
         eng.tick()
         ticks.append((time.perf_counter() - t1) * 1e3)
         check(len(ticks) < 100_000, "the engine did not drain")
+        if len(ticks) == max_ticks:
+            break
     wall = time.perf_counter() - t0
+    graphs = len(eng._step.replay_launches())
+    check(graphs == 1, f"engine: {graphs} captured decode steps, want 1")
+    if max_ticks:
+        tick = percentiles(ticks[1:])
+        eng.release()
+        return {"lanes": lanes, "max_len": max_len, "ticks": len(ticks),
+                "first_tick_ms": ticks[0], "tick_ms_p50": tick["p50"],
+                "tick_ms_p99": tick["p99"],
+                "generated_tokens": sum(len(r.output) for r in eng.finished)
+                + sum(len(lane.req.output) for lane in eng.lanes
+                      if lane.req)}
     done = {r.rid: r for r in eng.finished}
     check(len(done) == requests and all(
         len(r.output) == new for r in done.values()),
@@ -2295,7 +2378,8 @@ def lm_engine_run(torch, cfg, params, *, lanes: int, max_len: int,
     eng.finished.clear()
     eng.submit(prompts[rid], max_new_tokens=new)
     alone = eng.run_until_drained()[0].output
-    check(alone == done[rid].output,
+    eng.release()
+    check(alone == done[rid].output or not hold_alone,
           f"engine: request {rid} alone gave {alone}, among the others "
           f"{done[rid].output}")
     lat = percentiles([r.latency_s * 1e3 for r in done.values()])
@@ -2307,10 +2391,14 @@ def lm_engine_run(torch, cfg, params, *, lanes: int, max_len: int,
             "generated_tokens": requests * new, "ticks": len(ticks),
             "wall_s": wall,
             "generated_tokens_per_s": requests * new / wall,
+            "first_tick_ms": ticks[0],
             "tick_ms_p50": tick["p50"], "tick_ms_p99": tick["p99"],
             "ttft_ms_p50": ttft["p50"], "request_ms_p50": lat["p50"],
             "request_ms_p99": lat["p99"],
-            "alone_equals_packed": True, "request_checked": rid}
+            "alone_equals_packed": alone == done[rid].output,
+            "alone_tokens_equal": sum(a == b for a, b in zip(
+                alone, done[rid].output)),
+            "alone_held": hold_alone, "request_checked": rid}
 
 
 def phase_lm(torch) -> dict:
@@ -2405,18 +2493,10 @@ def phase_lm(torch) -> dict:
           f"forward against decode: {fvd['err_over_scale']:.4g} of the "
           f"logit scale, over {LM_DECODE_TOL}")
 
-    # one decode tick of the engine's width, profiled
-    cache = transformer.init_cache(cfg, LM_LANES, LM_MAX_LEN, device="cuda")
-    tok8 = torch.randint(1, cfg.vocab_size, (LM_LANES, 1), generator=gen,
-                         device="cuda")
-    pos8 = torch.arange(LM_LANES, device="cuda") * 100 + 100
-    tick_prof = device_profile(
-        torch, lambda: lm.serve_step(cfg, params, tok8, cache, pos8), reps=3)
-    emit({"phase": "lm", "step": "decode tick", "lanes": LM_LANES,
-          "positions": pos8.tolist(),
-          **{k: v for k, v in tick_prof.items() if k != "kernels"},
-          "kernels_top": tick_prof["kernels"][:12]})
-    del cache
+    # one decode tick of the engine's width: replayed against eager,
+    # both profiled
+    tick = decode_tick(torch, cfg, params, LM_LANES, LM_MAX_LEN, gen)
+    emit({"phase": "lm", "step": "decode tick", **tick})
 
     # the engine
     registry.reset_launch_counts()
@@ -2427,7 +2507,7 @@ def phase_lm(torch) -> dict:
         k: v for k, v in registry.launch_counts().items() if v}
     emit({"phase": "lm", "step": "engine", **eng})
     del params
-    torch.cuda.empty_cache()
+    free_card(torch)
 
     # the card against the CPU at reduced depth, the same numpy weights
     cpu_check = lm_card_vs_cpu(torch, cfg.replace(n_layers=LM_CPU_LAYERS))
@@ -2435,13 +2515,86 @@ def phase_lm(torch) -> dict:
           "tolerance_over_scale": LM_BF16_TOL})
 
     # the launcher's CLI at the published config, in a subprocess
-    cli = lm_cli()
+    cli = run_module(["repro_torch.launch.serve", "--arch", LM_ARCH,
+                      "--no-tiny", "--requests", "8"])
     emit({"phase": "lm", "step": "cli", **cli})
     emit({"phase": "lm", "step": "done",
           "seconds": time.perf_counter() - t_phase})
     # the launches of one prefill, as counted over the timed calls
     return {"launches": {k: int(v) for k, v in per_call.items()},
             "flash": flash}
+
+
+def free_card(torch) -> None:
+    """Return what the dropped models, caches and graphs held to the card
+    (a collection first: a cycle would keep them alive)."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def decode_tick(torch, cfg, params, lanes: int, max_len: int, gen,
+                kept=None) -> dict:
+    """The engine's step (``decode_step`` and the greedy token) at
+    ``lanes`` lanes, replayed from its captured CUDA graph and run eagerly
+    on the same tokens and positions, each writing its own copy of one
+    cache: over three ticks (the first captures, two replay) tokens,
+    logits and finally the caches must be equal value for value.  Then
+    one tick of each profiled, and ``kept`` (a :class:`KeptShare`) over
+    one eager tick."""
+    from repro_torch.core.graphs import GraphRunner
+    from repro_torch.nn import transformer
+    from repro_torch.nn.module import tree_leaves
+
+    def tick_of(cache):
+        def tick(f):
+            logits, _ = transformer.decode_step(cfg, params, f["tokens"],
+                                                cache, f["pos"])
+            return {"tokens": torch.argmax(logits, dim=-1).to(torch.int32),
+                    "logits": logits}
+        return tick
+
+    caches = [transformer.init_cache(cfg, lanes, max_len, device="cuda")
+              for _ in range(2)]
+    run = GraphRunner(tick_of(caches[0]), torch.device("cuda"))
+    eager = tick_of(caches[1])
+    differ = {"tokens": 0, "logits": 0}
+    for t in range(3):
+        feeds = {"tokens": torch.randint(1, cfg.vocab_size, (lanes, 1),
+                                         generator=gen, device="cuda"),
+                 "pos": torch.arange(lanes, device="cuda")
+                 * (max_len // lanes) + 7 * t}
+        got, want = run(feeds), eager(feeds)
+        for k in differ:
+            differ[k] += value_diff(torch, got[k], want[k])
+    cache_differ = sum(value_diff(torch, a, b) for a, b in zip(
+        tree_leaves(caches[0]), tree_leaves(caches[1])))
+    check(differ == {"tokens": 0, "logits": 0} and cache_differ == 0,
+          f"{cfg.name} decode tick: a replay differs from the eager step "
+          f"in {differ} values and the caches in {cache_differ}")
+    graphs = len(run.replay_launches())
+    check(graphs == 1, f"{cfg.name} decode tick: {graphs} graphs")
+    profiles = {"replayed": device_profile(torch, lambda: run(feeds),
+                                           reps=3),
+                "eager": device_profile(torch, lambda: eager(feeds),
+                                        reps=3)}
+    share = None
+    if kept is not None:
+        with kept:
+            eager(feeds)
+        share = kept.share()
+    run.release()
+    del caches
+    torch.cuda.empty_cache()
+    return {"lanes": lanes, "positions": feeds["pos"].tolist(),
+            "replays_checked": 2, "values_differing": differ,
+            "cache_values_differing": cache_differ,
+            "routed_kept_share": share,
+            **{f"{label}_{k}": v for label, prof in profiles.items()
+               for k, v in prof.items() if k not in ("kernels", "host_top")},
+            "replayed_kernels_top": profiles["replayed"]["kernels"][:12],
+            "eager_kernels_top": profiles["eager"]["kernels"][:12],
+            "eager_host_top": profiles["eager"]["host_top"]}
 
 
 def lm_card_vs_cpu(torch, cfg) -> dict:
@@ -2475,11 +2628,10 @@ def lm_card_vs_cpu(torch, cfg) -> dict:
             "flash_attention_launches": launches, "cpu_forward_s": cpu_s}
 
 
-def lm_cli() -> dict:
-    """``python -m repro_torch.launch.serve --arch qwen2.5-3b --no-tiny
-    --requests 8`` in a subprocess: it must exit 0."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           LM_ARCH, "--no-tiny", "--requests", "8"]
+def run_module(argv: list) -> dict:
+    """``python -m <argv>`` in a subprocess from the checkout: it must exit
+    0."""
+    cmd = [sys.executable, "-m", *argv]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                          timeout=600, env=dict(os.environ,
@@ -2488,7 +2640,234 @@ def lm_cli() -> dict:
     check(res.returncode == 0, f"{' '.join(cmd[1:])} exited "
                                f"{res.returncode}: {res.stderr[-2000:]}")
     return {"command": " ".join(cmd[1:]), "returncode": res.returncode,
-            "wall_s": wall, "stdout": res.stdout.strip()[-400:]}
+            "wall_s": wall, "stdout": res.stdout.strip()[-400:],
+            "stderr_tail": res.stderr.strip()[-300:]}
+
+
+# ---------------------------------------------------------------------------
+# The MoE family: qwen2-moe-a2.7b at full width, Mixtral-8x7b cut in depth
+# ---------------------------------------------------------------------------
+
+#: qwen2-moe-a2.7b at its published width and depth, nothing cut (24
+#: layers, d_model 2048, 16 heads of 128, 60 experts padded to 64, top 4,
+#: expert d_ff 1,408, shared d_ff 5,632, vocab 151,936, bf16 activations)
+MOE_ARCH, MOE_PARAMS = "qwen2-moe-a2.7b", 15_146_452_992
+#: Mixtral-8x7b at full width; its 46.7 B parameters (186.8 GB in fp32)
+#: cannot sit on one 80 GB card, so its depth is cut to 4 of 32 layers
+MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_PARAMS = "mixtral-8x7b", 4, \
+    6_067_228_672
+#: K5 at Mixtral's prefill of batch 4: B*H 128, S 1,024, D 128, window
+#: 4,096 (wider than S, so SDPA's causal call computes the same function)
+MIXTRAL_FLASH = (128, 1024, 128, {"causal": True, "window": 4096})
+#: prefill timed calls; Mixtral's engine ticks (the phase's time limit)
+MOE_PREFILL_RUNS, MIXTRAL_TICKS = 5, 16
+
+
+class KeptShare:
+    """Within ``with``: the routed assignments ``nn.moe.route`` plans and
+    the share kept within the capacity (summed on the card, read once)."""
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+        self.moe, self.route = moe, moe.route
+        self.kept, self.total = [], 0
+
+        def route(*a, **kw):
+            r = self.route(*a, **kw)
+            self.kept.append(r.keep.sum())
+            self.total += r.keep.numel()
+            return r
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def share(self) -> float:
+        return float(sum(self.kept)) / self.total
+
+
+def moe_prefill(torch, cfg, params, label: str) -> dict:
+    """``lm.prefill`` at LM_PREFILL_B x LM_PREFILL_S: timed, counted (one
+    K5 launch per layer and nothing else of the port's), profiled by
+    kernel name, and the routed share kept over one call."""
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    toks = torch.randint(0, cfg.vocab_size, (LM_PREFILL_B, LM_PREFILL_S),
+                         generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with KeptShare() as kept:
+        logits = lm.prefill(cfg, params, toks)
+    torch.cuda.synchronize()
+    registry.reset_launch_counts()
+    times = []
+    for _ in range(MOE_PREFILL_RUNS):
+        t0 = time.perf_counter()
+        logits = lm.prefill(cfg, params, toks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: v for k, v in registry.launch_counts().items() if v}
+    per_call = {k: v / MOE_PREFILL_RUNS for k, v in counts.items()}
+    check(per_call == {"flash_attention": cfg.n_layers},
+          f"{label} prefill launched {per_call} per call, want "
+          f"flash_attention {cfg.n_layers} and nothing else")
+    check(tuple(logits.shape) == (LM_PREFILL_B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{label} prefill logits {tuple(logits.shape)} not finite")
+    prof = device_profile(torch, lambda: lm.prefill(cfg, params, toks),
+                          reps=1)
+    k5_us = sum(k["device_us_per_batch"] for k in prof["kernels"]
+                if "flash_attention" in k["name"])
+    p50 = statistics.median(times)
+    return {"arch": label, "layers": cfg.n_layers, "batch": LM_PREFILL_B,
+            "seq": LM_PREFILL_S, "runs": MOE_PREFILL_RUNS, "ms_p50": p50,
+            "ms": times, "tokens_per_s": LM_PREFILL_B * LM_PREFILL_S / p50
+            * 1e3, "launches_per_call": per_call,
+            "routed_kept_share": kept.share(),
+            "capacity_per_expert_per_chunk": max(1, int(
+                LM_PREFILL_B * LM_PREFILL_S // cfg.moe_token_chunks
+                * cfg.experts_per_token / cfg.n_experts
+                * cfg.capacity_factor)),
+            "flash_attention_us_per_call": k5_us,
+            "flash_attention_share_of_busy":
+                k5_us / prof["device_busy_us_per_batch"]
+                if prof["device_time_seen"] else None,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            **{k: v for k, v in prof.items() if k != "kernels"},
+            "kernels_top": prof["kernels"][:14]}
+
+
+def draw(torch, cfg, label: str, want: int) -> tuple:
+    """The model's parameters drawn on the card from a seed: (params, the
+    phase line's numbers)."""
+    from repro_torch.nn import module, transformer
+    specs = transformer.model_specs(cfg)
+    n_params = module.param_count(specs)
+    check(n_params == want, f"{label}: {n_params} parameters, want {want}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = module.init_tree(
+        specs, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    return params, {"arch": label, "layers": cfg.n_layers,
+                    "parameters": n_params,
+                    "param_bytes": module.param_bytes(specs),
+                    "init_s": time.perf_counter() - t0,
+                    "peak_device_bytes_init":
+                        torch.cuda.max_memory_allocated(),
+                    "activation_dtype": cfg.activation_dtype}
+
+
+def phase_moe(torch) -> dict:
+    """The MoE family's serving path: K5 at Mixtral's prefill shape;
+    qwen2-moe-a2.7b at full width drawn on the card (prefill timed,
+    counted and profiled; one 8-lane decode tick replayed against eager
+    and profiled; ``forward`` against 64 cached decode steps, dropless;
+    the engine over the lm phase's 32 requests; the routed share kept);
+    the card against the CPU at two layers; the launcher's CLI and
+    ``examples/serve_moe`` in subprocesses; Mixtral at full width and 4
+    of its 32 layers (prefill, 16 engine ticks)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import registry as configs
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, launch_shape)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    t_phase = time.perf_counter()
+    # K5 at Mixtral's prefill shape, against its plain version and SDPA
+    bh, sq, d, kw = MIXTRAL_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    q, k, v = (torch.randn(bh, sq, d, generator=gen, device="cuda")
+               for _ in range(3))
+    call = f"({bh}, {sq}, {d}) " + ",".join(f"{a}={b}"
+                                          for a, b in kw.items())
+    flash = kernel_call(
+        torch, call, lambda: flash_attention(q, k, v, **kw),
+        lambda: flash_attention_ref(q, k, v, **kw),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        4 * 4 * bh * sq * d, 4 * bh * causal_pairs(sq, kw["window"]) * d,
+        rtol=FLASH_RTOL, atol=FLASH_ATOL, plain_runs=20)
+    flash["launch_shape"] = launch_shape(bh, sq, sq, d)
+    del q, k, v
+    torch.cuda.empty_cache()
+    emit({"phase": "moe", "step": "flash_attention", **flash})
+
+    # qwen2-moe-a2.7b at full width
+    cfg = configs.get_config(MOE_ARCH)
+    params, model = draw(torch, cfg, MOE_ARCH, MOE_PARAMS)
+    emit({"phase": "moe", "step": "model", **model, "reduced": None,
+          "n_experts": cfg.n_experts, "padded": cfg.n_experts_padded,
+          "top_k": cfg.experts_per_token,
+          "token_chunks": cfg.moe_token_chunks})
+    pre = moe_prefill(torch, cfg, params, MOE_ARCH)
+    emit({"phase": "moe", "step": "prefill", **pre})
+
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    tick = decode_tick(torch, cfg, params, LM_LANES, LM_MAX_LEN, gen,
+                       kept=KeptShare())
+    tick["capacity_per_expert"] = max(1, int(
+        LM_LANES * cfg.experts_per_token / cfg.n_experts
+        * cfg.capacity_factor))
+    emit({"phase": "moe", "step": "decode tick", **tick})
+
+    dropless = cfg.replace(capacity_factor=float(cfg.n_experts))
+    fvd = lm_forward_vs_decode(torch, dropless, params, "cuda",
+                               LM_DECODE_B, LM_DECODE_S)
+    emit({"phase": "moe", "step": "forward vs decode, dropless", **fvd,
+          "capacity_factor": dropless.capacity_factor,
+          "tolerance_over_scale": LM_DECODE_TOL})
+    check(fvd["err_over_scale"] <= LM_DECODE_TOL,
+          f"{MOE_ARCH} forward against decode (dropless): "
+          f"{fvd['err_over_scale']:.4g} of the logit scale, over "
+          f"{LM_DECODE_TOL}")
+
+    eng = lm_engine_run(torch, cfg, params, lanes=LM_LANES,
+                        max_len=LM_MAX_LEN, requests=LM_REQUESTS,
+                        prompt=LM_PROMPT, new=LM_NEW, hold_alone=False)
+    emit({"phase": "moe", "step": "engine", **eng})
+    del params
+    free_card(torch)
+
+    cpu_check = lm_card_vs_cpu(torch, cfg.replace(n_layers=LM_CPU_LAYERS))
+    emit({"phase": "moe", "step": "card vs cpu", **cpu_check,
+          "tolerance_over_scale": LM_BF16_TOL})
+    free_card(torch)
+    check(torch.cuda.memory_allocated() < 2 ** 30,
+          f"{torch.cuda.memory_allocated()} bytes still held on the card "
+          f"before the launcher's subprocess")
+
+    cli = {name: run_module(argv) for name, argv in (
+        ("cli", ["repro_torch.launch.serve", "--arch", MOE_ARCH,
+                 "--no-tiny", "--requests", "8"]),
+        ("serve_moe", ["repro_torch.examples.serve_moe"]))}
+    emit({"phase": "moe", "step": "cli", **cli})
+
+    # Mixtral at full width, cut in depth
+    mcfg = configs.get_config(MIXTRAL_ARCH).replace(n_layers=MIXTRAL_LAYERS)
+    params, model = draw(torch, mcfg, MIXTRAL_ARCH, MIXTRAL_PARAMS)
+    reduced = (f"n_layers {MIXTRAL_LAYERS} of 32: 46.7 B parameters "
+               f"(186.8 GB in fp32) cannot sit on one 80 GB card")
+    emit({"phase": "moe", "step": "model", **model, "reduced": reduced})
+    mpre = moe_prefill(torch, mcfg, params, MIXTRAL_ARCH)
+    emit({"phase": "moe", "step": "prefill", **mpre, "reduced": reduced})
+    meng = lm_engine_run(torch, mcfg, params, lanes=LM_LANES,
+                         max_len=LM_MAX_LEN, requests=LM_LANES,
+                         prompt=LM_PROMPT, new=LM_NEW,
+                         max_ticks=MIXTRAL_TICKS)
+    emit({"phase": "moe", "step": "engine", "arch": MIXTRAL_ARCH, **meng,
+          "reduced": reduced})
+    del params
+    free_card(torch)
+    emit({"phase": "moe", "step": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return {"flash": flash,
+            "launches": {k: int(v) for k, v in
+                         pre["launches_per_call"].items()},
+            "mixtral_launches": {k: int(v) for k, v in
+                                 mpre["launches_per_call"].items()}}
 
 
 KERNEL_META = {
@@ -2545,6 +2924,7 @@ def main() -> int:
         tn = phase_tune(torch, design)
         tr = phase_train(torch)
         lmp = phase_lm(torch)
+        moe = phase_moe(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2556,6 +2936,8 @@ def main() -> int:
     by_path["tune measure"] = tn["measure"]
     by_path["train"] = tr["launches"]
     by_path["lm_prefill"] = lmp["launches"]
+    by_path["moe_prefill"] = moe["launches"]
+    by_path["mixtral_prefill"] = moe["mixtral_launches"]
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         rec = kern[name]
@@ -2596,6 +2978,15 @@ def main() -> int:
                     "call", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "max_abs_err")}
                     for c in lmp["flash"]["calls"]]}
+            # and at Mixtral's prefill shape
+            rows[-1]["moe"] = {
+                "per": "one call; launches_by_path['moe_prefill'] counts "
+                       "one qwen2-moe-a2.7b prefill (its calls have the "
+                       "lm row's first shape), ['mixtral_prefill'] one of "
+                       "Mixtral cut to 4 layers",
+                **{k: moe["flash"][k] for k in (
+                    "call", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err")}}
         if name in NO_LIBRARY:
             rows[-1]["library_ms_null_because"] = NO_LIBRARY[name]
     emit({"kernels": rows})

@@ -1,15 +1,16 @@
 """Architecture registry over the configs ported so far.
 
-The dense decoder configs whose layers are only ``global``/``local``
-attention plus a gated MLP, and BraggNN.  The reference's other
-architectures (MoE, RG-LRU and xLSTM, the encoder-decoder, the VLM) come
+The decoder configs whose layers are only ``global``/``local`` attention
+plus a gated MLP or a mixture of experts, and BraggNN.  The reference's
+other architectures (RG-LRU and xLSTM, the encoder-decoder, the VLM) come
 with their families: asking for one raises a ``KeyError`` that says so.
 The dry-run's ``input_specs``/``input_axes`` come with the dry-run.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import (braggnn, gemma2_27b, qwen2_7b, qwen25_3b,
+from repro_torch.configs import (braggnn, gemma2_27b, mixtral_8x7b,
+                                 qwen2_7b, qwen2_moe_a27b, qwen25_3b,
                                  stablelm_3b)
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, \
     supports_shape
@@ -19,13 +20,15 @@ _MODULES = {
     "qwen2-7b": qwen2_7b,
     "stablelm-3b": stablelm_3b,
     "qwen2.5-3b": qwen25_3b,
+    "qwen2-moe-a2.7b": qwen2_moe_a27b,
+    "mixtral-8x7b": mixtral_8x7b,
 }
 
 ARCH_IDS = tuple(_MODULES)
 
 #: the reference's architectures whose families are not ported yet
-NOT_PORTED = ("recurrentgemma-9b", "whisper-tiny", "qwen2-moe-a2.7b",
-              "mixtral-8x7b", "xlstm-1.3b", "qwen2-vl-2b")
+NOT_PORTED = ("recurrentgemma-9b", "whisper-tiny", "xlstm-1.3b",
+              "qwen2-vl-2b")
 
 
 def _module(arch: str):

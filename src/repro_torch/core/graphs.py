@@ -1,21 +1,27 @@
 """Captured CUDA graphs for the serving runners: the port's counterpart of
 the reference's ``jax.jit`` on the serve path.
 
-A :class:`GraphRunner` wraps one call, ``feeds -> outputs`` (feeds: memref
-name -> fp32 array or tensor).  On a CUDA device it keeps one captured
-graph for each batch shape, the names and shapes of the feeds:
+A :class:`GraphRunner` wraps one call, ``feeds -> outputs`` (feeds: name
+-> array or tensor).  It serves the designs' batches (fp32), the LM
+engine's decode step (int64 tokens and positions) and BraggNN's training
+step (fp32 leaves and an int32 step count).  On a CUDA device it keeps one
+captured graph for each batch shape, the names and shapes of the feeds:
 
 * **First call of a shape.**  A static input tensor is allocated for each
-  fed memref and the batch is copied into it.  The call runs once eagerly
-  on the static inputs: the warm-up, which builds the kernel library,
-  makes K4's first-call occupancy query, and runs the profile twin if
-  ``obs`` asks for it, all outside any capture.  Then the call is captured
-  into a graph, in a memory pool shared by all of the runner's graphs.
-  This first call returns the eager outputs.
+  feed, in the feed's dtype (a numpy array of floats: fp32, the designs'
+  memref type), and the batch is copied into it.  The call runs once
+  eagerly on the static inputs, on the capture's side stream: the
+  warm-up, which builds the kernel library, makes K4's first-call
+  occupancy query, runs the profile twin if ``obs`` asks for it and
+  starts autograd's device thread, all outside any capture (PyTorch's
+  whole-network capture wants its warm-up on a side stream).  Then the
+  call is captured into a graph, in a memory pool shared by all of the
+  runner's graphs.  This first call returns the eager outputs.
 * **Every later call of the shape** copies the batch into the static
-  inputs (the only host-to-device copy) and replays the graph.  It returns
-  the graph's static outputs, which the next replay of any of the
-  runner's graphs overwrites: a caller that keeps them copies them first.
+  inputs (:func:`copy_all`: a launch or two for all of them) and
+  replays the graph.  It returns the graph's static outputs, which the
+  next replay of any of the runner's graphs overwrites: a caller that
+  keeps them copies them first.
 
 The kernels' wrappers count their launches in Python, which a replay does
 not run.  So the counts a capture made are taken back (nothing ran on the
@@ -48,10 +54,28 @@ def _shape(v) -> tuple[int, ...]:
     return tuple(v.shape) if isinstance(v, torch.Tensor) else np.shape(v)
 
 
-def _copy_into(dst: torch.Tensor, v) -> None:
-    if not isinstance(v, torch.Tensor):
-        v = torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
-    dst.copy_(v)
+def _as_tensor(v) -> torch.Tensor:
+    """A feed as a tensor: tensors as they are, numpy floats as fp32 (the
+    designs' memref type), other numpy arrays in their own dtype."""
+    if isinstance(v, torch.Tensor):
+        return v
+    a = np.asarray(v)
+    if a.dtype.kind == "f":
+        a = a.astype(np.float32, copy=False)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def copy_all(dsts: list, srcs: list) -> None:
+    """``dst.copy_(src)`` for each pair, with one ``torch._foreach_copy_``
+    per kind of pair (dtypes and source device): its fast route, a launch
+    or two for all, takes lists of one dtype only."""
+    groups: dict = {}
+    for d, s in zip(dsts, srcs):
+        ds, ss = groups.setdefault((d.dtype, s.dtype, s.device), ([], []))
+        ds.append(d)
+        ss.append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
 
 
 class GraphRunner:
@@ -76,26 +100,35 @@ class GraphRunner:
             cap = self._graphs.get(key)
             if cap is None:
                 return self._capture(key, feeds)
-            for name, v in feeds.items():
-                _copy_into(cap.inputs[name], v)
+            copy_all([cap.inputs[n] for n in feeds],
+                     [_as_tensor(v) for v in feeds.values()])
             cap.graph.replay()
             registry.add_launch_counts(cap.launches)
             return cap.outputs
 
     def _capture(self, key: tuple, feeds: dict):
-        static = {name: torch.empty(shape, dtype=torch.float32,
-                                    device=self.device)
-                  for name, shape in key}
+        static = {}
         for name, v in feeds.items():
-            _copy_into(static[name], v)
-        out = self._call(static)                  # the eager warm-up
+            v = _as_tensor(v)
+            static[name] = torch.empty(v.shape, dtype=v.dtype,
+                                       device=self.device)
+            static[name].copy_(v)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        capture = torch.cuda.graph(graph, pool=self._pool,
+                                   capture_error_mode="thread_local")
+        # the warm-up runs on the stream the capture uses, one for every
+        # runner of the process: a side stream per runner would give each
+        # its own per-stream resources (cuBLAS's workspace)
+        main, side = torch.cuda.current_stream(), capture.capture_stream
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self._call(static)              # the eager warm-up
+        main.wait_stream(side)
         before = registry.launch_counts()
         try:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  capture_error_mode="thread_local"):
+            with capture:
                 outputs = self._call(static)
         finally:
             after = registry.launch_counts()

@@ -4,6 +4,8 @@
         --requests 8                      # the tiny config, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --no-tiny --requests 8            # the published width and depth
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen2-moe-a2.7b --no-tiny  # the MoE family at full width
     ... --device cpu                      # on the CPU
 
 Weights are drawn from a seeded generator on the device they serve from
@@ -29,7 +31,9 @@ from repro_torch.serving.engine import ServingEngine
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--arch", default="qwen2.5-3b",
+                    choices=registry.ARCH_IDS,
+                    help="a ported architecture (default: qwen2.5-3b)")
     ap.add_argument("--tiny", action=argparse.BooleanOptionalAction,
                     default=True, help="the architecture's tiny() config "
                     "(default); --no-tiny serves the published one")

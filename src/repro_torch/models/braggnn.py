@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.graphs import GraphRunner, copy_all
 from repro_torch.core.precision import FORMATS, quantize
 from repro_torch.nn import graph as nng
 from repro_torch.nn.module import (map_tree, params_from_numpy, tree_flatten,
@@ -139,8 +140,16 @@ def loss_fn(params: dict, x: torch.Tensor, y: torch.Tensor, *,
 def make_step(opt_cfg: adamw.AdamWConfig, *, s: int = 1):
     """``step(params, state, x, y) -> (params, state, loss)``: the loss and
     its gradients by autograd over the tensor twin, then one AdamW update.
-    Functional: the given params and state are left as they were."""
-    def step(params, state, x, y):
+    Functional: the given params and state are left as they were.
+
+    On the card the step is one captured CUDA graph per batch shape, as
+    the reference jits it (:class:`~repro_torch.core.graphs.GraphRunner`:
+    the first call runs eagerly and captures): each call copies the
+    parameters, moments, step count and batch into the graph's static
+    inputs, replays it, and returns copies of its static outputs, which
+    the caller may keep.  On the CPU it runs eagerly; ``step.eager`` runs
+    it eagerly anywhere."""
+    def eager(params, state, x, y):
         leaves, treedef = tree_flatten(params)
         live = [p.detach().requires_grad_() for p in leaves]
         loss = loss_fn(tree_unflatten(treedef, live), x, y, s=s)
@@ -148,6 +157,31 @@ def make_step(opt_cfg: adamw.AdamWConfig, *, s: int = 1):
         new_p, new_s, _ = adamw.apply_updates(
             opt_cfg, params, tree_unflatten(treedef, list(grads)), state)
         return new_p, new_s, loss.detach()
+
+    runners: dict = {}               #: (device, tree) -> its GraphRunner
+
+    def step(params, state, x, y):
+        if x.device.type != "cuda":
+            return eager(params, state, x, y)
+        leaves, treedef = tree_flatten((params, state))
+        run = runners.get((x.device, treedef))
+        if run is None:
+            n = len(leaves)
+
+            def call(feeds):
+                p, st = tree_unflatten(treedef, [feeds[str(i)] for i in
+                                                 range(n)])
+                new_p, new_s, loss = eager(p, st, feeds["x"], feeds["y"])
+                return tree_flatten((new_p, new_s))[0] + [loss]
+            run = runners[(x.device, treedef)] = GraphRunner(call, x.device)
+        out = run({**{str(i): t for i, t in enumerate(leaves)},
+                   "x": x, "y": y})
+        kept = [torch.empty_like(t) for t in out]
+        copy_all(kept, out)
+        new_p, new_s = tree_unflatten(treedef, kept[:-1])
+        return new_p, new_s, kept[-1]
+
+    step.eager = eager
     return step
 
 

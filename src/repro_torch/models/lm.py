@@ -9,6 +9,7 @@ item 8).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -38,9 +39,18 @@ def serve_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache: dict,
 
 
 def model_flops_per_token(cfg: ModelConfig) -> float:
-    """MODEL_FLOPS = 6·N per token for a dense model (§Roofline); the MoE
-    count of active parameters comes with the MoE family."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE FLOPs come with the MoE family "
-                                  "(ROADMAP.md queue 1 item 8)")
-    return 6.0 * module_lib.param_count(transformer.model_specs(cfg))
+    """MODEL_FLOPS = 6·N (dense) or 6·N_active (MoE) per token
+    (§Roofline): an MoE counts its non-expert parameters fully and each
+    routed expert's at ``experts_per_token`` of the padded experts."""
+    specs = transformer.model_specs(cfg)
+    if cfg.n_experts == 0:
+        return 6.0 * module_lib.param_count(specs)
+    e = cfg.n_experts_padded or cfg.n_experts
+
+    def active(tree, routed=False) -> int:
+        if isinstance(tree, module_lib.ParamSpec):
+            size = int(np.prod(tree.shape))
+            return size // e * cfg.experts_per_token if routed else size
+        return sum(active(v, routed or k == "experts")
+                   for k, v in tree.items())
+    return 6.0 * active(specs)

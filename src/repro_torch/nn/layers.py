@@ -29,17 +29,22 @@ def maybe_quantize(w: torch.Tensor, quant: Optional[str]) -> torch.Tensor:
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x (..., K) @ w (K, N)``, operands of one dtype, summed in fp32 and
-    returned in fp32.
+    """``x (..., K) @ w (K, N)``, or a batch of products ``x (E, C, K) @
+    w (E, K, N)`` (the experts'), summed in fp32 and returned in fp32.
 
     fp32 operands multiply as they are.  bf16 operands go to cuBLAS on the
-    card with an fp32 result (``torch.mm(..., out_dtype=float32)``, tensor
-    cores, fp32 accumulation); ATen has no such kernel for the CPU, so
-    there they are widened first: a product of two bf16 values is exact in
-    fp32, so the widened product is the same fp32 sum.
+    card with an fp32 result (``torch.mm``/``torch.bmm(...,
+    out_dtype=float32)``, tensor cores, fp32 accumulation); ATen has no
+    such kernel for the CPU, so there they are widened first (a weight may
+    come widened already, once for many calls): a product of two bf16
+    values is exact in fp32, so the widened product is the same fp32 sum.
     """
     if x.dtype == torch.float32:
         return x @ w
+    if w.dim() == 3:
+        if x.is_cuda:
+            return torch.bmm(x, w, out_dtype=ACCUM)
+        return torch.bmm(x.to(ACCUM), w.to(ACCUM))
     x2 = x.reshape(-1, x.shape[-1])
     if x.is_cuda:
         y = torch.mm(x2, w, out_dtype=ACCUM)

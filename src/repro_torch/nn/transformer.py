@@ -1,7 +1,8 @@
 """Decoder assembly: blocks, prefill forward, cached decode step.
 
 The reference's ``repro.nn.transformer`` in torch, for the layer kinds
-``global`` and ``local`` (attention plus a gated MLP).  Layers are grouped
+``global`` and ``local`` (attention plus a gated MLP or a mixture of
+experts, :mod:`repro_torch.nn.moe`).  Layers are grouped
 into *superblocks* of ``len(cfg.attn_pattern)`` layers whose parameters are
 stacked (``blocks/<i>``, leading dim = superblock), with remainder layers
 (n_layers mod period) in ``extra/<j>``: the reference's tree, so its
@@ -10,9 +11,9 @@ the stack with ``lax.scan``, the port loops over the stacked index in
 Python.  KV caches mirror the parameter layout, and the decode step
 writes each layer's slice of the stacked cache in place.
 
-Recurrent kinds (RG-LRU, xLSTM), MoE blocks, patches (VLM), learned
-positions (the encoder-decoder) and bf16 cross-device sums are not ported
-yet: a config that asks for one raises ``NotImplementedError``.
+Recurrent kinds (RG-LRU, xLSTM), patches (VLM), learned positions (the
+encoder-decoder) and bf16 cross-device sums are not ported yet: a config
+that asks for one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import attention, layers, module
+from repro_torch.nn import moe as moe_lib
 from repro_torch.nn.module import map_tree
 
 Params = Any
@@ -37,8 +39,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     LM substrate the port has not ported yet."""
     later = [f"layer kind {k!r} (RG-LRU/xLSTM)" for k in dict.fromkeys(
         cfg.attn_pattern) if k not in ("global", "local")]
-    if cfg.n_experts:
-        later.append("MoE blocks (the MoE family)")
     if cfg.n_patches:
         later.append("patches (qwen2-vl)")
     if cfg.learned_positions or cfg.is_encoder_decoder:
@@ -80,14 +80,19 @@ def mixer_specs(cfg: ModelConfig, kind: str) -> dict:
 
 def block_specs(cfg: ModelConfig, kind: str) -> dict:
     s: dict = {"ln1": _norm_specs(cfg), "mixer": mixer_specs(cfg, kind)}
-    if cfg.n_experts > 0:
-        raise NotImplementedError(f"MoE blocks not ported yet ({_LATER})")
-    if cfg.d_ff > 0:
+    has_ffn = cfg.d_ff > 0 or cfg.n_experts > 0
+    if has_ffn:
         s["ln2"] = _norm_specs(cfg)
-        s["mlp"] = layers.mlp_specs(cfg.d_model, cfg.d_ff, gated=True)
+        if cfg.n_experts > 0:
+            s["moe"] = moe_lib.moe_specs(
+                cfg.d_model, cfg.n_experts, cfg.expert_d_ff,
+                n_experts_padded=cfg.n_experts_padded or cfg.n_experts,
+                n_shared=cfg.n_shared_experts, shared_d_ff=cfg.shared_d_ff)
+        else:
+            s["mlp"] = layers.mlp_specs(cfg.d_model, cfg.d_ff, gated=True)
     if cfg.post_norms:
         s["post1"] = _norm_specs(cfg)
-        if cfg.d_ff > 0:
+        if has_ffn:
             s["post2"] = _norm_specs(cfg)
     return s
 
@@ -99,7 +104,10 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                 ) -> tuple[torch.Tensor, Optional[dict]]:
     """One layer: prefill when ``cache`` is None (``positions``: see
     :func:`attention.self_attention`), else one decode step at ``pos``
-    (B,), which writes ``cache`` in place.  Returns (x_out, cache)."""
+    (B,), which writes ``cache`` in place.  Returns (x_out, cache): an MoE
+    layer's load-balancing loss is dropped on the serving path (the
+    training loss comes with the LM's training, ROADMAP.md queue 1 item
+    8)."""
     if kind not in ("global", "local"):
         raise NotImplementedError(f"layer kind {kind!r} not ported yet "
                                   f"({_LATER})")
@@ -119,9 +127,16 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
         y = _apply_norm(cfg, p["post1"], y)
     x = x + y
 
-    if "mlp" in p:
+    if "mlp" in p or "moe" in p:
         h = _apply_norm(cfg, p["ln2"], x)
-        y = layers.mlp(p["mlp"], h, act=cfg.act, quant=cfg.quant_format)
+        if "moe" in p:
+            y, _ = moe_lib.moe(
+                p["moe"], h, n_experts=cfg.n_experts,
+                top_k=cfg.experts_per_token,
+                capacity_factor=cfg.capacity_factor, act=cfg.act,
+                quant=cfg.quant_format, token_chunks=cfg.moe_token_chunks)
+        else:
+            y = layers.mlp(p["mlp"], h, act=cfg.act, quant=cfg.quant_format)
         if cfg.post_norms:
             y = _apply_norm(cfg, p["post2"], y)
         x = x + y

@@ -7,12 +7,18 @@ shapes), then the lane switches to generation.  Finished lanes are
 refilled from the queue at the next tick — no global barrier between
 requests.
 
-Per-lane state lives in the batched KV cache, on the parameters' device;
-a lane's reset writes its init values (zeros, and -1 for a rolling
-window's key positions) into that lane's slice in place.  Queue and
-request bookkeeping and the latency percentiles are the shared
-:mod:`repro_torch.serving.common` machinery; the decode step is
-``models.lm.serve_step``.
+Per-lane state lives in the batched KV cache, on the parameters' device,
+allocated once; a lane's reset writes its init values (zeros, and -1 for a
+rolling window's key positions) into that lane's slice in place, outside
+the step.  Queue and request bookkeeping and the latency percentiles are
+the shared :mod:`repro_torch.serving.common` machinery.
+
+The decode step is ``models.lm.serve_step`` behind a
+:class:`~repro_torch.core.graphs.GraphRunner`, the counterpart of the
+reference's ``jax.jit``: on the card the first tick runs eagerly and
+captures the step, which writes the cache in place, and every later tick
+copies the tokens and positions into the graph's static inputs and
+replays it; on the CPU the step runs eagerly.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.graphs import GraphRunner
 from repro_torch.models import lm
 from repro_torch.nn import transformer
 from repro_torch.nn.module import tree_leaves
@@ -68,6 +75,11 @@ class ServingEngine:
         self.queue = RequestQueue()
         self.finished: list[Request] = []
         self._ticks = 0
+        cache = self.cache       # not self: no cycle to keep params alive
+        self._step = GraphRunner(
+            lambda feeds: lm.serve_step(cfg, params, feeds["tokens"], cache,
+                                        feeds["pos"])[0],
+            self.device)
 
     # -- API ---------------------------------------------------------------
 
@@ -84,6 +96,10 @@ class ServingEngine:
                 and self._ticks < max_ticks:
             self.tick()
         return self.finished
+
+    def release(self) -> None:
+        """Drop the decode step's captured graphs and their memory pool."""
+        self._step.release()
 
     # -- internals ---------------------------------------------------------
 
@@ -126,10 +142,9 @@ class ServingEngine:
                 tokens[li, 0] = req.output[-1]
             pos[li] = lane.pos
 
-        # 3) one decode step for the whole pool
-        next_tok, self.cache = lm.serve_step(
-            self.cfg, self.params, torch.from_numpy(tokens).to(self.device),
-            self.cache, torch.from_numpy(pos).to(self.device))
+        # 3) one decode step for the whole pool (the cache in place)
+        next_tok = self._step({"tokens": torch.from_numpy(tokens),
+                               "pos": torch.from_numpy(pos)})
         next_tok = next_tok.cpu().numpy()
 
         # 4) per-lane bookkeeping

@@ -176,7 +176,10 @@ def test_runtime_imports_neither_jax_nor_repro():
             "import repro_torch.data.pipeline, repro_torch.checkpoint.ckpt\n"
             "import repro_torch.runtime.fault\n"
             "import repro_torch.models.lm, repro_torch.serving.engine\n"
-            "import repro_torch.launch.serve\n"
+            "import repro_torch.launch.serve, repro_torch.nn.moe\n"
+            "import repro_torch.configs.qwen2_moe_a27b\n"
+            "import repro_torch.configs.mixtral_8x7b\n"
+            "import repro_torch.examples.serve_moe\n"
             "import repro_torch.examples.quickstart\n"
             "import repro_torch.examples.braggnn_serve\n"
             "bad = sorted(m for m in sys.modules\n"

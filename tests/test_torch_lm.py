@@ -133,6 +133,9 @@ def test_configs_equal_reference(ref, arch):
 def test_registry_names_what_is_not_ported(ref):
     assert set(registry.ARCH_IDS) | set(registry.NOT_PORTED) == \
         set(ref.registry.ARCH_IDS)
+    assert {"qwen2-moe-a2.7b", "mixtral-8x7b"} <= set(registry.ARCH_IDS)
+    assert not {"qwen2-moe-a2.7b", "mixtral-8x7b"} & set(
+        registry.NOT_PORTED)
     for arch in registry.NOT_PORTED:
         with pytest.raises(KeyError, match="item 8"):
             registry.get_config(arch)
@@ -476,8 +479,13 @@ def test_decode_matches_forward(name):
     materialised scores (positions given: the decode step's attention,
     bf16 probabilities).  The flash kernel's forward keeps the
     probabilities in fp32; its gap to the decode step is a property of the
-    kernel, held on the card at Qwen2.5-3B's width (``chip_smoke.py``)."""
+    kernel, held on the card at Qwen2.5-3B's width (``chip_smoke.py``).
+    An MoE routes dropless here (``capacity_factor = n_experts``): at the
+    served capacity the decode step's two tokens and the forward's 24 drop
+    different assignments, in the reference as in the port."""
     cfg = _port_config(name)
+    if cfg.n_experts:
+        cfg = cfg.replace(capacity_factor=float(cfg.n_experts))
     params = module.init_tree(transformer.model_specs(cfg),
                               torch.Generator().manual_seed(1))
     s = 12
@@ -496,7 +504,6 @@ def test_decode_matches_forward(name):
     (dict(attn_pattern=("rglru", "rglru", "local"), lru_width=32),
      "rglru"),
     (dict(attn_pattern=("mlstm", "slstm"), d_ff=0), "mlstm"),
-    (dict(n_experts=4, experts_per_token=2, expert_d_ff=32), "MoE"),
     (dict(n_patches=4), "patches"),
     (dict(learned_positions=True, max_position=64), "learned positions"),
     (dict(bf16_reduce=True), "bf16 cross-device"),

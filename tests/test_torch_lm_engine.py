@@ -8,7 +8,9 @@ two best logits here).  The other tests mirror the reference's
 ``tests/test_serving.py``: draining more requests than lanes, tokens
 independent of the traffic around a request, EOS, and lane reuse on
 gemma2-tiny, whose rolling-window cache carries ``kpos`` sentinels, and
-the lane reset itself.
+the lane reset itself.  On the card (``gpu``) the engine's ticks replay a
+captured graph of the decode step, equal to the eager step's tokens and
+cache.
 """
 
 import dataclasses
@@ -17,15 +19,11 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-jax = pytest.importorskip("jax")
-
-from repro.configs import registry as ref_registry  # noqa: E402
-from repro.nn import module as ref_module  # noqa: E402
-from repro.nn import transformer as ref_tr  # noqa: E402
-from repro.serving.engine import ServingEngine as RefEngine  # noqa: E402
 
 from repro_torch.configs import registry  # noqa: E402
+from repro_torch.core.graphs import GraphRunner  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.nn import module, transformer  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
@@ -46,8 +44,22 @@ def _outputs(engine) -> dict:
     return {r.rid: r.output for r in engine.run_until_drained()}
 
 
+@pytest.fixture(scope="module")
+def ref():
+    """The reference package's engine and LM modules (they import JAX,
+    which the card's machine does not have: the ``gpu`` test below does
+    without them)."""
+    jax = pytest.importorskip("jax")
+    from repro.configs import registry as ref_registry
+    from repro.nn import module as ref_module
+    from repro.nn import transformer as ref_tr
+    from repro.serving.engine import ServingEngine as RefEngine
+    return jax, ref_registry, ref_module, ref_tr, RefEngine
+
+
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-27b"])
-def test_engine_tokens_equal_reference_at_fp32(arch):
+def test_engine_tokens_equal_reference_at_fp32(ref, arch):
+    jax, ref_registry, ref_module, ref_tr, RefEngine = ref
     ref_cfg = ref_registry.get_tiny(arch).replace(activation_dtype="float32")
     cfg = registry.get_tiny(arch).replace(activation_dtype="float32")
     assert dataclasses.asdict(ref_cfg) == dataclasses.asdict(cfg)
@@ -158,6 +170,8 @@ def test_empty_prompt_is_refused():
     ["--requests", "5"],
     ["--arch", "gemma2-27b", "--requests", "3", "--max-batch", "2",
      "--new-tokens", "6"],
+    ["--arch", "qwen2-moe-a2.7b", "--requests", "3", "--max-batch", "2",
+     "--new-tokens", "4"],
 ])
 def test_serve_cli_on_cpu(argv, capsys):
     stats = serve.main(argv + ["--device", "cpu"])
@@ -180,3 +194,60 @@ def test_serve_cli_takes_no_tiny(monkeypatch):
     monkeypatch.setattr(serve.registry, "get_config", get_config)
     stats = serve.main(["--no-tiny", "--requests", "2", "--device", "cpu"])
     assert asked == ["qwen2.5-3b"] and stats["requests"] == 2
+
+
+def test_decode_step_feeds_keep_their_int64_dtype():
+    """The engine's runner hands the step int64 tokens and positions, as
+    the engine built them (on the CPU it runs the step eagerly on them)."""
+    eng = _engine(max_batch=2)
+    seen = []
+    call = eng._step._call
+    eng._step._call = lambda feeds: seen.append(
+        {k: v.dtype for k, v in feeds.items()}) or call(feeds)
+    eng.submit([1, 2, 3], max_new_tokens=2)
+    eng.run_until_drained()
+    assert seen and all(s == {"tokens": torch.int64, "pos": torch.int64}
+                        for s in seen)
+    assert isinstance(eng._step, GraphRunner)
+    assert eng._step.replay_launches() == {}          # nothing captured
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-27b",
+                                  "qwen2-moe-a2.7b", "mixtral-8x7b"])
+def test_replayed_engine_equals_the_eager_engine_on_card(cuda, arch):
+    """The same requests through the engine (one captured decode step,
+    replayed every tick after the first) and through an engine whose step
+    runs eagerly, at bf16 on the card: the same tokens, and the same
+    cache value for value."""
+    cfg = registry.get_tiny(arch)
+    params = module.init_tree(transformer.model_specs(cfg),
+                              torch.Generator(device=cuda).manual_seed(0),
+                              device=cuda)
+    engines = [ServingEngine(cfg, params, max_batch=3, max_len=32)
+               for _ in range(2)]
+    eager = engines[1]
+    eager._step = lambda f: lm.serve_step(
+        cfg, params, f["tokens"].to(cuda), eager.cache, f["pos"].to(cuda))[0]
+    outs = []
+    for eng in engines:
+        for prompt, n in REQUESTS:
+            eng.submit(prompt, max_new_tokens=n)
+        outs.append({r.rid: r.output for r in eng.run_until_drained()})
+    assert outs[0] == outs[1]
+    assert len(engines[0]._step.replay_launches()) == 1
+    for a, b in zip(module.tree_leaves(engines[0].cache),
+                    module.tree_leaves(eager.cache)):
+        assert torch.equal(a, b)

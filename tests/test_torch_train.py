@@ -423,3 +423,45 @@ def test_train_step_on_the_card_equals_its_cpu_run(cuda):
         new[dev.type] = adamw.apply_updates(cfg, p, g, adamw.init_state(p))
     _assert_tree_close(new["cuda"][0], map_tree(_np, new["cpu"][0]), 1e-5,
                        1e-7)
+
+
+@pytest.mark.gpu
+def test_graphed_step_equals_the_eager_step_on_the_card(cuda, monkeypatch):
+    """Five AdamW steps at batch 64 through the step's captured graph (the
+    first call captures, the rest replay) and through ``step.eager``, under
+    deterministic cuDNN and cuBLAS (Hopper's default cuBLAS workspace,
+    named so that PyTorch allows it): the same losses and parameters bit
+    for bit, and the given trees are left alone."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    params = init_tree(braggnn.specs(1, IMG),
+                       torch.Generator().manual_seed(0))
+    params = map_tree(lambda t: t.to(cuda), params)
+    gen = torch.Generator().manual_seed(1)
+    batches = [tuple(t.to(cuda) for t in braggnn.synthetic_peaks(64, IMG,
+                                                                 gen))
+               for _ in range(5)]
+    cfg = adamw.AdamWConfig(**RECIPE)
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        step = braggnn.make_step(cfg)
+        runs = {}
+        for label, fn in (("graph", step), ("eager", step.eager)):
+            given = (params, adamw.init_state(params))
+            snap = [t.clone() for t in tree_leaves(given)]
+            p, s = given
+            losses = []
+            for x, y in batches:
+                p, s, loss = fn(p, s, x, y)
+                losses.append(loss)
+            runs[label] = ([float(v) for v in losses], tree_leaves((p, s)))
+            assert all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(given), snap))
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic = saved[1]
+    assert runs["graph"][0] == runs["eager"][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs["graph"][1],
+                                                 runs["eager"][1]))
