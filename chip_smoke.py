@@ -113,7 +113,28 @@ Phases, each printing one JSON line (``"phase": ...``):
              CPU at two layers (2%), the launcher's CLI at ``--no-tiny``
              and ``examples/serve_moe`` in subprocesses; Mixtral-8x7b at
              full width cut to 4 of its 32 layers (prefill with 4 K5
-             launches, 16 engine ticks).
+             launches, 16 engine ticks); and the prefill with its token
+             chunks routed in one pass against the same prefill chunk by
+             chunk (the layer before the one-pass routing) in this run:
+             p50, device operations, busy ms, idle share, the expert
+             products' ms, the kept assignments within 1e-4 of their
+             number (cuBLAS sums at other row counts), and the kept
+             shares held to 0.933 (qwen2-moe) and 0.996 (Mixtral).
+17. recurrent — the RG-LRU hybrid at RecurrentGemma-9b's published width
+             and depth (8,578,519,040 parameters drawn on the card,
+             nothing cut), after the MoE weights are freed: K5 at its
+             prefill shape (B*H 32, S 4,096, D 256, window 2,048) against
+             its plain version, beside SDPA with the window as a boolean
+             mask and the bound; ``lm.prefill`` at 2 x 4,096 timed,
+             profiled and counted (12 K5 launches a call, nothing else of
+             the port's); one 8-lane decode tick replayed against eager
+             (tokens, logits, and every cache leaf ``h``, ``conv``, ``k``,
+             ``v``, ``kpos`` value for value); ``forward`` against 64
+             cached decode steps (1%); the engine over the lm phase's 32
+             requests, with requests 0, 8, 16 and 24 served again alone
+             and held equal; the card against the CPU at one superblock
+             (2%); ``python -m repro_torch.launch.serve --arch
+             recurrentgemma-9b --no-tiny --requests 8`` in a subprocess.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 the last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -1094,12 +1115,15 @@ def phase_profile(torch, design, x, fmt, cuda_kw=None,
           **device_profile(torch, lambda: fn(x), reps)})
 
 
-def device_profile(torch, step, reps: int = 5) -> dict:
+def device_profile(torch, step, reps: int = 5, op: str = "") -> dict:
     """``torch.profiler`` over ``reps`` calls of ``step``, each ending in a
     synchronise, after one untraced call: device operations and device
     time per call by kernel name, busy time and idle share of the host's
     wall time, and the host operations that take the most of the host's
-    own time (under the profiler, which adds its own)."""
+    own time (under the profiler, which adds its own).  With ``op``, also
+    the device µs per call spent under the host operations whose name
+    holds it (the largest such total, so an operation nested in another
+    of the same name is not counted twice)."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -1110,8 +1134,12 @@ def device_profile(torch, step, reps: int = 5) -> dict:
             step()
             torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels, host = [], []
+    kernels, host, under_op = [], [], [0.0]
     for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU and op \
+                and op in e.key:
+            under_op.append((getattr(e, "device_time_total", None)
+                             or getattr(e, "cuda_time_total", 0.0)) / reps)
         if e.device_type == torch.autograd.DeviceType.CPU \
                 and e.self_cpu_time_total > 0:
             host.append({"name": e.key[:60], "calls": e.count / reps,
@@ -1136,6 +1164,7 @@ def device_profile(torch, step, reps: int = 5) -> dict:
             "device_idle_share": (1.0 - busy * reps / wall_us
                                   if kernels else None),
             "device_time_seen": bool(kernels), "kernels": kernels,
+            **({"op_device_us_per_batch": max(under_op)} if op else {}),
             "host_top": sorted(host, key=lambda h: -h["host_us_per_batch"]
                                )[:6]}
 
@@ -1452,7 +1481,8 @@ def ulp_at(scale: float, man_bits: int) -> float:
 
 def kernel_call(torch, call, kern, plain, library, nbytes, flops, *,
                 got=None, want=None, exact=False, rtol=KERNEL_RTOL,
-                atol=KERNEL_ATOL, plain_runs=TIMED_RUNS) -> dict:
+                atol=KERNEL_ATOL, plain_runs=TIMED_RUNS,
+                runs=TIMED_RUNS) -> dict:
     """One kernel call held against its plain version (``got`` / ``want``
     where given, else one call of each), then the device times of kernel,
     plain version and library call beside the bound."""
@@ -1467,11 +1497,14 @@ def kernel_call(torch, call, kern, plain, library, nbytes, flops, *,
               f"({n_diff} values differ)")
     bound_ms, bound_by = bound(nbytes, flops)
     return {"call": call, "max_abs_err": err, "values_differing": n_diff,
-            "ms": device_ms(torch, kern, label=call),
+            "ms": device_ms(torch, kern, runs, chunk=min(20, runs),
+                            label=call),
             "plain_ms": device_ms(torch, plain, plain_runs,
                                   chunk=min(20, plain_runs),
                                   label=f"{call} plain"),
-            "library_ms": device_ms(torch, library, label=f"{call} library")
+            "library_ms": device_ms(torch, library, runs,
+                                    chunk=min(20, runs),
+                                    label=f"{call} library")
             if library else None,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "flops": flops}
@@ -2262,6 +2295,14 @@ LM_LANES, LM_MAX_LEN, LM_REQUESTS, LM_PROMPT, LM_NEW = 8, 1024, 32, \
     (16, 256), 64
 
 
+def attention_layers(cfg) -> int:
+    """The layers of ``cfg`` that attend (``global``/``local``): each
+    launches K5 once in a prefill."""
+    period = cfg.attn_pattern
+    kinds = [period[i % len(period)] for i in range(cfg.n_layers)]
+    return sum(k in ("global", "local") for k in kinds)
+
+
 def causal_pairs(s: int, window: int = 0) -> int:
     """(query, key) pairs a causal (optionally windowed) head of S rows
     scores: the work K5's data needs."""
@@ -2328,15 +2369,17 @@ def lm_forward_vs_decode(torch, cfg, params, dev, b: int, s: int) -> dict:
 
 def lm_engine_run(torch, cfg, params, *, lanes: int, max_len: int,
                   requests: int, prompt: tuple, new: int,
-                  hold_alone: bool = True, max_ticks: int = 0) -> dict:
+                  hold_alone: bool = True, max_ticks: int = 0,
+                  alone: tuple = ()) -> dict:
     """The continuous-batching engine over ``requests`` seeded prompts,
     each tick timed on the host (a tick ends in the next tokens' copy to
     the host; the first captures the decode step's graph, the rest replay
-    it); then one of them again, alone in the same engine, whose tokens
-    must equal those it got among the others where ``hold_alone`` (an
-    MoE's capacity drops depend on the other lanes' routing, so there the
-    comparison is reported).  ``max_ticks`` > 0 stops after that many
-    ticks and skips the rest."""
+    it); then some of them again (``alone``, by request id; default the
+    middle one), each alone in the same engine, whose tokens must equal
+    those it got among the others where ``hold_alone`` (an MoE's capacity
+    drops depend on the other lanes' routing, so there the comparison is
+    reported).  ``max_ticks`` > 0 stops after that many ticks and skips
+    the rest."""
     from repro_torch.serving import ServingEngine, percentiles
     eng = ServingEngine(cfg, params, max_batch=lanes, max_len=max_len)
     gen = torch.Generator().manual_seed(22)
@@ -2372,16 +2415,18 @@ def lm_engine_run(torch, cfg, params, *, lanes: int, max_len: int,
         len(r.output) == new for r in done.values()),
         f"engine: {len(done)} of {requests} requests finished, lengths "
         f"{sorted({len(r.output) for r in done.values()})} (want {new})")
-    # one request again, alone among idle lanes: a request packed in the
-    # middle of the run, so it shared its ticks with others
-    rid = requests // 2
-    eng.finished.clear()
-    eng.submit(prompts[rid], max_new_tokens=new)
-    alone = eng.run_until_drained()[0].output
+    # requests again, each alone among idle lanes: by default one packed in
+    # the middle of the run, so it shared its ticks with others
+    outs = {}
+    for rid in alone or (requests // 2,):
+        eng.finished.clear()
+        eng.submit(prompts[rid], max_new_tokens=new)
+        outs[rid] = eng.run_until_drained()[0].output
+        check(outs[rid] == done[rid].output or not hold_alone,
+              f"engine: request {rid} alone gave {outs[rid]}, among the "
+              f"others {done[rid].output}")
     eng.release()
-    check(alone == done[rid].output or not hold_alone,
-          f"engine: request {rid} alone gave {alone}, among the others "
-          f"{done[rid].output}")
+    rid = min(outs)
     lat = percentiles([r.latency_s * 1e3 for r in done.values()])
     ttft = percentiles([(r.first_token_t - r.submit_t) * 1e3
                         for r in done.values()])
@@ -2395,10 +2440,12 @@ def lm_engine_run(torch, cfg, params, *, lanes: int, max_len: int,
             "tick_ms_p50": tick["p50"], "tick_ms_p99": tick["p99"],
             "ttft_ms_p50": ttft["p50"], "request_ms_p50": lat["p50"],
             "request_ms_p99": lat["p99"],
-            "alone_equals_packed": alone == done[rid].output,
-            "alone_tokens_equal": sum(a == b for a, b in zip(
-                alone, done[rid].output)),
-            "alone_held": hold_alone, "request_checked": rid}
+            "alone_equals_packed": all(
+                o == done[r].output for r, o in outs.items()),
+            "alone_tokens_equal": sum(a == b for r, o in outs.items()
+                                      for a, b in zip(o, done[r].output)),
+            "alone_held": hold_alone, "request_checked": rid,
+            "requests_checked_alone": sorted(outs)}
 
 
 def phase_lm(torch) -> dict:
@@ -2611,8 +2658,9 @@ def lm_card_vs_cpu(torch, cfg) -> dict:
     card = transformer.forward(cfg, module.params_from_numpy(
         weights, device="cuda"), toks.cuda()).cpu()
     launches = registry.launch_counts()["flash_attention"]
-    check(launches == cfg.n_layers, f"card forward launched K5 {launches} "
-                                    f"times, want {cfg.n_layers}")
+    want = attention_layers(cfg)
+    check(launches == want, f"card forward launched K5 {launches} times, "
+                            f"want {want}")
     t0 = time.perf_counter()
     cpu = transformer.forward(cfg, module.params_from_numpy(weights), toks)
     cpu_s = time.perf_counter() - t0
@@ -2661,6 +2709,13 @@ MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_PARAMS = "mixtral-8x7b", 4, \
 MIXTRAL_FLASH = (128, 1024, 128, {"causal": True, "window": 4096})
 #: prefill timed calls; Mixtral's engine ticks (the phase's time limit)
 MOE_PREFILL_RUNS, MIXTRAL_TICKS = 5, 16
+#: timed calls of each side of the one-pass routing's comparison, and
+#: how far apart their kept counts may lie, as a share of the assignments
+MOE_P3_RUNS, MOE_P3_KEPT_TOL = 3, 1e-4
+#: the share of a prefill's routed assignments kept within the capacity,
+#: to three places: the reference's routing of these seeded weights and
+#: tokens, which routing all chunks in one pass must not change
+MOE_KEPT_SHARE = {MOE_ARCH: 0.933, MIXTRAL_ARCH: 0.996}
 
 
 class KeptShare:
@@ -2687,49 +2742,48 @@ class KeptShare:
         return float(sum(self.kept)) / self.total
 
 
-def moe_prefill(torch, cfg, params, label: str) -> dict:
-    """``lm.prefill`` at LM_PREFILL_B x LM_PREFILL_S: timed, counted (one
-    K5 launch per layer and nothing else of the port's), profiled by
-    kernel name, and the routed share kept over one call."""
+def prefill_run(torch, cfg, params, b: int, s: int, runs: int, seed: int,
+                kept=None) -> dict:
+    """``lm.prefill`` at b x s on seeded tokens: p50 of ``runs`` calls, K5
+    launched once per attending layer and nothing else of the port's,
+    finite logits, one call profiled by kernel name; ``kept`` (a
+    :class:`KeptShare`) over the first, untimed call."""
+    import contextlib
     from repro_torch.kernels import registry
     from repro_torch.models import lm
 
-    gen = torch.Generator(device="cuda").manual_seed(31)
-    toks = torch.randint(0, cfg.vocab_size, (LM_PREFILL_B, LM_PREFILL_S),
-                         generator=gen, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    with KeptShare() as kept:
+    with kept or contextlib.nullcontext():
         logits = lm.prefill(cfg, params, toks)
     torch.cuda.synchronize()
     registry.reset_launch_counts()
     times = []
-    for _ in range(MOE_PREFILL_RUNS):
+    for _ in range(runs):
         t0 = time.perf_counter()
         logits = lm.prefill(cfg, params, toks)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    counts = {k: v for k, v in registry.launch_counts().items() if v}
-    per_call = {k: v / MOE_PREFILL_RUNS for k, v in counts.items()}
-    check(per_call == {"flash_attention": cfg.n_layers},
-          f"{label} prefill launched {per_call} per call, want "
-          f"flash_attention {cfg.n_layers} and nothing else")
-    check(tuple(logits.shape) == (LM_PREFILL_B, cfg.vocab_size)
+    per_call = {k: v / runs for k, v in registry.launch_counts().items()
+                if v}
+    want = attention_layers(cfg)
+    check(per_call == {"flash_attention": want},
+          f"{cfg.name} prefill launched {per_call} per call, want "
+          f"flash_attention {want} and nothing else")
+    check(tuple(logits.shape) == (b, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
-          f"{label} prefill logits {tuple(logits.shape)} not finite")
+          f"{cfg.name} prefill logits {tuple(logits.shape)} not finite")
     prof = device_profile(torch, lambda: lm.prefill(cfg, params, toks),
                           reps=1)
     k5_us = sum(k["device_us_per_batch"] for k in prof["kernels"]
                 if "flash_attention" in k["name"])
     p50 = statistics.median(times)
-    return {"arch": label, "layers": cfg.n_layers, "batch": LM_PREFILL_B,
-            "seq": LM_PREFILL_S, "runs": MOE_PREFILL_RUNS, "ms_p50": p50,
-            "ms": times, "tokens_per_s": LM_PREFILL_B * LM_PREFILL_S / p50
-            * 1e3, "launches_per_call": per_call,
-            "routed_kept_share": kept.share(),
-            "capacity_per_expert_per_chunk": max(1, int(
-                LM_PREFILL_B * LM_PREFILL_S // cfg.moe_token_chunks
-                * cfg.experts_per_token / cfg.n_experts
-                * cfg.capacity_factor)),
+    return {"arch": cfg.name, "layers": cfg.n_layers, "batch": b, "seq": s,
+            "runs": runs, "ms_p50": p50, "ms": times,
+            "tokens_per_s": b * s / p50 * 1e3,
+            "launches_per_call": per_call,
             "flash_attention_us_per_call": k5_us,
             "flash_attention_share_of_busy":
                 k5_us / prof["device_busy_us_per_batch"]
@@ -2737,6 +2791,22 @@ def moe_prefill(torch, cfg, params, label: str) -> dict:
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
             **{k: v for k, v in prof.items() if k != "kernels"},
             "kernels_top": prof["kernels"][:14]}
+
+
+def moe_prefill(torch, cfg, params) -> dict:
+    """:func:`prefill_run` at LM_PREFILL_B x LM_PREFILL_S, and the routed
+    share kept over one call, held to MOE_KEPT_SHARE."""
+    kept = KeptShare()
+    out = prefill_run(torch, cfg, params, LM_PREFILL_B, LM_PREFILL_S,
+                      MOE_PREFILL_RUNS, 31, kept=kept)
+    check(round(kept.share(), 3) == MOE_KEPT_SHARE[cfg.name],
+          f"{cfg.name} prefill kept {kept.share():.4f} of its assignments, "
+          f"want {MOE_KEPT_SHARE[cfg.name]}")
+    return {**out, "routed_kept_share": kept.share(),
+            "capacity_per_expert_per_chunk": max(1, int(
+                LM_PREFILL_B * LM_PREFILL_S // cfg.moe_token_chunks
+                * cfg.experts_per_token / cfg.n_experts
+                * cfg.capacity_factor))}
 
 
 def draw(torch, cfg, label: str, want: int) -> tuple:
@@ -2802,8 +2872,11 @@ def phase_moe(torch) -> dict:
           "n_experts": cfg.n_experts, "padded": cfg.n_experts_padded,
           "top_k": cfg.experts_per_token,
           "token_chunks": cfg.moe_token_chunks})
-    pre = moe_prefill(torch, cfg, params, MOE_ARCH)
+    pre = moe_prefill(torch, cfg, params)
     emit({"phase": "moe", "step": "prefill", **pre})
+    emit({"phase": "moe", "step": "prefill, one pass against chunk by "
+                                  "chunk", **moe_one_pass(torch, cfg,
+                                                          params)})
 
     gen = torch.Generator(device="cuda").manual_seed(32)
     tick = decode_tick(torch, cfg, params, LM_LANES, LM_MAX_LEN, gen,
@@ -2851,7 +2924,7 @@ def phase_moe(torch) -> dict:
     reduced = (f"n_layers {MIXTRAL_LAYERS} of 32: 46.7 B parameters "
                f"(186.8 GB in fp32) cannot sit on one 80 GB card")
     emit({"phase": "moe", "step": "model", **model, "reduced": reduced})
-    mpre = moe_prefill(torch, mcfg, params, MIXTRAL_ARCH)
+    mpre = moe_prefill(torch, mcfg, params)
     emit({"phase": "moe", "step": "prefill", **mpre, "reduced": reduced})
     meng = lm_engine_run(torch, mcfg, params, lanes=LM_LANES,
                          max_len=LM_MAX_LEN, requests=LM_LANES,
@@ -2868,6 +2941,226 @@ def phase_moe(torch) -> dict:
                          pre["launches_per_call"].items()},
             "mixtral_launches": {k: int(v) for k, v in
                                  mpre["launches_per_call"].items()}}
+
+
+class ChunkByChunk:
+    """Within ``with``: the MoE layer as it ran before its token chunks
+    were routed in one pass: the expert weights cast once per call, then
+    the layer on each chunk alone (``token_chunks=1``), the outputs
+    concatenated and the chunks' ``aux`` averaged.  The same function; the
+    way it launches is the one to compare with."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.nn import moe
+        from repro_torch.nn.layers import maybe_quantize
+        self.mod, self.orig = moe, moe.moe
+
+        def chunked(p, x, *, token_chunks=1, quant=None, **kw):
+            b, s, d = x.shape
+            n = b * s
+            if token_chunks <= 1 or n % token_chunks:
+                return self.orig(p, x, token_chunks=token_chunks,
+                                 quant=quant, **kw)
+            cast = lambda w: maybe_quantize(w, quant).to(  # noqa: E731
+                x.dtype)
+            pc = {"router": {"kernel": maybe_quantize(
+                p["router"]["kernel"], quant)},
+                "experts": {k: cast(v) for k, v in p["experts"].items()}}
+            if "shared" in p:
+                pc["shared"] = {k: cast(p["shared"][k])
+                                for k in ("wi", "wg", "wo")}
+                pc["shared"]["gate"] = p["shared"]["gate"]
+            outs = [self.orig(pc, xc[None], token_chunks=1, **kw)
+                    for xc in x.reshape(n, d).chunk(token_chunks)]
+            y = torch.cat([o[0].reshape(-1, d) for o in outs])
+            return y.reshape(b, s, d), sum(o[1] for o in outs) / len(outs)
+
+        moe.moe = chunked
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe = self.orig
+
+
+def moe_one_pass(torch, cfg, params) -> dict:
+    """P3: ``lm.prefill`` with the token chunks routed in one pass against
+    the same prefill chunk by chunk (:class:`ChunkByChunk`), in this run:
+    p50 of MOE_P3_RUNS calls each, device operations, busy ms and idle
+    share per call, the expert products' device ms (``aten::bmm``, which
+    only they call), and the kept assignments.  The two route alike (on
+    the CPU bit for bit, ``tests/test_torch_moe.py``), but cuBLAS sums the
+    router's and the experts' products in other orders at other row
+    counts, so a few near-ties among the experts may fall the other way:
+    the kept counts are held within MOE_P3_KEPT_TOL of the assignments
+    and the kept share to three places."""
+    import contextlib
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    toks = torch.randint(0, cfg.vocab_size, (LM_PREFILL_B, LM_PREFILL_S),
+                         generator=gen, device="cuda")
+    out, logits = {}, {}
+    for label, ctx in (("chunk by chunk", ChunkByChunk),
+                       ("one pass", contextlib.nullcontext)):
+        with ctx():
+            def step():
+                return lm.prefill(cfg, params, toks)
+            with KeptShare() as kept:
+                logits[label] = step()
+            times = []
+            for _ in range(MOE_P3_RUNS):
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            prof = device_profile(torch, step, reps=1, op="bmm")
+        out[label] = {
+            "ms_p50": statistics.median(times), "ms": times,
+            "device_operations": prof["device_operations_per_batch"],
+            "device_busy_ms": prof["device_busy_us_per_batch"] / 1e3,
+            "device_idle_share": prof["device_idle_share"],
+            "expert_bmm_ms": prof["op_device_us_per_batch"] / 1e3,
+            "kept": int(sum(float(k) for k in kept.kept)),
+            "assignments": kept.total, "kept_share": kept.share(),
+            "kernels_top": prof["kernels"][:8]}
+    before, after = out["chunk by chunk"], out["one pass"]
+    check(after["assignments"] == before["assignments"]
+          and abs(after["kept"] - before["kept"])
+          <= MOE_P3_KEPT_TOL * before["assignments"],
+          f"P3: one pass kept {after['kept']} of {after['assignments']} "
+          f"assignments, chunk by chunk {before['kept']} of "
+          f"{before['assignments']}")
+    check(round(after["kept_share"], 3) == MOE_KEPT_SHARE[cfg.name],
+          f"{cfg.name} prefill kept {after['kept_share']:.4f} of its "
+          f"assignments, want {MOE_KEPT_SHARE[cfg.name]}")
+    scale = float(logits["chunk by chunk"].abs().max())
+    err = float((logits["one pass"] - logits["chunk by chunk"]).abs().max())
+    return {"arch": cfg.name, "batch": LM_PREFILL_B, "seq": LM_PREFILL_S,
+            "token_chunks": cfg.moe_token_chunks, "runs": MOE_P3_RUNS,
+            **out, "kept_differing": after["kept"] - before["kept"],
+            "logits_err_over_scale": err / scale,
+            "greedy_equal": bool(torch.equal(
+                logits["one pass"].argmax(-1),
+                logits["chunk by chunk"].argmax(-1)))}
+
+
+# ---------------------------------------------------------------------------
+# The RG-LRU hybrid: RecurrentGemma-9b at full width and depth
+# ---------------------------------------------------------------------------
+
+#: recurrentgemma-9b at its published width and depth, nothing cut (38
+#: layers in (rglru, rglru, local) x 12 + 2 rglru, d_model 4,096, 16 heads
+#: over one KV head of 256, window 2,048, lru_width 4,096, d_ff 12,288,
+#: vocab 256,000, bf16 activations)
+RG_ARCH, RG_PARAMS = "recurrentgemma-9b", 8_578_519_040
+#: its prefill: 2 x 4,096, so the window of 2,048 bites; timed calls
+RG_PREFILL_B, RG_PREFILL_S, RG_PREFILL_RUNS = 2, 4096, 5
+#: K5 at that prefill: B*H 32, S 4,096, D 256, causal, window 2,048
+RG_FLASH = (32, 4096, 256, {"causal": True, "window": 2048})
+#: the requests held alone after the engine's packed run (every 8th)
+RG_ALONE = (0, 8, 16, 24)
+#: the card against the CPU: one superblock (rglru, rglru, local)
+RG_CPU_LAYERS = 3
+
+
+def windowed_mask(torch, s: int, window: int):
+    """The boolean (S, S) mask of a causal window: key j is seen by query
+    i where 0 <= i - j < window."""
+    i = torch.arange(s, device="cuda")
+    d = i[:, None] - i[None, :]
+    return (d >= 0) & (d < window)
+
+
+def phase_recurrent(torch) -> dict:
+    """The RG-LRU hybrid's serving path at RecurrentGemma-9b's published
+    width and depth: K5 at its prefill shape (D 256, window 2,048) against
+    its plain version, beside SDPA with the window as a boolean mask and
+    the bound; the model drawn on the card; ``lm.prefill`` at 2 x 4,096
+    (12 K5 launches a call); one 8-lane decode tick replayed against
+    eager (every cache leaf: ``h``, ``conv``, ``k``, ``v``, ``kpos``);
+    ``forward`` against 64 cached decode steps; the engine over the lm
+    phase's 32 requests with RG_ALONE served again alone, equal; the card
+    against the CPU at one superblock; the launcher's CLI at
+    ``--no-tiny``."""
+    import torch.nn.functional as F
+    from repro_torch.configs import registry as configs
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, launch_shape)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    emit({"phase": "recurrent", "step": "card",
+          "device_bytes_before": torch.cuda.memory_allocated(),
+          "peak_device_bytes_so_far": torch.cuda.max_memory_allocated()})
+
+    bh, sq, d, kw = RG_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    q, k, v = (torch.randn(bh, sq, d, generator=gen, device="cuda")
+               for _ in range(3))
+    mask = windowed_mask(torch, sq, kw["window"])
+    call = f"({bh}, {sq}, {d}) " + ",".join(f"{a}={b}"
+                                          for a, b in kw.items())
+    flash = kernel_call(
+        torch, call, lambda: flash_attention(q, k, v, **kw),
+        lambda: flash_attention_ref(q, k, v, **kw),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+        4 * 4 * bh * sq * d, 4 * bh * causal_pairs(sq, kw["window"]) * d,
+        rtol=FLASH_RTOL, atol=FLASH_ATOL, plain_runs=10, runs=20)
+    flash["launch_shape"] = launch_shape(bh, sq, sq, d)
+    flash["library"] = "F.scaled_dot_product_attention, boolean window mask"
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    emit({"phase": "recurrent", "step": "flash_attention", **flash})
+
+    cfg = configs.get_config(RG_ARCH)
+    params, model = draw(torch, cfg, RG_ARCH, RG_PARAMS)
+    emit({"phase": "recurrent", "step": "model", **model, "reduced": None,
+          "attention_layers": attention_layers(cfg),
+          "rglru_layers": cfg.n_layers - attention_layers(cfg)})
+    pre = prefill_run(torch, cfg, params, RG_PREFILL_B, RG_PREFILL_S,
+                      RG_PREFILL_RUNS, 40)
+    emit({"phase": "recurrent", "step": "prefill", **pre})
+
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    tick = decode_tick(torch, cfg, params, LM_LANES, LM_MAX_LEN, gen)
+    emit({"phase": "recurrent", "step": "decode tick", **tick})
+
+    fvd = lm_forward_vs_decode(torch, cfg, params, "cuda", LM_DECODE_B,
+                               LM_DECODE_S)
+    emit({"phase": "recurrent", "step": "forward vs decode", **fvd,
+          "tolerance_over_scale": LM_DECODE_TOL})
+    check(fvd["err_over_scale"] <= LM_DECODE_TOL,
+          f"{RG_ARCH} forward against decode: {fvd['err_over_scale']:.4g} "
+          f"of the logit scale, over {LM_DECODE_TOL}")
+
+    registry.reset_launch_counts()
+    eng = lm_engine_run(torch, cfg, params, lanes=LM_LANES,
+                        max_len=LM_MAX_LEN, requests=LM_REQUESTS,
+                        prompt=LM_PROMPT, new=LM_NEW, alone=RG_ALONE)
+    eng["port_kernel_launches"] = {
+        k: v for k, v in registry.launch_counts().items() if v}
+    emit({"phase": "recurrent", "step": "engine", **eng})
+    del params
+    free_card(torch)
+
+    cpu_check = lm_card_vs_cpu(torch, cfg.replace(n_layers=RG_CPU_LAYERS))
+    emit({"phase": "recurrent", "step": "card vs cpu", **cpu_check,
+          "tolerance_over_scale": LM_BF16_TOL})
+    free_card(torch)
+    check(torch.cuda.memory_allocated() < 2 ** 30,
+          f"{torch.cuda.memory_allocated()} bytes still held on the card "
+          f"before the launcher's subprocess")
+    cli = run_module(["repro_torch.launch.serve", "--arch", RG_ARCH,
+                      "--no-tiny", "--requests", "8"])
+    emit({"phase": "recurrent", "step": "cli", **cli})
+    emit({"phase": "recurrent", "step": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return {"flash": flash,
+            "launches": {k: int(v) for k, v in
+                         pre["launches_per_call"].items()}}
 
 
 KERNEL_META = {
@@ -2925,6 +3218,7 @@ def main() -> int:
         tr = phase_train(torch)
         lmp = phase_lm(torch)
         moe = phase_moe(torch)
+        rgr = phase_recurrent(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2938,6 +3232,7 @@ def main() -> int:
     by_path["lm_prefill"] = lmp["launches"]
     by_path["moe_prefill"] = moe["launches"]
     by_path["mixtral_prefill"] = moe["mixtral_launches"]
+    by_path["recurrentgemma_prefill"] = rgr["launches"]
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         rec = kern[name]
@@ -2985,6 +3280,16 @@ def main() -> int:
                        "lm row's first shape), ['mixtral_prefill'] one of "
                        "Mixtral cut to 4 layers",
                 **{k: moe["flash"][k] for k in (
+                    "call", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err")}}
+            # and at RecurrentGemma-9b's prefill shape (head dim 256)
+            rows[-1]["recurrent"] = {
+                "per": "one call; launches_by_path['recurrentgemma_"
+                       "prefill'] counts one recurrentgemma-9b prefill at "
+                       "2 x 4,096 (its calls: B 2, 16 query heads over one "
+                       "KV head)",
+                "library": rgr["flash"]["library"],
+                **{k: rgr["flash"][k] for k in (
                     "call", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "max_abs_err")}}
         if name in NO_LIBRARY:

@@ -1,9 +1,10 @@
 """Architecture registry over the configs ported so far.
 
-The decoder configs whose layers are only ``global``/``local`` attention
-plus a gated MLP or a mixture of experts, and BraggNN.  The reference's
-other architectures (RG-LRU and xLSTM, the encoder-decoder, the VLM) come
-with their families: asking for one raises a ``KeyError`` that says so.
+The decoder configs whose layers are ``global``/``local`` attention or the
+RG-LRU block (RecurrentGemma), each with a gated MLP or a mixture of
+experts, and BraggNN.  The reference's other architectures (xLSTM, the
+encoder-decoder, the VLM) come with their families: asking for one raises
+a ``KeyError`` that says so.
 The dry-run's ``input_specs``/``input_axes`` come with the dry-run.
 """
 
@@ -11,11 +12,12 @@ from __future__ import annotations
 
 from repro_torch.configs import (braggnn, gemma2_27b, mixtral_8x7b,
                                  qwen2_7b, qwen2_moe_a27b, qwen25_3b,
-                                 stablelm_3b)
+                                 recurrentgemma_9b, stablelm_3b)
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, \
     supports_shape
 
-_MODULES = {
+_MODULES = {                                # in the reference's order
+    "recurrentgemma-9b": recurrentgemma_9b,
     "gemma2-27b": gemma2_27b,
     "qwen2-7b": qwen2_7b,
     "stablelm-3b": stablelm_3b,
@@ -27,8 +29,7 @@ _MODULES = {
 ARCH_IDS = tuple(_MODULES)
 
 #: the reference's architectures whose families are not ported yet
-NOT_PORTED = ("recurrentgemma-9b", "whisper-tiny", "xlstm-1.3b",
-              "qwen2-vl-2b")
+NOT_PORTED = ("whisper-tiny", "xlstm-1.3b", "qwen2-vl-2b")
 
 
 def _module(arch: str):

@@ -6,6 +6,8 @@
         --no-tiny --requests 8            # the published width and depth
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen2-moe-a2.7b --no-tiny  # the MoE family at full width
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --no-tiny  # RG-LRU + local attention
     ... --device cpu                      # on the CPU
 
 Weights are drawn from a seeded generator on the device they serve from

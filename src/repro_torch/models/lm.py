@@ -39,9 +39,10 @@ def serve_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache: dict,
 
 
 def model_flops_per_token(cfg: ModelConfig) -> float:
-    """MODEL_FLOPS = 6·N (dense) or 6·N_active (MoE) per token
-    (§Roofline): an MoE counts its non-expert parameters fully and each
-    routed expert's at ``experts_per_token`` of the padded experts."""
+    """MODEL_FLOPS = 6·N (dense, and the RG-LRU hybrid) or 6·N_active
+    (MoE) per token (§Roofline): an MoE counts its non-expert parameters
+    fully and each routed expert's at ``experts_per_token`` of the padded
+    experts."""
     specs = transformer.model_specs(cfg)
     if cfg.n_experts == 0:
         return 6.0 * module_lib.param_count(specs)

@@ -1,19 +1,21 @@
 """Decoder assembly: blocks, prefill forward, cached decode step.
 
 The reference's ``repro.nn.transformer`` in torch, for the layer kinds
-``global`` and ``local`` (attention plus a gated MLP or a mixture of
-experts, :mod:`repro_torch.nn.moe`).  Layers are grouped
+``global`` and ``local`` (attention) and ``rglru`` (the RG-LRU block,
+:mod:`repro_torch.nn.rglru`), each followed by a gated MLP or a mixture
+of experts (:mod:`repro_torch.nn.moe`).  Layers are grouped
 into *superblocks* of ``len(cfg.attn_pattern)`` layers whose parameters are
 stacked (``blocks/<i>``, leading dim = superblock), with remainder layers
 (n_layers mod period) in ``extra/<j>``: the reference's tree, so its
 parameters and checkpoints carry straight over.  Where the reference scans
 the stack with ``lax.scan``, the port loops over the stacked index in
-Python.  KV caches mirror the parameter layout, and the decode step
-writes each layer's slice of the stacked cache in place.
+Python.  Caches (KV, and the RG-LRU's ``h`` and conv state) mirror the
+parameter layout, and the decode step writes each layer's slice of the
+stacked cache in place.
 
-Recurrent kinds (RG-LRU, xLSTM), patches (VLM), learned positions (the
-encoder-decoder) and bf16 cross-device sums are not ported yet: a config
-that asks for one raises ``NotImplementedError``.
+The xLSTM kinds (``mlstm``/``slstm``), patches (VLM), learned positions
+(the encoder-decoder) and bf16 cross-device sums are not ported yet: a
+config that asks for one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import attention, layers, module
 from repro_torch.nn import moe as moe_lib
+from repro_torch.nn import rglru
 from repro_torch.nn.module import map_tree
 
 Params = Any
@@ -32,13 +35,15 @@ Params = Any
 #: what the port does not run yet, and where it comes (ROADMAP.md queue 1,
 #: item 8)
 _LATER = "ROADMAP.md queue 1 item 8"
+#: the layer kinds the port runs
+_KINDS = ("global", "local", "rglru")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config that needs a part of the
     LM substrate the port has not ported yet."""
-    later = [f"layer kind {k!r} (RG-LRU/xLSTM)" for k in dict.fromkeys(
-        cfg.attn_pattern) if k not in ("global", "local")]
+    later = [f"layer kind {k!r} (xLSTM)" for k in dict.fromkeys(
+        cfg.attn_pattern) if k not in _KINDS]
     if cfg.n_patches:
         later.append("patches (qwen2-vl)")
     if cfg.learned_positions or cfg.is_encoder_decoder:
@@ -74,6 +79,10 @@ def mixer_specs(cfg: ModelConfig, kind: str) -> dict:
         return attention.attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                     cfg.resolved_head_dim,
                                     qkv_bias=cfg.qkv_bias)
+    if kind == "rglru":
+        return rglru.rglru_block_specs(cfg.d_model,
+                                       cfg.lru_width or cfg.d_model,
+                                       cfg.n_heads, cfg.conv_width)
     raise NotImplementedError(f"layer kind {kind!r} not ported yet "
                               f"({_LATER})")
 
@@ -108,7 +117,7 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     layer's load-balancing loss is dropped on the serving path (the
     training loss comes with the LM's training, ROADMAP.md queue 1 item
     8)."""
-    if kind not in ("global", "local"):
+    if kind not in _KINDS:
         raise NotImplementedError(f"layer kind {kind!r} not ported yet "
                                   f"({_LATER})")
     window = cfg.window if kind == "local" else None
@@ -117,7 +126,10 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                    mrope_sections=cfg.mrope_sections or None,
                    quant=cfg.quant_format, n_kv_heads=cfg.n_kv_heads)
     h = _apply_norm(cfg, p["ln1"], x)
-    if cache is None:
+    if kind == "rglru":
+        y, cache = rglru.rglru_block(p["mixer"], h, n_heads=cfg.n_heads,
+                                     cache=cache, quant=cfg.quant_format)
+    elif cache is None:
         y = attention.self_attention(p["mixer"], h, positions, causal=True,
                                      window=window, **attn_kw)
     else:
@@ -146,7 +158,12 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
 # -- cache construction ------------------------------------------------------
 
 def _kind_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     device) -> dict:
+                     device, conv_dtype: torch.dtype = torch.bfloat16
+                     ) -> dict:
+    if kind == "rglru":
+        return rglru.init_rglru_cache(batch, cfg.lru_width or cfg.d_model,
+                                      cfg.conv_width, dtype=conv_dtype,
+                                      device=device)
     return attention.init_kv_cache(
         batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
         window=cfg.window if kind == "local" else None, device=device)
@@ -156,7 +173,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
     """The model's decode cache on ``device`` (default: the CPU), laid out
     as the reference's: ``blocks/<i>`` stacked over superblocks,
-    ``extra/<j>`` per remainder layer."""
+    ``extra/<j>`` per remainder layer.  A remainder RG-LRU layer's conv
+    state is in the activation dtype, a stacked one's in bf16 (ROADMAP.md
+    R8): the dtypes the reference's cache has after its first step."""
     _check_supported(cfg)
     out: dict = {"blocks": {}, "extra": {}}
     for i, kind in enumerate(cfg.attn_pattern):
@@ -165,7 +184,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             lambda a: a.expand(cfg.n_superblocks, *a.shape).clone(), per)
     for j in range(cfg.n_remainder_layers):
         out["extra"][str(j)] = _kind_cache_init(
-            cfg, cfg.attn_pattern[j], batch, max_len, device)
+            cfg, cfg.attn_pattern[j], batch, max_len, device,
+            conv_dtype=_dtype(cfg))
     return out
 
 

@@ -10,7 +10,7 @@ requests.
 Per-lane state lives in the batched KV cache, on the parameters' device,
 allocated once; a lane's reset writes its init values (zeros, and -1 for a
 rolling window's key positions) into that lane's slice in place, outside
-the step.  Queue and request bookkeeping and the latency percentiles are
+the step: the KV caches and the RG-LRU's recurrent state alike.  Queue and request bookkeeping and the latency percentiles are
 the shared :mod:`repro_torch.serving.common` machinery.
 
 The decode step is ``models.lm.serve_step`` behind a
@@ -106,13 +106,16 @@ class ServingEngine:
     def _reset_lane_cache(self, lane_idx: int) -> None:
         """Write one lane's init values into its cache slice.
 
-        For the attention caches ported so far a previous request's
-        entries are masked anyway (a full cache's slots past ``pos``, and a
-        rolling window's, whose stored position is at least its slot, are
-        never in the past of a new request's ``pos``); recurrent state,
-        which is not position-masked, will need the reset.  Stacked leaves
-        carry the lane on axis 1 (after the layer-stack dim), remainder
-        leaves on axis 0.
+        The attention caches would not need it: a previous request's
+        entries are masked by position (a full cache's slots past ``pos``,
+        and a rolling window's, whose stored position is at least its slot,
+        are never in the past of a new request's ``pos``).  The RG-LRU's
+        state is not: its ``h`` and conv state carry the last request's
+        sequence into the next unless they are zeroed here, so this reset
+        is what keeps a refilled lane's tokens those of its request alone.
+        It runs eagerly, outside the captured step, on the cache the step
+        holds.  Stacked leaves carry the lane on axis 1 (after the
+        layer-stack dim), remainder leaves on axis 0.
         """
         for axis, part in ((1, "blocks"), (0, "extra")):
             for full, one in zip(tree_leaves(self.cache[part]),

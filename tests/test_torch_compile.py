@@ -179,6 +179,8 @@ def test_runtime_imports_neither_jax_nor_repro():
             "import repro_torch.launch.serve, repro_torch.nn.moe\n"
             "import repro_torch.configs.qwen2_moe_a27b\n"
             "import repro_torch.configs.mixtral_8x7b\n"
+            "import repro_torch.nn.rglru\n"
+            "import repro_torch.configs.recurrentgemma_9b\n"
             "import repro_torch.examples.serve_moe\n"
             "import repro_torch.examples.quickstart\n"
             "import repro_torch.examples.braggnn_serve\n"

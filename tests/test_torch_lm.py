@@ -133,9 +133,9 @@ def test_configs_equal_reference(ref, arch):
 def test_registry_names_what_is_not_ported(ref):
     assert set(registry.ARCH_IDS) | set(registry.NOT_PORTED) == \
         set(ref.registry.ARCH_IDS)
-    assert {"qwen2-moe-a2.7b", "mixtral-8x7b"} <= set(registry.ARCH_IDS)
-    assert not {"qwen2-moe-a2.7b", "mixtral-8x7b"} & set(
-        registry.NOT_PORTED)
+    ported = {"qwen2-moe-a2.7b", "mixtral-8x7b", "recurrentgemma-9b"}
+    assert ported <= set(registry.ARCH_IDS)
+    assert not ported & set(registry.NOT_PORTED)
     for arch in registry.NOT_PORTED:
         with pytest.raises(KeyError, match="item 8"):
             registry.get_config(arch)
@@ -501,8 +501,6 @@ def test_decode_matches_forward(name):
 
 
 @pytest.mark.parametrize("change,what", [
-    (dict(attn_pattern=("rglru", "rglru", "local"), lru_width=32),
-     "rglru"),
     (dict(attn_pattern=("mlstm", "slstm"), d_ff=0), "mlstm"),
     (dict(n_patches=4), "patches"),
     (dict(learned_positions=True, max_position=64), "learned positions"),

@@ -172,6 +172,108 @@ def test_combine_adds_in_ascending_expert_order():
 
 
 # ---------------------------------------------------------------------------
+# token chunks: one pass over every chunk
+# ---------------------------------------------------------------------------
+
+#: 64 tokens of width D routed over 4 experts, top 2, capacity factor 1
+N_TOK, E4, CHUNK_CF = 64, 4, 1.0
+
+
+def _chunk_case():
+    """Router weights whose logits are 10·x[:4], and tokens x = e_i +
+    0.9·e_j, which pick experts {i, j}: the first 8 tokens all pick {0, 1},
+    so an 8-token chunk of them drops half its assignments; the next 8 pick
+    {0, 1} and {2, 3} in turn, so such a chunk fills every expert exactly
+    to its capacity and drops none; the rest are drawn from a seed."""
+    w = np.zeros((D, E4), np.float32)
+    w[:E4, :E4] = 10 * np.eye(E4)
+    rng = np.random.default_rng(7)
+    pairs = [(0, 1)] * 8 + [(0, 1), (2, 3)] * 4 + [
+        tuple(rng.choice(E4, 2, replace=False)) for _ in range(N_TOK - 16)]
+    x = rng.normal(0, 0.01, (N_TOK, D)).astype(np.float32)
+    for t, (i, j) in enumerate(pairs):
+        x[t, i] += 1.0
+        x[t, j] += 0.9
+    return torch.from_numpy(w), torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("chunks", [1, 4, 8])
+def test_routing_of_all_chunks_equals_chunk_by_chunk(chunks):
+    """``route`` over (T, N_c, d) keeps the same assignments, with the same
+    gates, tokens and slots within a chunk, as ``route`` on each chunk
+    alone, exactly."""
+    w, x = _chunk_case()
+    kw = dict(n_experts=E4, top_k=2, capacity_factor=CHUNK_CF)
+    nc = N_TOK // chunks
+    r = moe.route(x.reshape(chunks, nc, D), w, **kw)
+    assert r.chunks == chunks and r.counts.shape == (chunks, E4)
+    nk = nc * 2
+    drops = []
+    for c in range(chunks):
+        one = moe.route(x[c * nc:(c + 1) * nc], w, **kw)
+        at = slice(c * nk, (c + 1) * nk)
+        assert r.capacity == one.capacity
+        assert torch.equal(r.probs[c], one.probs)
+        assert torch.equal(r.counts[c], one.counts)
+        assert torch.equal(r.order[at] - c * nk, one.order)
+        assert torch.equal(r.token[at] - c * nc, one.token)
+        assert torch.equal(r.gate[at], one.gate)
+        assert torch.equal(r.keep[at], one.keep)
+        expert, row = r.slot[at] // (chunks * r.capacity), r.slot[at] % (
+            chunks * r.capacity)
+        assert bool((row // r.capacity == c).all())
+        assert torch.equal(expert * r.capacity + row % r.capacity, one.slot)
+        drops.append(float(one.keep.sum()) < nk)
+    if chunks == 8:                      # the first chunk drops, the next not
+        assert drops[:2] == [True, False]
+
+
+@pytest.mark.parametrize("chunks", [4, 8])
+def test_moe_over_chunks_equals_its_chunks_one_by_one(chunks):
+    """``moe(x, token_chunks=T)`` is the concatenation of ``moe`` on each
+    chunk alone, and its ``aux`` their mean, with shared experts and
+    padding experts and some chunks dropping assignments."""
+    specs, kw, _ = _case("all at once")
+    p = module.init_tree(specs, torch.Generator().manual_seed(2))
+    kw = dict(kw, capacity_factor=0.75)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (B, S, D)).astype(np.float32))
+    y, aux = moe.moe(p, x, **dict(kw, token_chunks=chunks))
+    parts = [moe.moe(p, xc.reshape(1, -1, D), **dict(kw, token_chunks=1))
+             for xc in x.reshape(-1, D).chunk(chunks)]
+    want = torch.cat([o[0].reshape(-1, D) for o in parts]).reshape(B, S, D)
+    np.testing.assert_allclose(y.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-7)
+    want_aux = torch.mean(torch.stack([o[1] for o in parts]))
+    assert abs(float(aux) - float(want_aux)) <= 1e-6 * abs(float(want_aux))
+
+
+def test_aten_ops_of_one_call_do_not_grow_with_chunks():
+    """One pass over every chunk: the ops one call dispatches are the same
+    in number at 4 chunks and at 32."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    specs, kw, _ = _case("all at once")
+    p = module.init_tree(specs, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 32, D)).astype(np.float32))
+    counts = []
+    for chunks in (4, 32):
+        Count.n = 0
+        with Count():
+            moe.moe(p, x, **dict(kw, token_chunks=chunks))
+        counts.append(Count.n)
+    assert counts[0] == counts[1] and counts[0] < 200
+
+
+# ---------------------------------------------------------------------------
 # the models and the engine
 # ---------------------------------------------------------------------------
 
