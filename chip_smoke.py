@@ -135,6 +135,33 @@ Phases, each printing one JSON line (``"phase": ...``):
              and held equal; the card against the CPU at one superblock
              (2%); ``python -m repro_torch.launch.serve --arch
              recurrentgemma-9b --no-tiny --requests 8`` in a subprocess.
+18. xlstm  — xLSTM at xlstm-1.3b's published width and depth
+             (3,503,016,272 parameters drawn on the card, nothing cut:
+             42 mLSTM and 6 sLSTM layers), after the previous weights are
+             freed: the sLSTM kernel (``slstm_scan``, one launch per layer
+             call) against its plain step loop at the prefill's call (B 4,
+             S 1,024, H 4, W 512) and the tick's (B 8, S 1), hs and the
+             state, beside the bound; ``lm.prefill`` at 4 x 1,024 timed,
+             profiled and counted (6 sLSTM kernel launches a call,
+             nothing else of the port's); one 8-lane decode tick replayed
+             against eager (tokens, logits, every cache leaf; 6 kernel
+             launches a replay); ``forward`` against 64 cached decode
+             steps (1%); the engine over the lm phase's 32 requests, with
+             requests 0, 8, 16 and 24 served again alone and held equal;
+             the card against the CPU at one superblock (8 layers, 2%);
+             ``python -m repro_torch.launch.serve --arch xlstm-1.3b
+             --no-tiny --requests 8`` in a subprocess.
+19. encdec — the encoder-decoder at whisper-tiny's published width and
+             depth (38,599,680 parameters, nothing cut): K5 at the
+             encoder's shape (B*H 48, S 1,500, D 64, non-causal) against
+             its plain version, beside SDPA and the bound; ``encode`` over
+             8 x 1,500 seeded frames timed, profiled and counted (4 K5
+             launches a call); ``decode_forward`` (4 K5 launches) against
+             64 steps replayed from ``step_runner``'s captured graph (1%),
+             each replay against the eager step value for value (tokens,
+             logits, the KV cache); the card against the CPU at full width
+             (2%); ``generate``: 64 greedy tokens for 8 sequences from a
+             4-token prompt, its steps timed.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 the last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -2303,6 +2330,17 @@ def attention_layers(cfg) -> int:
     return sum(k in ("global", "local") for k in kinds)
 
 
+def forward_launches(cfg) -> dict:
+    """The port's kernel launches of one ``forward`` (a prefill) of
+    ``cfg``: K5 once per attending layer, the sLSTM time loop once per
+    ``slstm`` layer, nothing else (kernels launched 0 times left out)."""
+    period = cfg.attn_pattern
+    n_slstm = sum(period[i % len(period)] == "slstm"
+                  for i in range(cfg.n_layers))
+    return {k: n for k, n in (("flash_attention", attention_layers(cfg)),
+                              ("slstm_scan", n_slstm)) if n}
+
+
 def causal_pairs(s: int, window: int = 0) -> int:
     """(query, key) pairs a causal (optionally windowed) head of S rows
     scores: the work K5's data needs."""
@@ -2337,6 +2375,13 @@ def lm_flash(torch) -> dict:
             lambda: flash_attention_ref(q, k, v, **kw), library,
             4 * 4 * bh * s * d, 4 * bh * pairs * d,
             rtol=FLASH_RTOL, atol=FLASH_ATOL, plain_runs=20))
+        if library is None:
+            # no PyTorch call computes the soft-cap: SDPA with the window
+            # as a boolean mask and no cap, a yardstick of the same size
+            mask = windowed_mask(torch, s, kw["window"])
+            calls[-1]["sdpa_window_mask_no_cap_ms"] = device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask), label=f"{call} sdpa, no cap")
         shapes[call] = launch_shape(bh, s, s, d)
         del q, k, v
     torch.cuda.empty_cache()
@@ -2619,8 +2664,9 @@ def decode_tick(torch, cfg, params, lanes: int, max_len: int, gen,
     check(differ == {"tokens": 0, "logits": 0} and cache_differ == 0,
           f"{cfg.name} decode tick: a replay differs from the eager step "
           f"in {differ} values and the caches in {cache_differ}")
-    graphs = len(run.replay_launches())
-    check(graphs == 1, f"{cfg.name} decode tick: {graphs} graphs")
+    graphs = run.replay_launches()
+    check(len(graphs) == 1, f"{cfg.name} decode tick: {len(graphs)} graphs")
+    per_replay = next(iter(graphs.values()))
     profiles = {"replayed": device_profile(torch, lambda: run(feeds),
                                            reps=3),
                 "eager": device_profile(torch, lambda: eager(feeds),
@@ -2634,7 +2680,8 @@ def decode_tick(torch, cfg, params, lanes: int, max_len: int, gen,
     del caches
     torch.cuda.empty_cache()
     return {"lanes": lanes, "positions": feeds["pos"].tolist(),
-            "replays_checked": 2, "values_differing": differ,
+            "replays_checked": 2, "port_launches_per_replay": per_replay,
+            "values_differing": differ,
             "cache_values_differing": cache_differ,
             "routed_kept_share": share,
             **{f"{label}_{k}": v for label, prof in profiles.items()
@@ -2657,10 +2704,11 @@ def lm_card_vs_cpu(torch, cfg) -> dict:
     registry.reset_launch_counts()
     card = transformer.forward(cfg, module.params_from_numpy(
         weights, device="cuda"), toks.cuda()).cpu()
-    launches = registry.launch_counts()["flash_attention"]
-    want = attention_layers(cfg)
-    check(launches == want, f"card forward launched K5 {launches} times, "
-                            f"want {want}")
+    launched = {k: v for k, v in registry.launch_counts().items() if v}
+    want = forward_launches(cfg)
+    check(launched == want, f"card forward launched {launched}, want "
+                            f"{want}")
+    launches = launched.get("flash_attention", 0)
     t0 = time.perf_counter()
     cpu = transformer.forward(cfg, module.params_from_numpy(weights), toks)
     cpu_s = time.perf_counter() - t0
@@ -2673,7 +2721,8 @@ def lm_card_vs_cpu(torch, cfg) -> dict:
             "max_abs_err": err, "err_over_scale": err / scale,
             "greedy_agree_share": float(
                 (card.argmax(-1) == cpu.argmax(-1)).float().mean()),
-            "flash_attention_launches": launches, "cpu_forward_s": cpu_s}
+            "flash_attention_launches": launches,
+            "port_kernel_launches": launched, "cpu_forward_s": cpu_s}
 
 
 def run_module(argv: list) -> dict:
@@ -2745,7 +2794,8 @@ class KeptShare:
 def prefill_run(torch, cfg, params, b: int, s: int, runs: int, seed: int,
                 kept=None) -> dict:
     """``lm.prefill`` at b x s on seeded tokens: p50 of ``runs`` calls, K5
-    launched once per attending layer and nothing else of the port's,
+    launched once per attending layer, the sLSTM kernel once per sLSTM
+    layer and nothing else of the port's (:func:`forward_launches`),
     finite logits, one call profiled by kernel name; ``kept`` (a
     :class:`KeptShare`) over the first, untimed call."""
     import contextlib
@@ -2768,17 +2818,18 @@ def prefill_run(torch, cfg, params, b: int, s: int, runs: int, seed: int,
         times.append((time.perf_counter() - t0) * 1e3)
     per_call = {k: v / runs for k, v in registry.launch_counts().items()
                 if v}
-    want = attention_layers(cfg)
-    check(per_call == {"flash_attention": want},
-          f"{cfg.name} prefill launched {per_call} per call, want "
-          f"flash_attention {want} and nothing else")
+    want = forward_launches(cfg)
+    check(per_call == want,
+          f"{cfg.name} prefill launched {per_call} per call, want {want} "
+          f"and nothing else")
     check(tuple(logits.shape) == (b, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"{cfg.name} prefill logits {tuple(logits.shape)} not finite")
     prof = device_profile(torch, lambda: lm.prefill(cfg, params, toks),
                           reps=1)
-    k5_us = sum(k["device_us_per_batch"] for k in prof["kernels"]
-                if "flash_attention" in k["name"])
+    port_us = {name: sum(k["device_us_per_batch"] for k in prof["kernels"]
+                         if name in k["name"]) for name in want}
+    k5_us = port_us.get("flash_attention", 0.0)
     p50 = statistics.median(times)
     return {"arch": cfg.name, "layers": cfg.n_layers, "batch": b, "seq": s,
             "runs": runs, "ms_p50": p50, "ms": times,
@@ -2788,6 +2839,7 @@ def prefill_run(torch, cfg, params, b: int, s: int, runs: int, seed: int,
             "flash_attention_share_of_busy":
                 k5_us / prof["device_busy_us_per_batch"]
                 if prof["device_time_seen"] else None,
+            "port_kernel_us_per_call": port_us,
             "peak_device_bytes": torch.cuda.max_memory_allocated(),
             **{k: v for k, v in prof.items() if k != "kernels"},
             "kernels_top": prof["kernels"][:14]}
@@ -3163,6 +3215,386 @@ def phase_recurrent(torch) -> dict:
                          pre["launches_per_call"].items()}}
 
 
+# ---------------------------------------------------------------------------
+# xLSTM: xlstm-1.3b at full width and depth
+# ---------------------------------------------------------------------------
+
+#: xlstm-1.3b at its published width and depth, nothing cut (48 layers in
+#: (mLSTM x 7, sLSTM) x 6, d_model 2,048, 4 heads, mLSTM head dim 1,024,
+#: sLSTM head width 512, chunk 256, vocab 50,304, bf16 activations)
+XL_ARCH, XL_PARAMS = "xlstm-1.3b", 3_503_016_272
+#: the sLSTM kernel's calls on the main path: the prefill's (B 4, S 1,024)
+#: and the engine tick's (B 8, S 1)
+XL_SLSTM_CASES = ((LM_PREFILL_B, LM_PREFILL_S), (LM_LANES, 1))
+#: the kernel against its plain version: the same fp32 operations, the
+#: dot products summed in another order, carried through the recurrence
+SLSTM_RTOL, SLSTM_ATOL = 1e-4, 1e-5
+#: prefill timed calls; the requests held alone after the packed run
+XL_PREFILL_RUNS, XL_ALONE = 5, (0, 8, 16, 24)
+#: the card against the CPU: one superblock (7 mLSTM layers, 1 sLSTM)
+XL_CPU_LAYERS = 8
+
+
+def slstm_kernel(torch, cfg) -> dict:
+    """The sLSTM kernel against its plain version (the step loop) at the
+    main path's calls, hs and the state written back; its device time
+    beside the plain version's and the bound (the products h @ R_g: 8 W^2
+    flops per (batch row, head, step); each input read and each output
+    written once).  The prefill's plain version launches about 20
+    kernels a step, more than the launch queue holds: it is timed call by
+    call (``_blocking_ms``)."""
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+    from repro_torch.kernels.slstm_scan.slstm_scan import slstm_scan
+    nh, w = cfg.n_heads, cfg.d_model // cfg.n_heads
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    calls = []
+    for b, s in XL_SLSTM_CASES:
+        x_pre = [torch.randn(b, s, nh, w, generator=gen, device="cuda")
+                 for _ in range(4)]
+        rec = [0.02 * torch.randn(nh, w, w, generator=gen, device="cuda")
+               for _ in range(4)]       # the spec's scale
+        if s > 1:                       # a prefill starts from the init state
+            state = [torch.zeros(b, nh, w, device="cuda") for _ in range(3)]
+            state.append(torch.full((b, nh, w), -1e30, device="cuda"))
+        else:                           # a tick, mid-sequence
+            state = [torch.randn(b, nh, w, generator=gen, device="cuda")
+                     for _ in range(4)]
+            state[2] = state[2].abs() + 1.0
+        mine, theirs = [t.clone() for t in state], [t.clone() for t in state]
+        got = slstm_scan(x_pre, rec, *mine)
+        want = slstm_scan_ref(x_pre, rec, *theirs)
+        torch.cuda.synchronize()
+        pairs = [("hs", got, want)] + list(zip("hcnm", mine, theirs))
+        err = max(float((a - b_).abs().max()) for _, a, b_ in pairs)
+        bad = [n for n, a, b_ in pairs
+               if not torch.allclose(a, b_, rtol=SLSTM_RTOL, atol=SLSTM_ATOL)]
+        call = f"(B {b}, S {s}, H {nh}, W {w})"
+        check(not bad, f"slstm_scan {call}: {bad} differ from the plain "
+                       f"version (max |diff| {err})")
+        nbytes = 4 * (4 * b * s * nh * w + 4 * nh * w * w + 8 * b * nh * w
+                      + b * s * nh * w)
+        flops = 8 * w * w * b * nh * s
+        bound_ms, bound_by = bound(nbytes, flops)
+        work = [t.clone() for t in state]
+        kern = lambda: slstm_scan(x_pre, rec, *work)  # noqa: E731
+        plain = lambda: slstm_scan_ref(x_pre, rec, *work)  # noqa: E731
+        label = f"slstm_scan {call}"
+        calls.append({
+            "call": call, "max_abs_err": err,
+            "tolerance": {"rtol": SLSTM_RTOL, "atol": SLSTM_ATOL},
+            "ms": device_ms(torch, kern, 20 if s > 1 else TIMED_RUNS,
+                            label=label),
+            "plain_ms": _blocking_ms(torch, plain, 3, f"{label} plain")
+            if s > 1 else device_ms(torch, plain, label=f"{label} plain"),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "flops": flops})
+        calls[-1]["us_per_step"] = calls[-1]["ms"] * 1e3 / s
+        del x_pre, rec, state, mine, theirs, work, got, want
+    torch.cuda.empty_cache()
+    return {"calls": calls}
+
+
+def phase_xlstm(torch) -> dict:
+    """xLSTM's serving path at xlstm-1.3b's published width and depth,
+    after the previous phase's weights are freed: the sLSTM kernel
+    against its plain version at the prefill's and the tick's calls; the
+    model drawn on the card; ``lm.prefill`` at 4 x 1,024 (6 sLSTM kernel
+    launches a call, nothing else of the port's); one 8-lane decode tick
+    replayed against eager (every cache leaf: the mLSTM's ``C``, ``n``,
+    ``m``, ``conv``, the sLSTM's ``h``, ``c``, ``n``, ``m``, ``conv``);
+    ``forward`` against 64 cached decode steps; the engine over the lm
+    phase's 32 requests with XL_ALONE served again alone, equal; the card
+    against the CPU at one superblock; the launcher's CLI at
+    ``--no-tiny``."""
+    from repro_torch.configs import registry as configs
+    from repro_torch.kernels import registry
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    emit({"phase": "xlstm", "step": "card",
+          "device_bytes_before": torch.cuda.memory_allocated()})
+    cfg = configs.get_config(XL_ARCH)
+    kern = slstm_kernel(torch, cfg)
+    emit({"phase": "xlstm", "step": "slstm_scan", **kern,
+          "timing": {k: v for k, v in TIMING_NOTES.items()
+                     if k.startswith("slstm_scan")}})
+
+    params, model = draw(torch, cfg, XL_ARCH, XL_PARAMS)
+    launches = forward_launches(cfg)
+    emit({"phase": "xlstm", "step": "model", **model, "reduced": None,
+          "mlstm_layers": cfg.n_layers - launches["slstm_scan"],
+          "slstm_layers": launches["slstm_scan"]})
+    pre = prefill_run(torch, cfg, params, LM_PREFILL_B, LM_PREFILL_S,
+                      XL_PREFILL_RUNS, 51)
+    pre["slstm_scan_share_of_busy"] = (
+        pre["port_kernel_us_per_call"]["slstm_scan"]
+        / pre["device_busy_us_per_batch"] if pre["device_time_seen"]
+        else None)
+    emit({"phase": "xlstm", "step": "prefill", **pre})
+
+    gen = torch.Generator(device="cuda").manual_seed(52)
+    tick = decode_tick(torch, cfg, params, LM_LANES, LM_MAX_LEN, gen)
+    emit({"phase": "xlstm", "step": "decode tick", **tick})
+    check(tick["port_launches_per_replay"] == {"slstm_scan": 6},
+          f"{XL_ARCH} tick: a replay launched "
+          f"{tick['port_launches_per_replay']}, want slstm_scan 6")
+
+    fvd = lm_forward_vs_decode(torch, cfg, params, "cuda", LM_DECODE_B,
+                               LM_DECODE_S)
+    emit({"phase": "xlstm", "step": "forward vs decode", **fvd,
+          "tolerance_over_scale": LM_DECODE_TOL})
+    check(fvd["err_over_scale"] <= LM_DECODE_TOL,
+          f"{XL_ARCH} forward against decode: {fvd['err_over_scale']:.4g} "
+          f"of the logit scale, over {LM_DECODE_TOL}")
+
+    registry.reset_launch_counts()
+    eng = lm_engine_run(torch, cfg, params, lanes=LM_LANES,
+                        max_len=LM_MAX_LEN, requests=LM_REQUESTS,
+                        prompt=LM_PROMPT, new=LM_NEW, alone=XL_ALONE)
+    eng["port_kernel_launches"] = {
+        k: v for k, v in registry.launch_counts().items() if v}
+    emit({"phase": "xlstm", "step": "engine", **eng})
+    del params
+    free_card(torch)
+
+    cpu_check = lm_card_vs_cpu(torch, cfg.replace(n_layers=XL_CPU_LAYERS))
+    emit({"phase": "xlstm", "step": "card vs cpu", **cpu_check,
+          "tolerance_over_scale": LM_BF16_TOL})
+    free_card(torch)
+    check(torch.cuda.memory_allocated() < 2 ** 30,
+          f"{torch.cuda.memory_allocated()} bytes still held on the card "
+          f"before the launcher's subprocess")
+    cli = run_module(["repro_torch.launch.serve", "--arch", XL_ARCH,
+                      "--no-tiny", "--requests", "8"])
+    emit({"phase": "xlstm", "step": "cli", **cli})
+    emit({"phase": "xlstm", "step": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return {"slstm": kern,
+            "launches": {k: int(v) for k, v in
+                         pre["launches_per_call"].items()},
+            "tick_launches": tick["port_launches_per_replay"]}
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder: whisper-tiny at full width and depth
+# ---------------------------------------------------------------------------
+
+#: whisper-tiny at its published width and depth, nothing cut (4 encoder
+#: and 4 decoder layers, d_model 384, 6 heads of 64, d_ff 1,536, 1,500
+#: frames, vocab 51,872, bf16 activations)
+ED_ARCH, ED_PARAMS = "whisper-tiny", 38_599_680
+#: sequences, the prompt and the greedy tokens generated after it
+ED_B, ED_PROMPT, ED_NEW = 8, 4, 64
+#: K5 at the encoder's self-attention: B*H 48, S 1,500, D 64, non-causal
+#: (1,500 is a multiple of no tile: the ragged edge)
+ED_FLASH = (ED_B * 6, 1500, 64, {"causal": False})
+#: timed encoder calls
+ED_ENCODE_RUNS = 10
+
+
+def phase_encdec(torch) -> dict:
+    """The encoder-decoder at whisper-tiny's published width and depth: K5
+    at the encoder's shape against its plain version, beside SDPA and the
+    bound; the model drawn on the card; ``encode`` over 8 x 1,500 seeded
+    frames timed, profiled and counted (4 K5 launches a call);
+    ``decode_forward`` (4 K5 launches) against 64 steps replayed from
+    ``step_runner``'s graph, and each replayed step against the eager
+    step value for value (tokens, logits, the KV cache); the card against
+    the CPU at full width; greedy generation of 64 tokens for 8 sequences
+    from a 4-token prompt."""
+    import torch.nn.functional as F
+    from repro_torch.configs import registry as configs
+    from repro_torch.core.graphs import GraphRunner
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, launch_shape)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import encdec
+    from repro_torch.nn import module
+    from repro_torch.nn.module import tree_leaves
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    bh, sq, d, kw = ED_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    q, k, v = (torch.randn(bh, sq, d, generator=gen, device="cuda")
+               for _ in range(3))
+    flash = kernel_call(
+        torch, f"({bh}, {sq}, {d}) causal=False",
+        lambda: flash_attention(q, k, v, **kw),
+        lambda: flash_attention_ref(q, k, v, **kw),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        4 * 4 * bh * sq * d, 4 * bh * sq * sq * d,
+        rtol=FLASH_RTOL, atol=FLASH_ATOL, plain_runs=20, runs=40)
+    flash["launch_shape"] = launch_shape(bh, sq, sq, d)
+    del q, k, v
+    emit({"phase": "encdec", "step": "flash_attention", **flash})
+
+    cfg = configs.get_config(ED_ARCH)
+    specs = encdec.model_specs(cfg)
+    n_params = module.param_count(specs)
+    check(n_params == ED_PARAMS, f"{ED_ARCH}: {n_params} parameters, want "
+                                 f"{ED_PARAMS}")
+    params = module.init_tree(
+        specs, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    emit({"phase": "encdec", "step": "model", "arch": ED_ARCH,
+          "parameters": n_params, "param_bytes": module.param_bytes(specs),
+          "encoder_layers": cfg.n_encoder_layers,
+          "decoder_layers": cfg.n_layers,
+          "activation_dtype": cfg.activation_dtype, "reduced": None})
+
+    # encode: the stubbed frontend's frames, timed, counted, profiled
+    frames = torch.randn(ED_B, cfg.encoder_len, cfg.d_model, generator=gen,
+                         device="cuda")
+    enc = encdec.encode(cfg, params, frames)
+    torch.cuda.synchronize()
+    registry.reset_launch_counts()
+    times = []
+    for _ in range(ED_ENCODE_RUNS):
+        t0 = time.perf_counter()
+        enc = encdec.encode(cfg, params, frames)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    per_call = {k_: n / ED_ENCODE_RUNS
+                for k_, n in registry.launch_counts().items() if n}
+    check(per_call == {"flash_attention": cfg.n_encoder_layers},
+          f"encode launched {per_call} per call, want flash_attention "
+          f"{cfg.n_encoder_layers} and nothing else")
+    check(tuple(enc.shape) == (ED_B, cfg.encoder_len, cfg.d_model)
+          and bool(torch.isfinite(enc).all()), "encode: not finite")
+    prof = device_profile(torch, lambda: encdec.encode(cfg, params, frames),
+                          reps=3)
+    k5_us = sum(k_["device_us_per_batch"] for k_ in prof["kernels"]
+                if "flash_attention" in k_["name"])
+    emit({"phase": "encdec", "step": "encode", "batch": ED_B,
+          "frames": cfg.encoder_len, "ms_p50": statistics.median(times),
+          "ms": times, "launches_per_call": per_call,
+          "flash_attention_us_per_call": k5_us,
+          "flash_attention_share_of_busy":
+              k5_us / prof["device_busy_us_per_batch"]
+              if prof["device_time_seen"] else None,
+          **{k_: v_ for k_, v_ in prof.items() if k_ != "kernels"},
+          "kernels_top": prof["kernels"][:10]})
+
+    # decode_forward (teacher-forced) against replayed steps, and each
+    # replayed step against the eager step on its own copy of the cache
+    s = LM_DECODE_S
+    toks = torch.randint(0, cfg.vocab_size, (ED_B, s), generator=gen,
+                         device="cuda")
+    registry.reset_launch_counts()
+    full = encdec.decode_forward(cfg, params, toks, enc)
+    fwd_launches = registry.launch_counts()["flash_attention"]
+    caches = [encdec.init_cache(cfg, ED_B, s, enc=enc.clone())
+              for _ in range(2)]
+
+    def step_of(cache):
+        def step(f):
+            logits, _ = encdec.decode_step(cfg, params, f["tokens"], cache,
+                                           f["pos"])
+            return {"tokens": torch.argmax(logits, -1).to(torch.int32),
+                    "logits": logits}
+        return step
+
+    run, eager = GraphRunner(step_of(caches[0]), torch.device("cuda")), \
+        step_of(caches[1])
+    differ = {"tokens": 0, "logits": 0}
+    steps = []
+    for t in range(s):
+        feeds = {"tokens": toks[:, t:t + 1],
+                 "pos": torch.full((ED_B,), t, device="cuda")}
+        got, want = run(feeds), eager(feeds)
+        for k_ in differ:
+            differ[k_] += value_diff(torch, got[k_], want[k_])
+        steps.append(got["logits"].clone())
+    cache_differ = sum(value_diff(torch, a, b) for a, b in zip(
+        tree_leaves(caches[0]), tree_leaves(caches[1])))
+    check(differ == {"tokens": 0, "logits": 0} and cache_differ == 0,
+          f"{ED_ARCH} step: a replay differs from the eager step in "
+          f"{differ} values and the caches in {cache_differ}")
+    check(len(run.replay_launches()) == 1, f"{ED_ARCH}: not one graph")
+    dec = torch.stack(steps, 1)
+    scale = float(full.abs().max())
+    fvd = {"batch": ED_B, "seq": s, "logit_scale": scale,
+           "max_abs_err": float((dec - full).abs().max()),
+           "err_over_scale": float((dec - full).abs().max()) / scale,
+           "greedy_agree_share": float(
+               (dec.argmax(-1) == full.argmax(-1)).float().mean()),
+           "flash_attention_launches": fwd_launches,
+           "replays_checked": s - 1, "values_differing": differ,
+           "cache_values_differing": cache_differ,
+           "tolerance_over_scale": LM_DECODE_TOL}
+    emit({"phase": "encdec", "step": "decode_forward vs steps", **fvd})
+    check(fwd_launches == cfg.n_layers,
+          f"decode_forward launched K5 {fwd_launches} times")
+    check(fvd["err_over_scale"] <= LM_DECODE_TOL,
+          f"{ED_ARCH} decode_forward against the steps: "
+          f"{fvd['err_over_scale']:.4g} of the logit scale")
+    run.release()
+    del caches, run, eager, steps, dec, full
+
+    # the card against the CPU at full width, the same numpy weights
+    weights = module.map_tree(lambda a: a.cpu().numpy(), params)
+    f_cpu, t_cpu = frames[:2].cpu(), toks[:2].cpu()
+    card = encdec.decode_forward(cfg, params, toks[:2], encdec.encode(
+        cfg, params, frames[:2])).cpu()
+    p_cpu = module.params_from_numpy(weights)
+    cpu = encdec.decode_forward(cfg, p_cpu, t_cpu,
+                                encdec.encode(cfg, p_cpu, f_cpu))
+    scale = float(cpu.abs().max())
+    err = float((card - cpu).abs().max())
+    emit({"phase": "encdec", "step": "card vs cpu", "batch": 2, "seq": s,
+          "logit_scale": scale, "max_abs_err": err,
+          "err_over_scale": err / scale,
+          "greedy_agree_share": float(
+              (card.argmax(-1) == cpu.argmax(-1)).float().mean()),
+          "tolerance_over_scale": LM_BF16_TOL})
+    check(bool(torch.isfinite(card).all()) and err <= LM_BF16_TOL * scale,
+          f"{ED_ARCH} card against CPU: {err / scale:.4g} of the logit "
+          f"scale, over {LM_BF16_TOL}")
+
+    # greedy generation through the step's runner
+    prompt = torch.randint(1, cfg.vocab_size, (ED_B, ED_PROMPT),
+                           generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = encdec.generate(cfg, params, frames, prompt, ED_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the same decoding step by step, each step timed
+    cache = encdec.init_cache(cfg, ED_B, ED_PROMPT + ED_NEW, enc=enc)
+    step = encdec.step_runner(cfg, params, cache)
+    tok, again, step_ms = prompt[:, :1], [], []
+    for t in range(ED_PROMPT + ED_NEW - 1):
+        t1 = time.perf_counter()
+        nxt = step({"tokens": tok,
+                    "pos": torch.full((ED_B,), t, device="cuda")})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if t + 1 < ED_PROMPT:
+            tok = prompt[:, t + 1:t + 2]
+        else:
+            again.append(nxt.clone())
+            tok = again[-1][:, None].long()
+    step.release()
+    same = bool(torch.equal(torch.stack(again, 1), out))
+    emit({"phase": "encdec", "step": "generate", "batch": ED_B,
+          "prompt": ED_PROMPT, "new_tokens": ED_NEW,
+          "wall_s": wall, "tokens_per_s": ED_B * ED_NEW / wall,
+          "first_step_ms": step_ms[0],
+          "step_ms_p50": statistics.median(step_ms[1:]),
+          "step_ms_max": max(step_ms[1:]),
+          "stepwise_equals_generate": same,
+          "sample": out[0, :16].tolist()})
+    check(tuple(out.shape) == (ED_B, ED_NEW) and same,
+          f"generate: shape {tuple(out.shape)}, step by step equal {same}")
+    del params, enc, frames
+    free_card(torch)
+    emit({"phase": "encdec", "step": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return {"flash": flash,
+            "launches": {k_: int(v) for k_, v in per_call.items()}}
+
+
 KERNEL_META = {
     "conv2d_vmem": ("src/repro_torch/csrc/conv2d_vmem.cu",
                     "src/repro/kernels/conv2d_vmem/conv2d_vmem.py:82"),
@@ -3219,6 +3651,8 @@ def main() -> int:
         lmp = phase_lm(torch)
         moe = phase_moe(torch)
         rgr = phase_recurrent(torch)
+        xl = phase_xlstm(torch)
+        ed = phase_encdec(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3233,6 +3667,9 @@ def main() -> int:
     by_path["moe_prefill"] = moe["launches"]
     by_path["mixtral_prefill"] = moe["mixtral_launches"]
     by_path["recurrentgemma_prefill"] = rgr["launches"]
+    by_path["xlstm_prefill"] = xl["launches"]
+    by_path["xlstm_tick"] = xl["tick_launches"]
+    by_path["whisper_encode"] = ed["launches"]
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         rec = kern[name]
@@ -3271,8 +3708,8 @@ def main() -> int:
                        "one Qwen2.5-3B prefill",
                 "calls": [{k: c[k] for k in (
                     "call", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "max_abs_err")}
-                    for c in lmp["flash"]["calls"]]}
+                    "library_ms", "max_abs_err", "sdpa_window_mask_no_cap_ms")
+                    if k in c} for c in lmp["flash"]["calls"]]}
             # and at Mixtral's prefill shape
             rows[-1]["moe"] = {
                 "per": "one call; launches_by_path['moe_prefill'] counts "
@@ -3292,8 +3729,44 @@ def main() -> int:
                 **{k: rgr["flash"][k] for k in (
                     "call", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "max_abs_err")}}
+            # and at whisper-tiny's encoder (non-causal, S 1,500)
+            rows[-1]["encdec"] = {
+                "per": "one call; launches_by_path['whisper_encode'] counts "
+                       "one encode of 8 x 1,500 frames (its calls: B 8, 6 "
+                       "heads)",
+                **{k: ed["flash"][k] for k in (
+                    "call", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err")}}
         if name in NO_LIBRARY:
             rows[-1]["library_ms_null_because"] = NO_LIBRARY[name]
+    # the sLSTM's time loop, which replaces no TPU kernel: its main path
+    # is xLSTM's prefill (phase xlstm), the tick's call beside it
+    pre, tick = xl["slstm"]["calls"]
+    n = xl["launches"].get("slstm_scan", 0)
+    if n == 0:
+        print("chip_smoke: FAIL: slstm_scan was not launched on the xLSTM "
+              "prefill", file=sys.stderr)
+        return 1
+    rows.append({"name": "slstm_scan", "route": "cuda",
+                 "source": "src/repro_torch/csrc/slstm_scan.cu",
+                 "replaces": "src/repro/nn/xlstm.py:275",
+                 "replaces_note": "no TPU kernel: the reference's "
+                                  "_slstm_scan step loop under lax.scan",
+                 "launches": n, "max_abs_err": pre["max_abs_err"],
+                 "tolerance": pre["tolerance"], "ms": pre["ms"],
+                 "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+                 "bound_by": pre["bound_by"], "library_ms": None,
+                 "library_ms_null_because": "no single PyTorch call runs a "
+                                            "recurrence with exponential "
+                                            "gating over time",
+                 "per": f"one call {pre['call']}, an xlstm-1.3b prefill "
+                        f"layer's; launches: one prefill",
+                 "launches_by_path": {p: c["slstm_scan"] for p, c in
+                                      by_path.items()
+                                      if c.get("slstm_scan")},
+                 "tick": {k: tick[k] for k in (
+                     "call", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "max_abs_err")}})
     emit({"kernels": rows})
     print(dev["nvidia_smi"])
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

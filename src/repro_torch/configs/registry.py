@@ -1,10 +1,11 @@
 """Architecture registry over the configs ported so far.
 
-The decoder configs whose layers are ``global``/``local`` attention or the
-RG-LRU block (RecurrentGemma), each with a gated MLP or a mixture of
-experts, and BraggNN.  The reference's other architectures (xLSTM, the
-encoder-decoder, the VLM) come with their families: asking for one raises
-a ``KeyError`` that says so.
+The decoder configs whose layers are ``global``/``local`` attention, the
+RG-LRU block (RecurrentGemma) or the xLSTM blocks, each with a gated MLP
+or a mixture of experts where it has one; the encoder-decoder
+(whisper-tiny, served by ``models/encdec``); and BraggNN.  The reference's
+VLM comes with its family: asking for it raises a ``KeyError`` that says
+so.
 The dry-run's ``input_specs``/``input_axes`` come with the dry-run.
 """
 
@@ -12,7 +13,8 @@ from __future__ import annotations
 
 from repro_torch.configs import (braggnn, gemma2_27b, mixtral_8x7b,
                                  qwen2_7b, qwen2_moe_a27b, qwen25_3b,
-                                 recurrentgemma_9b, stablelm_3b)
+                                 recurrentgemma_9b, stablelm_3b,
+                                 whisper_tiny, xlstm_1_3b)
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, \
     supports_shape
 
@@ -22,14 +24,16 @@ _MODULES = {                                # in the reference's order
     "qwen2-7b": qwen2_7b,
     "stablelm-3b": stablelm_3b,
     "qwen2.5-3b": qwen25_3b,
+    "whisper-tiny": whisper_tiny,
     "qwen2-moe-a2.7b": qwen2_moe_a27b,
     "mixtral-8x7b": mixtral_8x7b,
+    "xlstm-1.3b": xlstm_1_3b,
 }
 
 ARCH_IDS = tuple(_MODULES)
 
 #: the reference's architectures whose families are not ported yet
-NOT_PORTED = ("whisper-tiny", "xlstm-1.3b", "qwen2-vl-2b")
+NOT_PORTED = ("qwen2-vl-2b",)
 
 
 def _module(arch: str):

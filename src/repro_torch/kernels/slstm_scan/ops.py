@@ -1,0 +1,22 @@
+"""Public wrapper for the sLSTM time loop: the plain version for CPU
+tensors, the CUDA kernel for CUDA tensors."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+from repro_torch.kernels.slstm_scan.slstm_scan import slstm_scan
+
+
+def scan(x_pre: Sequence[torch.Tensor], rec: Sequence[torch.Tensor],
+         h: torch.Tensor, c: torch.Tensor, n: torch.Tensor, m: torch.Tensor
+         ) -> torch.Tensor:
+    """hs (B, S, H, W) of the sLSTM over x_pre's steps, the (B, H, W)
+    state ``h, c, n, m`` updated in place (shapes as in
+    :func:`slstm_scan`)."""
+    if h.device.type == "cpu":
+        return slstm_scan_ref(x_pre, rec, h, c, n, m)
+    return slstm_scan(x_pre, rec, h, c, n, m)

@@ -8,12 +8,16 @@
         --arch qwen2-moe-a2.7b --no-tiny  # the MoE family at full width
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-9b --no-tiny  # RG-LRU + local attention
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch xlstm-1.3b --no-tiny       # mLSTM + sLSTM blocks
     ... --device cpu                      # on the CPU
 
 Weights are drawn from a seeded generator on the device they serve from
 (nothing is downloaded); prompts of 4-15 tokens come from another seeded
 generator.  The config is the architecture's ``tiny()`` unless
-``--no-tiny`` is given.
+``--no-tiny`` is given.  An encoder-decoder (whisper-tiny) is refused,
+as the reference's launcher refuses it: its steps run through
+``models/encdec``.
 """
 
 from __future__ import annotations
@@ -51,6 +55,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     dev = resolve(args.device)
     cfg = registry.get_tiny(args.arch) if args.tiny \
         else registry.get_config(args.arch)
+    if cfg.is_encoder_decoder:
+        raise SystemExit("serve.py targets decoder-only archs")
     t0 = time.monotonic()
     params = module_lib.init_tree(
         transformer.model_specs(cfg),

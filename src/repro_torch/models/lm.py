@@ -39,7 +39,7 @@ def serve_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache: dict,
 
 
 def model_flops_per_token(cfg: ModelConfig) -> float:
-    """MODEL_FLOPS = 6·N (dense, and the RG-LRU hybrid) or 6·N_active
+    """MODEL_FLOPS = 6·N (dense, the RG-LRU hybrid, xLSTM) or 6·N_active
     (MoE) per token (§Roofline): an MoE counts its non-expert parameters
     fully and each routed expert's at ``experts_per_token`` of the padded
     experts."""

@@ -8,7 +8,9 @@ probabilities-by-values product are fp32.  Prefill's self-attention runs
 the flash-attention kernel (K5, ``kernels/flash_attention``) at positions
 ``arange(S)``, the reference's ``blockwise_attention`` forward on the
 card; a one-token decode step attends to the cache with the plain
-:func:`full_attention`, as the reference does.  ``attn_specs``,
+:func:`full_attention`, as the reference does, and so does the
+encoder-decoder's :func:`cross_attention` (no TPU kernel serves it in the
+reference either).  ``attn_specs``,
 ``qkv_project`` and ``out_project`` also serve the transformer encoder
 block's tensor twin (``models/transformer.py``).
 """
@@ -55,20 +57,24 @@ def attn_specs(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
     return s
 
 
+def _project(sub: dict, x: torch.Tensor, quant: Optional[str]
+             ) -> torch.Tensor:
+    """x: (B, S, D) through one of q, k, v ((D, H, dh) and a bias) ->
+    (B, S, H, dh) in x's dtype: the weight cast to x's dtype, fp32 sums
+    and bias."""
+    w = maybe_quantize(sub["kernel"], quant).to(x.dtype)
+    d, h, k = w.shape
+    y = matmul_f32(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    if "bias" in sub:
+        y = y + sub["bias"].to(ACCUM)
+    return y.to(x.dtype)
+
+
 def qkv_project(p: dict, x: torch.Tensor, *, quant: Optional[str] = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> q, k, v: (B, S, H, dh) each, in x's dtype: weights
-    cast to x's dtype, fp32 sums and bias (``p``: the :func:`attn_specs`
-    tree)."""
-    def proj(sub):
-        w = maybe_quantize(sub["kernel"], quant).to(x.dtype)
-        d, h, k = w.shape
-        y = matmul_f32(x, w.reshape(d, h * k))
-        y = y.reshape(*x.shape[:-1], h, k)
-        if "bias" in sub:
-            y = y + sub["bias"].to(ACCUM)
-        return y.to(x.dtype)
-    return proj(p["q"]), proj(p["k"]), proj(p["v"])
+    """x: (B, S, D) -> q, k, v: (B, S, H, dh) each, in x's dtype (``p``:
+    the :func:`attn_specs` tree)."""
+    return tuple(_project(p[n], x, quant) for n in ("q", "k", "v"))
 
 
 def out_project(p: dict, y: torch.Tensor, *, quant: Optional[str] = None
@@ -235,3 +241,23 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict,
     y = full_attention(q, cache["k"], cache["v"], q_pos=now, k_pos=k_pos,
                        causal=True, window=None, logit_cap=logit_cap)
     return out_project(p, y, quant=quant), cache
+
+
+# -- cross-attention (encoder-decoder) ---------------------------------------
+
+def cross_attention(p: dict, x: torch.Tensor, enc: torch.Tensor, *,
+                    n_kv_heads: int, quant: Optional[str] = None
+                    ) -> torch.Tensor:
+    """Decoder-to-encoder attention (no positional rotation, no mask) with
+    the materialised scores of :func:`full_attention`.  x: (B, S, D)
+    decoder states, enc: (B, T, D) the encoder's output; q from x, k and v
+    from enc, each in its input's dtype."""
+    q = _project(p["q"], x, quant)
+    k = _project(p["k"], enc, quant)
+    v = _project(p["v"], enc, quant)
+    b, s = x.shape[:2]
+    t = enc.shape[1]
+    q_pos = torch.arange(s, device=x.device).expand(b, s)
+    k_pos = torch.arange(t, device=x.device).expand(b, t)
+    y = full_attention(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=False)
+    return out_project(p, y, quant=quant)

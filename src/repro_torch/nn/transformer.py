@@ -1,21 +1,23 @@
 """Decoder assembly: blocks, prefill forward, cached decode step.
 
 The reference's ``repro.nn.transformer`` in torch, for the layer kinds
-``global`` and ``local`` (attention) and ``rglru`` (the RG-LRU block,
-:mod:`repro_torch.nn.rglru`), each followed by a gated MLP or a mixture
-of experts (:mod:`repro_torch.nn.moe`).  Layers are grouped
-into *superblocks* of ``len(cfg.attn_pattern)`` layers whose parameters are
-stacked (``blocks/<i>``, leading dim = superblock), with remainder layers
-(n_layers mod period) in ``extra/<j>``: the reference's tree, so its
-parameters and checkpoints carry straight over.  Where the reference scans
-the stack with ``lax.scan``, the port loops over the stacked index in
-Python.  Caches (KV, and the RG-LRU's ``h`` and conv state) mirror the
-parameter layout, and the decode step writes each layer's slice of the
-stacked cache in place.
+``global`` and ``local`` (attention), ``rglru`` (the RG-LRU block,
+:mod:`repro_torch.nn.rglru`) and ``mlstm``/``slstm`` (the xLSTM blocks,
+:mod:`repro_torch.nn.xlstm`), each followed by a gated MLP or a mixture
+of experts (:mod:`repro_torch.nn.moe`) where the config has one.  Layers
+are grouped into *superblocks* of ``len(cfg.attn_pattern)`` layers whose
+parameters are stacked (``blocks/<i>``, leading dim = superblock), with
+remainder layers (n_layers mod period) in ``extra/<j>``: the reference's
+tree, so its parameters and checkpoints carry straight over.  Where the
+reference scans the stack with ``lax.scan``, the port loops over the
+stacked index in Python.  Caches (KV, the RG-LRU's ``h``, the xLSTM cells' state, and the
+conv states) mirror the parameter layout, and the decode step writes each
+layer's slice of the stacked cache in place.
 
-The xLSTM kinds (``mlstm``/``slstm``), patches (VLM), learned positions
-(the encoder-decoder) and bf16 cross-device sums are not ported yet: a
-config that asks for one raises ``NotImplementedError``.
+Patches (VLM), decoder-only learned positions and bf16 cross-device sums
+are not ported yet: a config that asks for one raises
+``NotImplementedError``.  The encoder-decoder (whisper-tiny) is not a
+decoder of this module: it runs through :mod:`repro_torch.models.encdec`.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import attention, layers, module
 from repro_torch.nn import moe as moe_lib
-from repro_torch.nn import rglru
+from repro_torch.nn import rglru, xlstm
 from repro_torch.nn.module import map_tree
 
 Params = Any
@@ -36,18 +38,25 @@ Params = Any
 #: item 8)
 _LATER = "ROADMAP.md queue 1 item 8"
 #: the layer kinds the port runs
-_KINDS = ("global", "local", "rglru")
+_KINDS = ("global", "local", "rglru", "mlstm", "slstm")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config that needs a part of the
     LM substrate the port has not ported yet."""
-    later = [f"layer kind {k!r} (xLSTM)" for k in dict.fromkeys(
-        cfg.attn_pattern) if k not in _KINDS]
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder: it runs through "
+            f"repro_torch.models.encdec, not this decoder")
+    later = [f"layer kind {k!r}" for k in dict.fromkeys(cfg.attn_pattern)
+             if k not in _KINDS]
     if cfg.n_patches:
         later.append("patches (qwen2-vl)")
-    if cfg.learned_positions or cfg.is_encoder_decoder:
-        later.append("learned positions and the encoder (whisper)")
+    if cfg.learned_positions:
+        # no config of the repo has them: the reference's forward adds
+        # them, its decode_step does not (ROADMAP.md R9)
+        later.append("decoder-only learned positions (the encoder-decoder "
+                     "runs through models/encdec)")
     if cfg.bf16_reduce:
         later.append("bf16 cross-device sums (the sharded pieces)")
     if later:
@@ -83,6 +92,13 @@ def mixer_specs(cfg: ModelConfig, kind: str) -> dict:
         return rglru.rglru_block_specs(cfg.d_model,
                                        cfg.lru_width or cfg.d_model,
                                        cfg.n_heads, cfg.conv_width)
+    if kind == "mlstm":
+        return xlstm.mlstm_block_specs(cfg.d_model, cfg.n_heads,
+                                       proj_factor=cfg.mlstm_proj_factor,
+                                       conv_width=cfg.conv_width)
+    if kind == "slstm":
+        return xlstm.slstm_block_specs(cfg.d_model, cfg.n_heads,
+                                       conv_width=cfg.conv_width)
     raise NotImplementedError(f"layer kind {kind!r} not ported yet "
                               f"({_LATER})")
 
@@ -129,6 +145,13 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     if kind == "rglru":
         y, cache = rglru.rglru_block(p["mixer"], h, n_heads=cfg.n_heads,
                                      cache=cache, quant=cfg.quant_format)
+    elif kind == "mlstm":
+        y, cache = xlstm.mlstm_block(p["mixer"], h, n_heads=cfg.n_heads,
+                                     chunk=cfg.mlstm_chunk, cache=cache,
+                                     quant=cfg.quant_format)
+    elif kind == "slstm":
+        y, cache = xlstm.slstm_block(p["mixer"], h, n_heads=cfg.n_heads,
+                                     cache=cache, quant=cfg.quant_format)
     elif cache is None:
         y = attention.self_attention(p["mixer"], h, positions, causal=True,
                                      window=window, **attn_kw)
@@ -164,6 +187,15 @@ def _kind_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         return rglru.init_rglru_cache(batch, cfg.lru_width or cfg.d_model,
                                       cfg.conv_width, dtype=conv_dtype,
                                       device=device)
+    if kind == "mlstm":
+        return xlstm.init_mlstm_cache(batch, cfg.d_model, cfg.n_heads,
+                                      proj_factor=cfg.mlstm_proj_factor,
+                                      conv_width=cfg.conv_width,
+                                      conv_dtype=conv_dtype, device=device)
+    if kind == "slstm":
+        return xlstm.init_slstm_cache(batch, cfg.d_model, cfg.n_heads,
+                                      conv_width=cfg.conv_width,
+                                      conv_dtype=conv_dtype, device=device)
     return attention.init_kv_cache(
         batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
         window=cfg.window if kind == "local" else None, device=device)
@@ -173,9 +205,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
     """The model's decode cache on ``device`` (default: the CPU), laid out
     as the reference's: ``blocks/<i>`` stacked over superblocks,
-    ``extra/<j>`` per remainder layer.  A remainder RG-LRU layer's conv
-    state is in the activation dtype, a stacked one's in bf16 (ROADMAP.md
-    R8): the dtypes the reference's cache has after its first step."""
+    ``extra/<j>`` per remainder layer.  A remainder recurrent layer's conv
+    state (RG-LRU, mLSTM, sLSTM) is in the activation dtype, a stacked
+    one's in bf16 (ROADMAP.md R8): the dtypes the reference's cache has
+    after its first step."""
     _check_supported(cfg)
     out: dict = {"blocks": {}, "extra": {}}
     for i, kind in enumerate(cfg.attn_pattern):

@@ -181,6 +181,10 @@ def test_runtime_imports_neither_jax_nor_repro():
             "import repro_torch.configs.mixtral_8x7b\n"
             "import repro_torch.nn.rglru\n"
             "import repro_torch.configs.recurrentgemma_9b\n"
+            "import repro_torch.nn.xlstm, repro_torch.configs.xlstm_1_3b\n"
+            "import repro_torch.kernels.slstm_scan.ops\n"
+            "import repro_torch.models.encdec\n"
+            "import repro_torch.configs.whisper_tiny\n"
             "import repro_torch.examples.serve_moe\n"
             "import repro_torch.examples.quickstart\n"
             "import repro_torch.examples.braggnn_serve\n"

@@ -381,6 +381,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                                         "dfg_segment": 0,
                                         "flash_attention": 0,
                                         "fused_softmax": 0,
+                                        "slstm_scan": 0,
                                         "smallfloat_matmul": 0}
 
 

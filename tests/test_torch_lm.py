@@ -63,7 +63,11 @@ BLOCK_CONFIGS = {
         final_softcap=30.0, post_norms=True, zero_centered_norm=True,
         attn_block_size=32),
 }
-MODELS = list(BLOCK_CONFIGS) + [f"{a}:tiny" for a in registry.ARCH_IDS]
+#: the decoder-only architectures (whisper-tiny's encoder-decoder has its
+#: own tests, tests/test_torch_encdec.py)
+DECODERS = tuple(a for a in registry.ARCH_IDS
+                 if not registry.get_config(a).is_encoder_decoder)
+MODELS = list(BLOCK_CONFIGS) + [f"{a}:tiny" for a in DECODERS]
 
 
 @pytest.fixture(scope="module")
@@ -133,7 +137,8 @@ def test_configs_equal_reference(ref, arch):
 def test_registry_names_what_is_not_ported(ref):
     assert set(registry.ARCH_IDS) | set(registry.NOT_PORTED) == \
         set(ref.registry.ARCH_IDS)
-    ported = {"qwen2-moe-a2.7b", "mixtral-8x7b", "recurrentgemma-9b"}
+    ported = {"qwen2-moe-a2.7b", "mixtral-8x7b", "recurrentgemma-9b",
+              "xlstm-1.3b", "whisper-tiny"}
     assert ported <= set(registry.ARCH_IDS)
     assert not ported & set(registry.NOT_PORTED)
     for arch in registry.NOT_PORTED:
@@ -171,15 +176,25 @@ def _ref_leaves(specs, prefix=""):
 
 @pytest.mark.parametrize("arch", registry.ARCH_IDS)
 def test_spec_trees_agree_leaf_for_leaf(ref, arch):
+    """Each architecture's spec tree; the encoder-decoder's is
+    ``models/encdec``'s in both packages, and has no decoder LM FLOPs."""
+    from repro.models import encdec as ref_encdec
+
+    from repro_torch.models import encdec
     for get, ref_get in ((registry.get_config, ref.registry.get_config),
                          (registry.get_tiny, ref.registry.get_tiny)):
-        port = transformer.model_specs(get(arch))
-        want = ref.tr.model_specs(ref_get(arch))
+        if arch in DECODERS:
+            port = transformer.model_specs(get(arch))
+            want = ref.tr.model_specs(ref_get(arch))
+        else:
+            port = encdec.model_specs(get(arch))
+            want = ref_encdec.model_specs(ref_get(arch))
         assert _ref_leaves(port) == _ref_leaves(want)
         assert module.param_count(port) == ref.module.param_count(want)
         assert module.param_bytes(port) == ref.module.param_bytes(want)
-    assert lm.model_flops_per_token(registry.get_config(arch)) == \
-        ref.lm.model_flops_per_token(ref.registry.get_config(arch))
+    if arch in DECODERS:
+        assert lm.model_flops_per_token(registry.get_config(arch)) == \
+            ref.lm.model_flops_per_token(ref.registry.get_config(arch))
 
 
 def test_qwen25_3b_size():
@@ -501,7 +516,6 @@ def test_decode_matches_forward(name):
 
 
 @pytest.mark.parametrize("change,what", [
-    (dict(attn_pattern=("mlstm", "slstm"), d_ff=0), "mlstm"),
     (dict(n_patches=4), "patches"),
     (dict(learned_positions=True, max_position=64), "learned positions"),
     (dict(bf16_reduce=True), "bf16 cross-device"),

@@ -406,6 +406,7 @@ def test_slice_on_card_matches_evaluate_and_launches_kernels(x):
                                         "dfg_segment": 0,
                                         "flash_attention": 0,
                                         "fused_softmax": 3,
+                                        "slstm_scan": 0,
                                         "smallfloat_matmul": 3}
     for out, xb in zip(rep.outputs, batches):
         want = d.run(xb)
