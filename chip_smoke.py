@@ -80,9 +80,11 @@ Phases, each printing one JSON line (``"phase": ...``):
              through the nest tier (fp32, (5,4)), the NLB flash mode and
              the DFG tier at (5,4), held as phase serve holds them; the
              ``TrainingDriver`` with a failure injected, bit for bit
-             against an uninterrupted run; ``examples/quickstart`` and
+             against an uninterrupted run; ``examples/quickstart``,
              ``examples/braggnn_serve`` (``--save``, then ``--load
-             --engine``).
+             --engine``) and ``examples/train_lm --steps 40`` (lm-100m,
+             a failure injected at step 20: one restart, the loss
+             falls).
 15. lm     — the decoder LM's serving path at Qwen2.5-3B's full width
              (3,085,938,688 parameters drawn on the card from a seed,
              bf16 activations, nothing cut): K5 at the LM's shapes (B*H
@@ -113,13 +115,8 @@ Phases, each printing one JSON line (``"phase": ...``):
              CPU at two layers (2%), the launcher's CLI at ``--no-tiny``
              and ``examples/serve_moe`` in subprocesses; Mixtral-8x7b at
              full width cut to 4 of its 32 layers (prefill with 4 K5
-             launches, 16 engine ticks); and the prefill with its token
-             chunks routed in one pass against the same prefill chunk by
-             chunk (the layer before the one-pass routing) in this run:
-             p50, device operations, busy ms, idle share, the expert
-             products' ms, the kept assignments within 1e-4 of their
-             number (cuBLAS sums at other row counts), and the kept
-             shares held to 0.933 (qwen2-moe) and 0.996 (Mixtral).
+             launches, 16 engine ticks); the kept shares held to 0.933
+             (qwen2-moe) and 0.996 (Mixtral).
 17. recurrent — the RG-LRU hybrid at RecurrentGemma-9b's published width
              and depth (8,578,519,040 parameters drawn on the card,
              nothing cut), after the MoE weights are freed: K5 at its
@@ -131,10 +128,10 @@ Phases, each printing one JSON line (``"phase": ...``):
              (tokens, logits, and every cache leaf ``h``, ``conv``, ``k``,
              ``v``, ``kpos`` value for value); ``forward`` against 64
              cached decode steps (1%); the engine over the lm phase's 32
-             requests, with requests 0, 8, 16 and 24 served again alone
-             and held equal; the card against the CPU at one superblock
-             (2%); ``python -m repro_torch.launch.serve --arch
-             recurrentgemma-9b --no-tiny --requests 8`` in a subprocess.
+             requests, one of them served again alone and held equal;
+             the card against the CPU at one superblock (2%); ``python -m
+             repro_torch.launch.serve --arch recurrentgemma-9b --no-tiny
+             --requests 8`` in a subprocess.
 18. xlstm  — xLSTM at xlstm-1.3b's published width and depth
              (3,503,016,272 parameters drawn on the card, nothing cut:
              42 mLSTM and 6 sLSTM layers), after the previous weights are
@@ -146,8 +143,8 @@ Phases, each printing one JSON line (``"phase": ...``):
              nothing else of the port's); one 8-lane decode tick replayed
              against eager (tokens, logits, every cache leaf; 6 kernel
              launches a replay); ``forward`` against 64 cached decode
-             steps (1%); the engine over the lm phase's 32 requests, with
-             requests 0, 8, 16 and 24 served again alone and held equal;
+             steps (1%); the engine over the lm phase's 32 requests, one
+             of them served again alone and held equal;
              the card against the CPU at one superblock (8 layers, 2%);
              ``python -m repro_torch.launch.serve --arch xlstm-1.3b
              --no-tiny --requests 8`` in a subprocess.
@@ -162,6 +159,43 @@ Phases, each printing one JSON line (``"phase": ...``):
              logits, the KV cache); the card against the CPU at full width
              (2%); ``generate``: 64 greedy tokens for 8 sequences from a
              4-token prompt, its steps timed.
+20. vlm    — Qwen2-VL at qwen2-vl-2b's published width and depth
+             (1,543,715,840 parameters drawn on the card, nothing cut):
+             K5 at its prefill's shape (B*H 48, S 2,048, D 128, causal)
+             against its plain version, beside SDPA and the bound;
+             ``lm.prefill`` of 4 x (1,024 seeded patch embeddings + 1,024
+             tokens) timed, profiled and counted (28 K5 launches a call,
+             nothing else of the port's); ``forward`` against 64 cached
+             decode steps on text (1%); the engine at 8 lanes over 16 text
+             requests; the card against the CPU at two layers with the
+             1,024 patches in front of 256 tokens (2%).
+21. train_lm — the LM's training: one attention layer at Qwen2.5-3B's
+             microbatch shape (B 1, S 1,024, 16 heads over 2, D 128,
+             causal, fp32): K5's forward with the rows' log-sum-exp and
+             the torch backward against autograd through
+             ``full_attention`` (rtol 1e-4 / atol 1e-5), the lse against
+             the plain version, the forward, the backward and SDPA's
+             forward and forward + backward timed, K5 at the LM prefill's
+             shape with and without the lse store; Qwen2.5-3B trained at
+             full width and depth (3,085,938,688 parameters drawn on the
+             card, batch 4 x 1,024 of ``SyntheticTokenPipeline`` tokens in
+             4 microbatches, full remat, AdamW in place): the first call
+             (an eager step, then the capture) with its loss held to the
+             no-grad forward's, and the first microbatch's loss over its
+             first 64 positions held to the CPU's at full depth
+             (1.5e-4 relative), 5 replayed
+             steps timed (finite losses, the parameters moved, 288 K5
+             launches a step and nothing else of the port's), tokens/s,
+             6·N·tokens over the step time against the bf16 dense peak,
+             peak memory, one step profiled; 2 replayed steps against 2
+             eager ones at 4 layers of the same width under deterministic
+             algorithms (losses, parameters and moments value for value);
+             one step on the card against the CPU at 2 layers, B 1 x 256
+             (loss 1e-4, grad norm 2%, each gradient leaf within 5% of
+             its max |gradient|); whisper-tiny's training steps
+             (finite losses, K5 launches per step); xlstm-1.3b's step at
+             one superblock raising the sLSTM kernel's
+             ``NotImplementedError``.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 the last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -2260,32 +2294,41 @@ def driver_restart(torch, init, step) -> None:
 
 
 def run_examples() -> None:
-    """``quickstart.main([])`` and ``braggnn_serve.main``: ``--save``, then
-    ``--load ... --engine``, on the card, with the port's cache root in a
-    temporary directory of the checkout."""
+    """``quickstart.main([])``, ``braggnn_serve.main``: ``--save``, then
+    ``--load ... --engine``, and ``train_lm.main(["--steps", "40"])`` (its
+    restart happens and its loss falls), on the card, with the port's
+    cache root and the checkpoints in a temporary directory of the
+    checkout."""
     import os
     import shutil
     import tempfile
 
-    from repro_torch.examples import braggnn_serve, quickstart
+    from repro_torch.examples import braggnn_serve, quickstart, train_lm
 
     tmp = Path(tempfile.mkdtemp(prefix=".smoke_examples_", dir=ROOT))
     saved = os.environ.get("REPRO_TORCH_CACHE_DIR")
     os.environ["REPRO_TORCH_CACHE_DIR"] = str(tmp / "cache")
     try:
         art = tmp / "braggnn.design"
-        wall = {}
+        wall, out = {}, {}
         for label, fn, argv in (
                 ("quickstart", quickstart.main, []),
                 ("braggnn_serve --save", braggnn_serve.main,
                  ["--save", str(art)]),
                 ("braggnn_serve --load --engine", braggnn_serve.main,
-                 ["--load", str(art), "--engine"])):
+                 ["--load", str(art), "--engine"]),
+                ("train_lm --steps 40", train_lm.main,
+                 ["--steps", "40", "--ckpt", str(tmp / "lm_ckpt")])):
             t0 = time.perf_counter()
-            fn(argv)
+            out[label] = fn(argv)
             wall[label] = time.perf_counter() - t0
+        lm_report = out["train_lm --steps 40"]
         emit({"phase": "train", "step": "examples", "wall_s": wall,
-              "artifact_bytes": art.stat().st_size})
+              "artifact_bytes": art.stat().st_size,
+              "train_lm": {"restarts": lm_report.restarts,
+                           "first_loss": lm_report.losses[0],
+                           "last_loss": lm_report.losses[-1],
+                           "steps_run": len(lm_report.losses)}})
     finally:
         if saved is None:
             os.environ.pop("REPRO_TORCH_CACHE_DIR", None)
@@ -2395,7 +2438,7 @@ def lm_forward_vs_decode(torch, cfg, params, dev, b: int, s: int) -> dict:
     from repro_torch.nn import transformer
     gen = torch.Generator().manual_seed(21)
     toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen).to(dev)
-    full = transformer.forward(cfg, params, toks)
+    full = transformer.forward(cfg, params, toks)[0]
     cache = transformer.init_cache(cfg, b, s, device=dev)
     steps = []
     for t in range(s):
@@ -2414,17 +2457,15 @@ def lm_forward_vs_decode(torch, cfg, params, dev, b: int, s: int) -> dict:
 
 def lm_engine_run(torch, cfg, params, *, lanes: int, max_len: int,
                   requests: int, prompt: tuple, new: int,
-                  hold_alone: bool = True, max_ticks: int = 0,
-                  alone: tuple = ()) -> dict:
+                  hold_alone: bool = True, max_ticks: int = 0) -> dict:
     """The continuous-batching engine over ``requests`` seeded prompts,
     each tick timed on the host (a tick ends in the next tokens' copy to
     the host; the first captures the decode step's graph, the rest replay
-    it); then some of them again (``alone``, by request id; default the
-    middle one), each alone in the same engine, whose tokens must equal
-    those it got among the others where ``hold_alone`` (an MoE's capacity
-    drops depend on the other lanes' routing, so there the comparison is
-    reported).  ``max_ticks`` > 0 stops after that many ticks and skips
-    the rest."""
+    it); then the middle request again, alone in the same engine, whose
+    tokens must equal those it got among the others where ``hold_alone``
+    (an MoE's capacity drops depend on the other lanes' routing, so there
+    the comparison is reported).  ``max_ticks`` > 0 stops after that many
+    ticks and skips the rest."""
     from repro_torch.serving import ServingEngine, percentiles
     eng = ServingEngine(cfg, params, max_batch=lanes, max_len=max_len)
     gen = torch.Generator().manual_seed(22)
@@ -2460,18 +2501,17 @@ def lm_engine_run(torch, cfg, params, *, lanes: int, max_len: int,
         len(r.output) == new for r in done.values()),
         f"engine: {len(done)} of {requests} requests finished, lengths "
         f"{sorted({len(r.output) for r in done.values()})} (want {new})")
-    # requests again, each alone among idle lanes: by default one packed in
-    # the middle of the run, so it shared its ticks with others
-    outs = {}
-    for rid in alone or (requests // 2,):
-        eng.finished.clear()
-        eng.submit(prompts[rid], max_new_tokens=new)
-        outs[rid] = eng.run_until_drained()[0].output
-        check(outs[rid] == done[rid].output or not hold_alone,
-              f"engine: request {rid} alone gave {outs[rid]}, among the "
-              f"others {done[rid].output}")
+    # the request packed in the middle of the run, so it shared its ticks
+    # with others, again alone among idle lanes
+    rid = requests // 2
+    eng.finished.clear()
+    eng.submit(prompts[rid], max_new_tokens=new)
+    alone = eng.run_until_drained()[0].output
+    packed = done[rid].output
+    check(alone == packed or not hold_alone,
+          f"engine: request {rid} alone gave {alone}, among the others "
+          f"{packed}")
     eng.release()
-    rid = min(outs)
     lat = percentiles([r.latency_s * 1e3 for r in done.values()])
     ttft = percentiles([(r.first_token_t - r.submit_t) * 1e3
                         for r in done.values()])
@@ -2485,12 +2525,9 @@ def lm_engine_run(torch, cfg, params, *, lanes: int, max_len: int,
             "tick_ms_p50": tick["p50"], "tick_ms_p99": tick["p99"],
             "ttft_ms_p50": ttft["p50"], "request_ms_p50": lat["p50"],
             "request_ms_p99": lat["p99"],
-            "alone_equals_packed": all(
-                o == done[r].output for r, o in outs.items()),
-            "alone_tokens_equal": sum(a == b for r, o in outs.items()
-                                      for a, b in zip(o, done[r].output)),
-            "alone_held": hold_alone, "request_checked": rid,
-            "requests_checked_alone": sorted(outs)}
+            "alone_equals_packed": alone == packed,
+            "alone_tokens_equal": sum(a == b for a, b in zip(alone, packed)),
+            "alone_held": hold_alone, "request_checked": rid}
 
 
 def phase_lm(torch) -> dict:
@@ -2691,9 +2728,10 @@ def decode_tick(torch, cfg, params, lanes: int, max_len: int, gen,
             "eager_host_top": profiles["eager"]["host_top"]}
 
 
-def lm_card_vs_cpu(torch, cfg) -> dict:
+def lm_card_vs_cpu(torch, cfg, patches: int = 0) -> dict:
     """``forward`` of ``cfg`` on the card (K5) and on the CPU (K5's plain
-    version) from the same numpy weights and prompt: the largest logit
+    version) from the same numpy weights and prompt (``patches`` seeded
+    patch embeddings in front of it, the VLM's): the largest logit
     difference over the scale, held to ``LM_BF16_TOL``."""
     from repro_torch.kernels import registry
     from repro_torch.nn import module, transformer
@@ -2701,23 +2739,29 @@ def lm_card_vs_cpu(torch, cfg) -> dict:
         transformer.model_specs(cfg), torch.Generator().manual_seed(24)))
     toks = torch.randint(0, cfg.vocab_size, (1, LM_CPU_S),
                          generator=torch.Generator().manual_seed(25))
+    pt = torch.randn(1, patches, cfg.d_model,
+                     generator=torch.Generator().manual_seed(26)) \
+        if patches else None
     registry.reset_launch_counts()
     card = transformer.forward(cfg, module.params_from_numpy(
-        weights, device="cuda"), toks.cuda()).cpu()
+        weights, device="cuda"), toks.cuda(),
+        patches=None if pt is None else pt.cuda())[0].cpu()
     launched = {k: v for k, v in registry.launch_counts().items() if v}
     want = forward_launches(cfg)
     check(launched == want, f"card forward launched {launched}, want "
                             f"{want}")
     launches = launched.get("flash_attention", 0)
     t0 = time.perf_counter()
-    cpu = transformer.forward(cfg, module.params_from_numpy(weights), toks)
+    cpu = transformer.forward(cfg, module.params_from_numpy(weights), toks,
+                              patches=pt)[0]
     cpu_s = time.perf_counter() - t0
     scale = float(cpu.abs().max())
     err = float((card - cpu).abs().max())
     check(bool(torch.isfinite(card).all()) and err <= LM_BF16_TOL * scale,
           f"card against CPU at {cfg.n_layers} layers: {err / scale:.4g} of "
           f"the logit scale, over {LM_BF16_TOL}")
-    return {"layers": cfg.n_layers, "seq": LM_CPU_S, "logit_scale": scale,
+    return {"layers": cfg.n_layers, "seq": LM_CPU_S, "patches": patches,
+            "logit_scale": scale,
             "max_abs_err": err, "err_over_scale": err / scale,
             "greedy_agree_share": float(
                 (card.argmax(-1) == cpu.argmax(-1)).float().mean()),
@@ -2758,9 +2802,6 @@ MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_PARAMS = "mixtral-8x7b", 4, \
 MIXTRAL_FLASH = (128, 1024, 128, {"causal": True, "window": 4096})
 #: prefill timed calls; Mixtral's engine ticks (the phase's time limit)
 MOE_PREFILL_RUNS, MIXTRAL_TICKS = 5, 16
-#: timed calls of each side of the one-pass routing's comparison, and
-#: how far apart their kept counts may lie, as a share of the assignments
-MOE_P3_RUNS, MOE_P3_KEPT_TOL = 3, 1e-4
 #: the share of a prefill's routed assignments kept within the capacity,
 #: to three places: the reference's routing of these seeded weights and
 #: tokens, which routing all chunks in one pass must not change
@@ -2792,12 +2833,13 @@ class KeptShare:
 
 
 def prefill_run(torch, cfg, params, b: int, s: int, runs: int, seed: int,
-                kept=None) -> dict:
-    """``lm.prefill`` at b x s on seeded tokens: p50 of ``runs`` calls, K5
-    launched once per attending layer, the sLSTM kernel once per sLSTM
-    layer and nothing else of the port's (:func:`forward_launches`),
-    finite logits, one call profiled by kernel name; ``kept`` (a
-    :class:`KeptShare`) over the first, untimed call."""
+                kept=None, patches: int = 0) -> dict:
+    """``lm.prefill`` at b x s on seeded tokens (``patches`` seeded patch
+    embeddings in front of each, the VLM's): p50 of ``runs`` calls,
+    tokens/s over every position, K5 launched once per attending layer,
+    the sLSTM kernel once per sLSTM layer and nothing else of the port's
+    (:func:`forward_launches`), finite logits, one call profiled by kernel
+    name; ``kept`` (a :class:`KeptShare`) over the first, untimed call."""
     import contextlib
     from repro_torch.kernels import registry
     from repro_torch.models import lm
@@ -2805,15 +2847,20 @@ def prefill_run(torch, cfg, params, b: int, s: int, runs: int, seed: int,
     gen = torch.Generator(device="cuda").manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                          device="cuda")
+    pt = torch.randn(b, patches, cfg.d_model, generator=gen,
+                     device="cuda") if patches else None
+
+    def prefill():
+        return lm.prefill(cfg, params, toks, patches=pt)
     torch.cuda.reset_peak_memory_stats()
     with kept or contextlib.nullcontext():
-        logits = lm.prefill(cfg, params, toks)
+        logits = prefill()
     torch.cuda.synchronize()
     registry.reset_launch_counts()
     times = []
     for _ in range(runs):
         t0 = time.perf_counter()
-        logits = lm.prefill(cfg, params, toks)
+        logits = prefill()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     per_call = {k: v / runs for k, v in registry.launch_counts().items()
@@ -2825,15 +2872,14 @@ def prefill_run(torch, cfg, params, b: int, s: int, runs: int, seed: int,
     check(tuple(logits.shape) == (b, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"{cfg.name} prefill logits {tuple(logits.shape)} not finite")
-    prof = device_profile(torch, lambda: lm.prefill(cfg, params, toks),
-                          reps=1)
+    prof = device_profile(torch, prefill, reps=1)
     port_us = {name: sum(k["device_us_per_batch"] for k in prof["kernels"]
                          if name in k["name"]) for name in want}
     k5_us = port_us.get("flash_attention", 0.0)
     p50 = statistics.median(times)
     return {"arch": cfg.name, "layers": cfg.n_layers, "batch": b, "seq": s,
-            "runs": runs, "ms_p50": p50, "ms": times,
-            "tokens_per_s": b * s / p50 * 1e3,
+            "patches": patches, "runs": runs, "ms_p50": p50, "ms": times,
+            "tokens_per_s": b * (patches + s) / p50 * 1e3,
             "launches_per_call": per_call,
             "flash_attention_us_per_call": k5_us,
             "flash_attention_share_of_busy":
@@ -2926,9 +2972,6 @@ def phase_moe(torch) -> dict:
           "token_chunks": cfg.moe_token_chunks})
     pre = moe_prefill(torch, cfg, params)
     emit({"phase": "moe", "step": "prefill", **pre})
-    emit({"phase": "moe", "step": "prefill, one pass against chunk by "
-                                  "chunk", **moe_one_pass(torch, cfg,
-                                                          params)})
 
     gen = torch.Generator(device="cuda").manual_seed(32)
     tick = decode_tick(torch, cfg, params, LM_LANES, LM_MAX_LEN, gen,
@@ -2995,108 +3038,6 @@ def phase_moe(torch) -> dict:
                                  mpre["launches_per_call"].items()}}
 
 
-class ChunkByChunk:
-    """Within ``with``: the MoE layer as it ran before its token chunks
-    were routed in one pass: the expert weights cast once per call, then
-    the layer on each chunk alone (``token_chunks=1``), the outputs
-    concatenated and the chunks' ``aux`` averaged.  The same function; the
-    way it launches is the one to compare with."""
-
-    def __enter__(self):
-        import torch
-        from repro_torch.nn import moe
-        from repro_torch.nn.layers import maybe_quantize
-        self.mod, self.orig = moe, moe.moe
-
-        def chunked(p, x, *, token_chunks=1, quant=None, **kw):
-            b, s, d = x.shape
-            n = b * s
-            if token_chunks <= 1 or n % token_chunks:
-                return self.orig(p, x, token_chunks=token_chunks,
-                                 quant=quant, **kw)
-            cast = lambda w: maybe_quantize(w, quant).to(  # noqa: E731
-                x.dtype)
-            pc = {"router": {"kernel": maybe_quantize(
-                p["router"]["kernel"], quant)},
-                "experts": {k: cast(v) for k, v in p["experts"].items()}}
-            if "shared" in p:
-                pc["shared"] = {k: cast(p["shared"][k])
-                                for k in ("wi", "wg", "wo")}
-                pc["shared"]["gate"] = p["shared"]["gate"]
-            outs = [self.orig(pc, xc[None], token_chunks=1, **kw)
-                    for xc in x.reshape(n, d).chunk(token_chunks)]
-            y = torch.cat([o[0].reshape(-1, d) for o in outs])
-            return y.reshape(b, s, d), sum(o[1] for o in outs) / len(outs)
-
-        moe.moe = chunked
-        return self
-
-    def __exit__(self, *exc):
-        self.mod.moe = self.orig
-
-
-def moe_one_pass(torch, cfg, params) -> dict:
-    """P3: ``lm.prefill`` with the token chunks routed in one pass against
-    the same prefill chunk by chunk (:class:`ChunkByChunk`), in this run:
-    p50 of MOE_P3_RUNS calls each, device operations, busy ms and idle
-    share per call, the expert products' device ms (``aten::bmm``, which
-    only they call), and the kept assignments.  The two route alike (on
-    the CPU bit for bit, ``tests/test_torch_moe.py``), but cuBLAS sums the
-    router's and the experts' products in other orders at other row
-    counts, so a few near-ties among the experts may fall the other way:
-    the kept counts are held within MOE_P3_KEPT_TOL of the assignments
-    and the kept share to three places."""
-    import contextlib
-    from repro_torch.models import lm
-
-    gen = torch.Generator(device="cuda").manual_seed(31)
-    toks = torch.randint(0, cfg.vocab_size, (LM_PREFILL_B, LM_PREFILL_S),
-                         generator=gen, device="cuda")
-    out, logits = {}, {}
-    for label, ctx in (("chunk by chunk", ChunkByChunk),
-                       ("one pass", contextlib.nullcontext)):
-        with ctx():
-            def step():
-                return lm.prefill(cfg, params, toks)
-            with KeptShare() as kept:
-                logits[label] = step()
-            times = []
-            for _ in range(MOE_P3_RUNS):
-                t0 = time.perf_counter()
-                step()
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            prof = device_profile(torch, step, reps=1, op="bmm")
-        out[label] = {
-            "ms_p50": statistics.median(times), "ms": times,
-            "device_operations": prof["device_operations_per_batch"],
-            "device_busy_ms": prof["device_busy_us_per_batch"] / 1e3,
-            "device_idle_share": prof["device_idle_share"],
-            "expert_bmm_ms": prof["op_device_us_per_batch"] / 1e3,
-            "kept": int(sum(float(k) for k in kept.kept)),
-            "assignments": kept.total, "kept_share": kept.share(),
-            "kernels_top": prof["kernels"][:8]}
-    before, after = out["chunk by chunk"], out["one pass"]
-    check(after["assignments"] == before["assignments"]
-          and abs(after["kept"] - before["kept"])
-          <= MOE_P3_KEPT_TOL * before["assignments"],
-          f"P3: one pass kept {after['kept']} of {after['assignments']} "
-          f"assignments, chunk by chunk {before['kept']} of "
-          f"{before['assignments']}")
-    check(round(after["kept_share"], 3) == MOE_KEPT_SHARE[cfg.name],
-          f"{cfg.name} prefill kept {after['kept_share']:.4f} of its "
-          f"assignments, want {MOE_KEPT_SHARE[cfg.name]}")
-    scale = float(logits["chunk by chunk"].abs().max())
-    err = float((logits["one pass"] - logits["chunk by chunk"]).abs().max())
-    return {"arch": cfg.name, "batch": LM_PREFILL_B, "seq": LM_PREFILL_S,
-            "token_chunks": cfg.moe_token_chunks, "runs": MOE_P3_RUNS,
-            **out, "kept_differing": after["kept"] - before["kept"],
-            "logits_err_over_scale": err / scale,
-            "greedy_equal": bool(torch.equal(
-                logits["one pass"].argmax(-1),
-                logits["chunk by chunk"].argmax(-1)))}
-
-
 # ---------------------------------------------------------------------------
 # The RG-LRU hybrid: RecurrentGemma-9b at full width and depth
 # ---------------------------------------------------------------------------
@@ -3110,8 +3051,6 @@ RG_ARCH, RG_PARAMS = "recurrentgemma-9b", 8_578_519_040
 RG_PREFILL_B, RG_PREFILL_S, RG_PREFILL_RUNS = 2, 4096, 5
 #: K5 at that prefill: B*H 32, S 4,096, D 256, causal, window 2,048
 RG_FLASH = (32, 4096, 256, {"causal": True, "window": 2048})
-#: the requests held alone after the engine's packed run (every 8th)
-RG_ALONE = (0, 8, 16, 24)
 #: the card against the CPU: one superblock (rglru, rglru, local)
 RG_CPU_LAYERS = 3
 
@@ -3132,7 +3071,7 @@ def phase_recurrent(torch) -> dict:
     (12 K5 launches a call); one 8-lane decode tick replayed against
     eager (every cache leaf: ``h``, ``conv``, ``k``, ``v``, ``kpos``);
     ``forward`` against 64 cached decode steps; the engine over the lm
-    phase's 32 requests with RG_ALONE served again alone, equal; the card
+    phase's 32 requests, one of them served again alone, equal; the card
     against the CPU at one superblock; the launcher's CLI at
     ``--no-tiny``."""
     import torch.nn.functional as F
@@ -3191,7 +3130,7 @@ def phase_recurrent(torch) -> dict:
     registry.reset_launch_counts()
     eng = lm_engine_run(torch, cfg, params, lanes=LM_LANES,
                         max_len=LM_MAX_LEN, requests=LM_REQUESTS,
-                        prompt=LM_PROMPT, new=LM_NEW, alone=RG_ALONE)
+                        prompt=LM_PROMPT, new=LM_NEW)
     eng["port_kernel_launches"] = {
         k: v for k, v in registry.launch_counts().items() if v}
     emit({"phase": "recurrent", "step": "engine", **eng})
@@ -3229,8 +3168,8 @@ XL_SLSTM_CASES = ((LM_PREFILL_B, LM_PREFILL_S), (LM_LANES, 1))
 #: the kernel against its plain version: the same fp32 operations, the
 #: dot products summed in another order, carried through the recurrence
 SLSTM_RTOL, SLSTM_ATOL = 1e-4, 1e-5
-#: prefill timed calls; the requests held alone after the packed run
-XL_PREFILL_RUNS, XL_ALONE = 5, (0, 8, 16, 24)
+#: prefill timed calls
+XL_PREFILL_RUNS = 5
 #: the card against the CPU: one superblock (7 mLSTM layers, 1 sLSTM)
 XL_CPU_LAYERS = 8
 
@@ -3303,7 +3242,7 @@ def phase_xlstm(torch) -> dict:
     replayed against eager (every cache leaf: the mLSTM's ``C``, ``n``,
     ``m``, ``conv``, the sLSTM's ``h``, ``c``, ``n``, ``m``, ``conv``);
     ``forward`` against 64 cached decode steps; the engine over the lm
-    phase's 32 requests with XL_ALONE served again alone, equal; the card
+    phase's 32 requests, one of them served again alone, equal; the card
     against the CPU at one superblock; the launcher's CLI at
     ``--no-tiny``."""
     from repro_torch.configs import registry as configs
@@ -3350,7 +3289,7 @@ def phase_xlstm(torch) -> dict:
     registry.reset_launch_counts()
     eng = lm_engine_run(torch, cfg, params, lanes=LM_LANES,
                         max_len=LM_MAX_LEN, requests=LM_REQUESTS,
-                        prompt=LM_PROMPT, new=LM_NEW, alone=XL_ALONE)
+                        prompt=LM_PROMPT, new=LM_NEW)
     eng["port_kernel_launches"] = {
         k: v for k, v in registry.launch_counts().items() if v}
     emit({"phase": "xlstm", "step": "engine", **eng})
@@ -3595,6 +3534,619 @@ def phase_encdec(torch) -> dict:
             "launches": {k_: int(v) for k_, v in per_call.items()}}
 
 
+# ---------------------------------------------------------------------------
+# Qwen2-VL at qwen2-vl-2b's full width and depth
+# ---------------------------------------------------------------------------
+
+#: qwen2-vl-2b at its published width and depth, nothing cut (28 layers,
+#: d_model 1,536, 12 heads over 2 KV heads of 128, d_ff 8,960, vocab
+#: 151,936, M-RoPE sections (16, 24, 24), QKV bias, tied embeddings, bf16
+#: activations; the vision frontend a stub, as in the reference: 1,024
+#: precomputed patch embeddings a sequence)
+VLM_ARCH, VLM_PARAMS = "qwen2-vl-2b", 1_543_715_840
+#: its prefill: 4 x (1,024 patches + 1,024 tokens); timed calls
+VLM_PREFILL_B, VLM_PREFILL_S, VLM_PREFILL_RUNS = 4, 1024, 5
+#: K5 at that prefill: B*H 48, S 2,048, D 128, causal
+VLM_FLASH = (48, 2048, 128, {"causal": True})
+#: its engine: the LM's lanes, cache and prompts over 16 text requests
+VLM_REQUESTS = 16
+
+
+def phase_vlm(torch) -> dict:
+    """Qwen2-VL's serving path at qwen2-vl-2b's full width and depth: K5 at
+    the prefill's shape against its plain version, beside SDPA and the
+    bound; the model drawn on the card; ``lm.prefill`` of 4 x (1,024
+    patches + 1,024 tokens) timed, profiled and counted (28 K5 launches a
+    call, nothing else of the port's); ``forward`` against 64 cached
+    decode steps on text, B 2 (1%); the card against the CPU at two layers
+    with the 1,024 patches in front of 256 tokens (2%); the engine at 8
+    lanes over 16 text requests."""
+    import torch.nn.functional as F
+    from repro_torch.configs import registry as configs
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, launch_shape)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    bh, sq, d, kw = VLM_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    q, k, v = (torch.randn(bh, sq, d, generator=gen, device="cuda")
+               for _ in range(3))
+    flash = kernel_call(
+        torch, f"({bh}, {sq}, {d}) causal=True",
+        lambda: flash_attention(q, k, v, **kw),
+        lambda: flash_attention_ref(q, k, v, **kw),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        4 * 4 * bh * sq * d, 4 * bh * causal_pairs(sq) * d,
+        rtol=FLASH_RTOL, atol=FLASH_ATOL, plain_runs=10, runs=20)
+    flash["launch_shape"] = launch_shape(bh, sq, sq, d)
+    del q, k, v
+    emit({"phase": "vlm", "step": "flash_attention", **flash})
+
+    cfg = configs.get_config(VLM_ARCH)
+    params, model = draw(torch, cfg, VLM_ARCH, VLM_PARAMS)
+    emit({"phase": "vlm", "step": "model", **model, "reduced": None,
+          "mrope_sections": list(cfg.mrope_sections),
+          "n_patches": cfg.n_patches})
+
+    # the prefill, patches in front of the tokens
+    pre = prefill_run(torch, cfg, params, VLM_PREFILL_B, VLM_PREFILL_S,
+                      VLM_PREFILL_RUNS, 71, patches=cfg.n_patches)
+    emit({"phase": "vlm", "step": "prefill", **pre})
+
+    registry.reset_launch_counts()
+    fvd = lm_forward_vs_decode(torch, cfg, params, "cuda", LM_DECODE_B,
+                               LM_DECODE_S)
+    fvd["flash_attention_launches"] = registry.launch_counts()[
+        "flash_attention"]
+    emit({"phase": "vlm", "step": "forward vs decode", **fvd,
+          "tolerance_over_scale": LM_DECODE_TOL})
+    check(fvd["flash_attention_launches"] == cfg.n_layers,
+          f"{VLM_ARCH} forward launched K5 "
+          f"{fvd['flash_attention_launches']} times")
+    check(fvd["err_over_scale"] <= LM_DECODE_TOL,
+          f"{VLM_ARCH} forward against decode: {fvd['err_over_scale']:.4g} "
+          f"of the logit scale, over {LM_DECODE_TOL}")
+
+    registry.reset_launch_counts()
+    # text only, as the reference's launcher serves it
+    eng = lm_engine_run(torch, cfg, params, lanes=LM_LANES,
+                        max_len=LM_MAX_LEN, requests=VLM_REQUESTS,
+                        prompt=LM_PROMPT, new=LM_NEW)
+    eng["port_kernel_launches"] = {
+        k_: v_ for k_, v_ in registry.launch_counts().items() if v_}
+    emit({"phase": "vlm", "step": "engine", **eng})
+    del params
+    free_card(torch)
+
+    cpu_check = lm_card_vs_cpu(torch, cfg.replace(n_layers=LM_CPU_LAYERS),
+                               patches=cfg.n_patches)
+    emit({"phase": "vlm", "step": "card vs cpu", **cpu_check,
+          "tolerance_over_scale": LM_BF16_TOL})
+    emit({"phase": "vlm", "step": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return {"flash": flash,
+            "launches": {k_: int(v_) for k_, v_ in
+                         pre["launches_per_call"].items()}}
+
+
+# ---------------------------------------------------------------------------
+# The LM's training at Qwen2.5-3B's full width
+# ---------------------------------------------------------------------------
+
+#: the card's published dense bf16 tensor-core peak (H100 SXM data sheet)
+BF16_FLOPS_PER_S = 989e12
+#: one attention layer at Qwen2.5-3B's microbatch of 1 x 1,024: 16 query
+#: heads over 2 KV heads of 128, causal, fp32
+TR_ATTN = (1, 1024, 16, 2, 128)
+#: K5's gradients against autograd through full_attention, and its lse
+#: against the plain version: fp32 sums in other orders
+TR_GRAD_RTOL, TR_GRAD_ATOL = 1e-4, 1e-5
+#: the training run: global batch x sequence (in cfg.microbatches = 4
+#: microbatches of 1 x 1,024), replayed steps timed
+TR_BATCH, TR_SEQ, TR_STEPS = 4, 1024, 5
+#: the first batch's loss at full depth against the CPU: the card's at
+#: the training shape with the targets past TR_FIRST_PREFIX masked (-1),
+#: the CPU's on that prefix alone (causal: the same positions' losses),
+#: relative (bf16 activations, other sum orders: 10x the 1.5e-5 read on
+#: an H100, PERF.md)
+TR_FIRST_PREFIX, TR_FIRST_RTOL = 64, 1.5e-4
+#: replay against eager at full width but cut in depth: two copies of
+#: the full state (2 x 49.4 GB) do not fit on the card
+TR_EAGER_LAYERS, TR_EAGER_STEPS = 4, 2
+#: the card against the CPU: layers, batch x sequence; loss and grad norm
+#: (bf16 activations: cuBLAS's bf16 products and K5's fp32 sums against
+#: the CPU's widened products move bf16 roundings; about 10x the reads on
+#: an H100, 9.5e-6 and 2.3e-3)
+TR_CPU_LAYERS, TR_CPU_S, TR_CPU_LOSS_RTOL, TR_CPU_GN_RTOL = 2, 256, 1e-4, \
+    0.02
+#: and each gradient leaf of ``lm.train_loss`` there: max |difference|
+#: over the leaf's max |gradient| (the loss, dominated at this init by the
+#: tied embedding's self term, barely sees the layers; their gradients
+#: do; the worst read on an H100 6.7e-3)
+TR_CPU_LEAF_TOL = 0.05
+#: whisper-tiny's steps: global batch (its 8 microbatches of one), frames,
+#: tokens
+TR_ED_BATCH, TR_ED_TOKENS, TR_ED_STEPS = 8, 448, 3
+#: xLSTM's refusal: one superblock (7 mLSTM + 1 sLSTM layers)
+TR_XL_LAYERS = 8
+
+
+def train_attention(torch) -> dict:
+    """One attention layer's training at Qwen2.5-3B's microbatch shape: K5
+    forward with the rows' lse and the torch backward against autograd
+    through ``full_attention``; the lse against the plain version; the
+    forward, the backward and SDPA's forward and forward + backward timed;
+    K5 at the LM prefill's shape (64, 1,024, 128) with and without the lse
+    store."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.nn import attention
+
+    b, s, h, kv, d = TR_ATTN
+    g = h // kv
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    q = torch.randn(b, s, h, d, generator=gen, device="cuda")
+    k, v = (torch.randn(b, s, kv, d, generator=gen, device="cuda")
+            for _ in range(2))
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda")
+    pos = torch.arange(s, device="cuda").expand(b, s)
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*ts).backward(do)
+        return [t.grad for t in ts]
+    got = grads(lambda a, b_, c: fa_ops.attention(a, b_, c, causal=True))
+    want = grads(lambda a, b_, c: attention.full_attention(
+        a, b_, c, q_pos=pos, k_pos=pos, causal=True))
+    errs = {n: float((x - y).abs().max()) for n, x, y in zip(
+        ("dq", "dk", "dv"), got, want)}
+    check(all(torch.allclose(x, y, rtol=TR_GRAD_RTOL, atol=TR_GRAD_ATOL)
+              for x, y in zip(got, want)),
+          f"K5's training gradients differ from autograd through "
+          f"full_attention by {errs}")
+
+    # the kernel with lse, (B*H, S, D), and its plain version
+    qh = q.transpose(1, 2).reshape(b * h, s, d).contiguous()
+    kh, vh = (t.repeat_interleave(g, 2).transpose(1, 2).reshape(
+        b * h, s, d).contiguous() for t in (k, v))
+    lse = torch.empty(b * h, s, device="cuda")
+    o = flash_attention(qh, kh, vh, causal=True, lse=lse)
+    _, lse_ref = flash_attention_ref(qh, kh, vh, causal=True, with_lse=True)
+    lse_err = float((lse - lse_ref).abs().max())
+    check(torch.allclose(lse, lse_ref, rtol=TR_GRAD_RTOL,
+                         atol=TR_GRAD_ATOL),
+          f"K5's lse differs from its plain version by {lse_err}")
+    pairs = causal_pairs(s)
+    fwd = kernel_call(
+        torch, f"({b * h}, {s}, {d}) causal=True, lse",
+        lambda: flash_attention(qh, kh, vh, causal=True, lse=lse),
+        lambda: flash_attention_ref(qh, kh, vh, causal=True,
+                                    with_lse=True)[0],
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
+        4 * (4 * b * h * s * d + b * h * s), 4 * b * h * pairs * d,
+        rtol=FLASH_RTOL, atol=FLASH_ATOL, plain_runs=20, runs=40)
+
+    # the torch backward on the kernel's output and lse, and SDPA forward
+    # + backward
+    out = o.view(b, h, s, d).transpose(1, 2).reshape(b, s, kv, g, d)
+    m = lse.view(b, kv, g, s)
+
+    def backward():
+        return attention.blockwise_grads(
+            q, k, v, pos, pos, out, m, None, do, causal=True, window=None,
+            logit_cap=0.0, block_size=fa_ops.BACKWARD_BLOCK)
+    # 5 products of 2 * pairs * D each, and q, k, v, out, lse, do read,
+    # dq, dk, dv written
+    bwd_bytes = 4 * (4 * b * s * h * d + 4 * b * s * kv * d + b * h * s)
+    bwd_flops = 10 * b * h * pairs * d
+    bwd_ms = device_ms(torch, backward, 20, chunk=10,
+                       label="training attention backward")
+    bwd_bound, bwd_by = bound(bwd_bytes, bwd_flops)
+    qs, ks, vs = (t.transpose(1, 2).clone().requires_grad_()
+                  for t in (q, k.repeat_interleave(g, 2),
+                            v.repeat_interleave(g, 2)))
+    dos = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qs, ks, vs,
+                                       is_causal=True).backward(dos)
+    sdpa_ms = device_ms(torch, sdpa_fwd_bwd, 20, chunk=10,
+                        label="sdpa forward + backward")
+    # K5 at the LM prefill's shape: with the lse store, and without
+    bh2 = LM_FLASH_CASES[0][0]
+    q2, k2, v2 = (torch.randn(bh2, s, d, generator=gen, device="cuda")
+                  for _ in range(3))
+    lse2 = torch.empty(bh2, s, device="cuda")
+    prefill_ms = {
+        "without_lse": device_ms(torch, lambda: flash_attention(
+            q2, k2, v2, causal=True), 20, chunk=10, label="k5 prefill"),
+        "with_lse": device_ms(torch, lambda: flash_attention(
+            q2, k2, v2, causal=True, lse=lse2), 20, chunk=10,
+            label="k5 prefill lse")}
+    del q2, k2, v2
+    torch.cuda.empty_cache()
+    return {"shape": {"batch": b, "seq": s, "heads": h, "kv_heads": kv,
+                      "head_dim": d, "causal": True},
+            "grad_max_abs_err": errs, "lse_max_abs_err": lse_err,
+            "tolerance": {"rtol": TR_GRAD_RTOL, "atol": TR_GRAD_ATOL},
+            "forward": fwd, "backward_torch_ms": bwd_ms,
+            "backward_bound_ms": bwd_bound, "backward_bound_by": bwd_by,
+            "backward_bytes": bwd_bytes, "backward_flops": bwd_flops,
+            "sdpa_forward_ms": fwd["library_ms"],
+            "sdpa_forward_backward_ms": sdpa_ms,
+            "k5_forward_plus_torch_backward_ms": fwd["ms"] + bwd_ms,
+            "k5_lm_prefill_shape_ms": prefill_ms}
+
+
+def _sample(torch, tree) -> list:
+    """A few values of each leaf, to see that a step moved them."""
+    from repro_torch.nn.module import tree_leaves
+    return [t.reshape(-1)[:4].clone() for t in tree_leaves(tree)]
+
+
+def first_loss_vs_cpu(torch, cfg, params, batch: dict) -> dict:
+    """The first microbatch's loss over its first TR_FIRST_PREFIX
+    positions at full depth: on the card at the training shape, the
+    targets after the prefix masked; on the CPU, from a host copy of the
+    same weights, on the prefix alone.  Held within TR_FIRST_RTOL."""
+    from repro_torch.models import lm
+    from repro_torch.nn import module
+
+    n = TR_FIRST_PREFIX
+    tokens = torch.as_tensor(batch["tokens"][:1])
+    targets = torch.as_tensor(batch["targets"][:1]).clone()
+    targets[:, n:] = -1
+    with torch.no_grad():
+        card = float(lm.train_loss(cfg, params, {
+            "tokens": tokens.cuda(), "targets": targets.cuda()})[1]["loss"])
+        t0 = time.perf_counter()
+        host = module.map_tree(lambda t: t.to("cpu"), params)
+        cpu = float(lm.train_loss(cfg, host, {
+            "tokens": tokens[:, :n], "targets": targets[:, :n]})[1]["loss"])
+        seconds = time.perf_counter() - t0
+    del host
+    rel = abs(card - cpu) / abs(cpu)
+    check(rel <= TR_FIRST_RTOL,
+          f"{LM_ARCH} first microbatch's loss over {n} positions: card "
+          f"{card}, CPU {cpu} ({rel:.3g} apart, over {TR_FIRST_RTOL})")
+    return {"prefix": n, "cuda": card, "cpu": cpu, "rel_err": rel,
+            "rtol": TR_FIRST_RTOL, "cpu_seconds": seconds}
+
+
+def train_full(torch) -> dict:
+    """Qwen2.5-3B trained at full width and depth: the first call (one
+    eager step, then the capture), TR_STEPS replayed steps timed, one
+    profiled; memory; the launches per replayed step."""
+    import math
+
+    from repro_torch.configs import registry as configs
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.kernels import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.nn import module, transformer
+    from repro_torch.optim import adamw
+
+    cfg = configs.get_config(LM_ARCH)
+    free_card(torch)
+    params, model = draw(torch, cfg, LM_ARCH, LM_PARAMS)
+    state = adamw.init_state(params)
+    state_bytes = torch.cuda.memory_allocated()
+    pipe = SyntheticTokenPipeline(DataConfig(
+        seq_len=TR_SEQ, global_batch=TR_BATCH, vocab_size=cfg.vocab_size))
+    batches = [pipe.batch_at(i) for i in range(TR_STEPS + 3)]
+    # the first batch's loss with no gradient: the step's first loss must
+    # be it (the forward's values do not depend on autograd or remat); and
+    # its first microbatch's prefix against the CPU at full depth
+    with torch.no_grad():
+        first = sum(float(lm.train_loss(cfg, params, {
+            k_: torch.as_tensor(v_[i:i + 1]).cuda()
+            for k_, v_ in batches[0].items()})[1]["loss"])
+            for i in range(TR_BATCH)) / TR_BATCH
+    vs_cpu = first_loss_vs_cpu(torch, cfg, params, batches[0])
+    step = steps.make_train_step(cfg)
+    before = _sample(torch, params)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, _, m = step(params, state, batches[0])
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    losses = [float(m["loss"])]
+    emit({"phase": "train_lm", "step": "first call", "seconds": first_call_s,
+          "loss": losses[0], "no_grad_loss": first,
+          "ln_vocab": math.log(cfg.vocab_size), "prefix_vs_cpu": vs_cpu,
+          "grad_norm": float(m["grad_norm"]),
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    check(math.isfinite(losses[0])
+          and abs(losses[0] - first) <= 1e-4 * abs(first),
+          f"{LM_ARCH} first loss {losses[0]}, no-grad forward {first}")
+    registry.reset_launch_counts()
+    times = []
+    for i in range(1, TR_STEPS + 1):
+        t0 = time.perf_counter()
+        _, _, m = step(params, state, batches[i])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    per_step = {k_: v_ / TR_STEPS
+                for k_, v_ in registry.launch_counts().items() if v_}
+    after = _sample(torch, params)
+    moved = sum(not torch.equal(a, b_) for a, b_ in zip(before, after))
+    check(all(math.isfinite(x) for x in losses)
+          and moved == len(before),
+          f"{LM_ARCH} training: losses {losses}, {moved} of "
+          f"{len(before)} leaves moved")
+    want_k5 = 2 * cfg.n_layers * cfg.microbatches
+    check(per_step == {"flash_attention": want_k5},
+          f"{LM_ARCH} replayed step launched {per_step}, want "
+          f"flash_attention {want_k5} (forward and remat recompute per "
+          f"layer and microbatch) and nothing else")
+    prof = device_profile(torch, lambda: step(params, state, batches[-1]),
+                          reps=1)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = statistics.median(times)
+    tokens = TR_BATCH * TR_SEQ
+    n = module.param_count(transformer.model_specs(cfg))
+    out = {"arch": LM_ARCH, **model, "reduced": None,
+           "first_loss_vs_cpu": vs_cpu, "batch": TR_BATCH, "seq": TR_SEQ,
+           "microbatches": cfg.microbatches, "remat": cfg.remat,
+           "state_bytes": state_bytes, "peak_device_bytes": peak,
+           "reserved_bytes": torch.cuda.memory_reserved(),
+           "first_call_s": first_call_s, "losses": losses,
+           "step_ms_p50": p50, "step_ms": times,
+           "tokens_per_s": tokens / p50 * 1e3,
+           "model_flops_per_step": 6 * n * tokens,
+           "mfu_bf16_dense": 6 * n * tokens / (p50 / 1e3)
+           / BF16_FLOPS_PER_S,
+           "launches_per_step": per_step,
+           **{k_: v_ for k_, v_ in prof.items() if k_ != "kernels"},
+           "kernels_top": prof["kernels"][:14]}
+    step.runner().release()
+    del params, state, step
+    free_card(torch)
+    return out
+
+
+def train_replay_vs_eager(torch) -> dict:
+    """TR_EAGER_STEPS replayed steps against as many eager ones on a copy
+    of the state, at Qwen2.5-3B's width and TR_EAGER_LAYERS layers, under
+    deterministic algorithms (the step made, and so captured, under them):
+    losses, parameters and moments value for value."""
+    from repro_torch.configs import registry as configs
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.nn import module, transformer
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.optim import adamw
+
+    cfg = configs.get_config(LM_ARCH).replace(n_layers=TR_EAGER_LAYERS)
+    specs = transformer.model_specs(cfg)
+    pipe = SyntheticTokenPipeline(DataConfig(
+        seq_len=TR_SEQ, global_batch=TR_BATCH, vocab_size=cfg.vocab_size))
+    saved = torch.are_deterministic_algorithms_enabled()
+    try:
+        torch.use_deterministic_algorithms(True)
+        trees = []
+        for _ in range(2):
+            p = module.init_tree(specs, torch.Generator(
+                device="cuda").manual_seed(0), device="cuda")
+            trees.append((p, adamw.init_state(p)))
+        step = steps.make_train_step(cfg)
+        losses = {"replayed": [], "eager": []}
+        for i in range(TR_EAGER_STEPS + 1):
+            b = pipe.batch_at(i)
+            for label, fn, (p, st) in (("replayed", step, trees[0]),
+                                       ("eager", step.eager, trees[1])):
+                losses[label].append(float(fn(p, st, b)[2]["loss"]))
+        differ = sum(value_diff(torch, a, b_) for a, b_ in zip(
+            tree_leaves(trees[0]), tree_leaves(trees[1])))
+        step.runner().release()
+    finally:
+        torch.use_deterministic_algorithms(saved)
+    check(losses["replayed"] == losses["eager"] and differ == 0,
+          f"{LM_ARCH} ({TR_EAGER_LAYERS} layers): replayed losses "
+          f"{losses['replayed']}, eager {losses['eager']}, {differ} state "
+          f"values differing")
+    del trees
+    free_card(torch)
+    return {"layers": TR_EAGER_LAYERS,
+            "reduced": f"n_layers {TR_EAGER_LAYERS} of 36: two copies of "
+                       f"the full state (2 x 49.4 GB) do not fit",
+            "steps": TR_EAGER_STEPS + 1, "replays_checked": TR_EAGER_STEPS,
+            "losses": losses, "state_values_differing": differ,
+            "deterministic": True}
+
+
+def _named_leaves(tree, prefix: str = "") -> list:
+    """(path, leaf) of a tree of dicts, keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def train_card_vs_cpu(torch) -> dict:
+    """One step at TR_CPU_LAYERS layers of Qwen2.5-3B's width on the card
+    and on the CPU, from the same weights and batch (1 x TR_CPU_S, one
+    microbatch): the loss within TR_CPU_LOSS_RTOL, the grad norm within
+    TR_CPU_GN_RTOL; and each gradient leaf of ``lm.train_loss`` within
+    TR_CPU_LEAF_TOL of the leaf's max |gradient|."""
+    from repro_torch.configs import registry as configs
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.nn import module, transformer
+    from repro_torch.optim import adamw
+
+    cfg = configs.get_config(LM_ARCH).replace(n_layers=TR_CPU_LAYERS,
+                                              microbatches=1)
+    w = module.init_tree(transformer.model_specs(cfg),
+                         torch.Generator().manual_seed(81))
+    b = SyntheticTokenPipeline(DataConfig(
+        seq_len=TR_CPU_S, global_batch=1,
+        vocab_size=cfg.vocab_size)).batch_at(0)
+    out, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = module.map_tree(
+            lambda t: t.to(dev, copy=True).requires_grad_(), w)
+        named = _named_leaves(p)
+        total, _ = lm.train_loss(cfg, p, {
+            k_: torch.as_tensor(v_).to(dev) for k_, v_ in b.items()})
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(
+            total, [t for _, t in named])]
+        p = module.map_tree(lambda t: t.detach(), p)
+        t0 = time.perf_counter()
+        _, _, m = steps.make_train_step(cfg).eager(p, adamw.init_state(p),
+                                                   b)
+        out[dev] = {"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "seconds": time.perf_counter() - t0}
+        del p
+    free_card(torch)
+    leaf_err = {}
+    for (name, _), a, c in zip(named, grads["cuda"], grads["cpu"]):
+        scale = float(c.abs().max())
+        leaf_err[name] = float((a - c).abs().max()) / scale if scale \
+            else float(a.abs().max())
+    worst = max(leaf_err, key=leaf_err.get)
+    dl = abs(out["cuda"]["loss"] - out["cpu"]["loss"]) / abs(
+        out["cpu"]["loss"])
+    dg = abs(out["cuda"]["grad_norm"] - out["cpu"]["grad_norm"]) / abs(
+        out["cpu"]["grad_norm"])
+    check(dl <= TR_CPU_LOSS_RTOL and dg <= TR_CPU_GN_RTOL
+          and leaf_err[worst] <= TR_CPU_LEAF_TOL,
+          f"{LM_ARCH} ({TR_CPU_LAYERS} layers) step on the card against "
+          f"the CPU: loss {dl:.4g}, grad norm {dg:.4g} apart; gradient "
+          f"leaf {worst} {leaf_err[worst]:.4g} of its max")
+    return {"layers": TR_CPU_LAYERS, "seq": TR_CPU_S, **out,
+            "loss_rel_err": dl, "grad_norm_rel_err": dg,
+            "grad_leaf_err_over_max": leaf_err, "worst_leaf": worst,
+            "tolerance": {"loss_rtol": TR_CPU_LOSS_RTOL,
+                          "grad_norm_rtol": TR_CPU_GN_RTOL,
+                          "grad_leaf_over_max": TR_CPU_LEAF_TOL}}
+
+
+def train_whisper(torch) -> dict:
+    """whisper-tiny's ``encdec.train_loss`` through ``make_train_step`` on
+    the card: TR_ED_STEPS steps (the first captures), losses finite, K5's
+    launches per replayed step as counted."""
+    import math
+
+    import numpy as np
+    from repro_torch.configs import registry as configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec
+    from repro_torch.nn import module
+    from repro_torch.optim import adamw
+
+    cfg = configs.get_config(ED_ARCH)
+    params = module.init_tree(encdec.model_specs(cfg), torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    state = adamw.init_state(params)
+    step = steps.make_train_step(cfg)
+    rng = np.random.default_rng(82)
+    losses, times, launches = [], [], []
+    for _ in range(TR_ED_STEPS):
+        toks = rng.integers(1, cfg.vocab_size, (TR_ED_BATCH,
+                                                TR_ED_TOKENS + 1))
+        b = {"frames": rng.standard_normal((
+            TR_ED_BATCH, cfg.encoder_len, cfg.d_model)).astype(np.float32),
+            "tokens": toks[:, :-1].astype(np.int32),
+            "targets": toks[:, 1:].astype(np.int32)}
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, _, m = step(params, state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        launches.append({k_: v_ for k_, v_ in
+                         registry.launch_counts().items() if v_})
+    check(all(math.isfinite(x) for x in losses),
+          f"{ED_ARCH} training losses {losses}")
+    want = (cfg.n_encoder_layers + cfg.n_layers) * cfg.microbatches
+    check(launches[-1] == {"flash_attention": want},
+          f"{ED_ARCH} replayed step launched {launches[-1]}, want "
+          f"flash_attention {want}")
+    step.runner().release()
+    del params, state
+    free_card(torch)
+    return {"arch": ED_ARCH, "batch": TR_ED_BATCH,
+            "frames": cfg.encoder_len, "tokens": TR_ED_TOKENS,
+            "microbatches": cfg.microbatches,
+            "remat": "none (the reference's encdec has no remat)",
+            "losses": losses, "step_ms": times,
+            "launches_per_step": launches}
+
+
+def train_xlstm_refused(torch) -> dict:
+    """xlstm-1.3b at one superblock: its training step on the card raises
+    the sLSTM kernel's ``NotImplementedError`` (no backward kernel yet)
+    and runs no plain loop in its place."""
+    import numpy as np
+    from repro_torch.configs import registry as configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch import steps
+    from repro_torch.nn import module, transformer
+    from repro_torch.optim import adamw
+
+    cfg = configs.get_config("xlstm-1.3b").replace(n_layers=TR_XL_LAYERS)
+    params = module.init_tree(transformer.model_specs(cfg), torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    rng = np.random.default_rng(83)
+    toks = rng.integers(1, cfg.vocab_size, (cfg.microbatches, 65))
+    b = {"tokens": toks[:, :-1].astype(np.int32),
+         "targets": toks[:, 1:].astype(np.int32)}
+    registry.reset_launch_counts()
+    try:
+        steps.make_train_step(cfg)(params, adamw.init_state(params), b)
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    check(raised is not None and "8.5b" in raised,
+          f"xlstm-1.3b's training step on the card did not raise: {raised}")
+    launched = {k_: v_ for k_, v_ in registry.launch_counts().items() if v_}
+    del params
+    free_card(torch)
+    return {"layers": TR_XL_LAYERS, "raised": raised,
+            "port_kernel_launches": launched}
+
+
+def phase_train_lm(torch) -> dict:
+    """The LM's training on the card: one attention layer's gradients at
+    Qwen2.5-3B's microbatch shape; Qwen2.5-3B trained at full width and
+    depth (3,085,938,688 parameters, batch 4 x 1,024 in 4 microbatches,
+    full remat, each step a replayed graph); replay against eager at four
+    layers; the card against the CPU at two layers; whisper-tiny's
+    training steps; xLSTM's refusal."""
+    t_phase = time.perf_counter()
+    att = train_attention(torch)
+    emit({"phase": "train_lm", "step": "attention", **att})
+    full = train_full(torch)
+    emit({"phase": "train_lm", "step": "qwen2.5-3b", **full})
+    eager = train_replay_vs_eager(torch)
+    emit({"phase": "train_lm", "step": "replayed vs eager", **eager})
+    cpu = train_card_vs_cpu(torch)
+    emit({"phase": "train_lm", "step": "card vs cpu", **cpu})
+    ed = train_whisper(torch)
+    emit({"phase": "train_lm", "step": "whisper-tiny", **ed})
+    xl = train_xlstm_refused(torch)
+    emit({"phase": "train_lm", "step": "xlstm refused", **xl})
+    emit({"phase": "train_lm", "step": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return {"attention": att,
+            "launches": {k_: int(v_) for k_, v_ in
+                         full["launches_per_step"].items()},
+            "whisper_launches": {k_: int(v_) for k_, v_ in
+                                 ed["launches_per_step"][-1].items()}}
+
+
 KERNEL_META = {
     "conv2d_vmem": ("src/repro_torch/csrc/conv2d_vmem.cu",
                     "src/repro/kernels/conv2d_vmem/conv2d_vmem.py:82"),
@@ -3653,6 +4205,8 @@ def main() -> int:
         rgr = phase_recurrent(torch)
         xl = phase_xlstm(torch)
         ed = phase_encdec(torch)
+        vlm = phase_vlm(torch)
+        trl = phase_train_lm(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3670,6 +4224,9 @@ def main() -> int:
     by_path["xlstm_prefill"] = xl["launches"]
     by_path["xlstm_tick"] = xl["tick_launches"]
     by_path["whisper_encode"] = ed["launches"]
+    by_path["vlm_prefill"] = vlm["launches"]
+    by_path["train_lm_step"] = trl["launches"]
+    by_path["whisper_train_step"] = trl["whisper_launches"]
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         rec = kern[name]
@@ -3737,6 +4294,35 @@ def main() -> int:
                 **{k: ed["flash"][k] for k in (
                     "call", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "max_abs_err")}}
+            # and at qwen2-vl-2b's prefill (1,024 patches + 1,024 tokens)
+            rows[-1]["vlm"] = {
+                "per": "one call; launches_by_path['vlm_prefill'] counts "
+                       "one qwen2-vl-2b prefill at 4 x 2,048 positions "
+                       "(its calls: B 4, 12 query heads over 2 KV heads)",
+                **{k: vlm["flash"][k] for k in (
+                    "call", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err")}}
+            # and in training, with the rows' lse, beside the torch
+            # backward (no TPU kernel has a backward) and SDPA's
+            att = trl["attention"]
+            rows[-1]["train"] = {
+                "per": "one call at Qwen2.5-3B's microbatch (B 1, S 1,024, "
+                       "16 query heads over 2 KV heads, D 128, causal, "
+                       "fp32); launches_by_path['train_lm_step'] counts "
+                       "one replayed Qwen2.5-3B step (4 microbatches, "
+                       "forward and remat recompute), "
+                       "['whisper_train_step'] one whisper-tiny step",
+                **{k: att["forward"][k] for k in (
+                    "call", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err")},
+                "library": "F.scaled_dot_product_attention, forward",
+                "backward_route": "torch (nn/attention.blockwise_grads)",
+                **{k: att[k] for k in (
+                    "backward_torch_ms", "backward_bound_ms",
+                    "backward_bound_by", "sdpa_forward_backward_ms",
+                    "k5_forward_plus_torch_backward_ms",
+                    "grad_max_abs_err", "lse_max_abs_err",
+                    "k5_lm_prefill_shape_ms")}}
         if name in NO_LIBRARY:
             rows[-1]["library_ms_null_because"] = NO_LIBRARY[name]
     # the sLSTM's time loop, which replaces no TPU kernel: its main path

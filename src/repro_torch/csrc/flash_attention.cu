@@ -38,6 +38,12 @@
 // Keys that the causal mask or the window exclude are not visited.  The
 // exponential is expf, not __expf; sums stay fp32 FMAs on the CUDA cores
 // (TF32 would move results past the 1e-4 tolerance).
+//
+// Training: given an `lse` buffer, the epilogue also writes each row's
+// log-sum-exp, m + log(max(l, 1e-37)) (m taken as 0 where the row saw no
+// key), one fp32 per (bh, query row) from the merged lanes; the backward
+// (PyTorch, repro_torch/nn/attention.py) recomputes the probabilities as
+// exp(score - lse).  Serving passes a null pointer and nothing is written.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -61,6 +67,7 @@ struct Operand {
 
 struct Attn {
   Operand q, k, v, o;
+  float* lse;  // (nbh, sq) log-sum-exp per row, or null
   int nh, nbh, sq, skv, d;
   float scale, cap;
   int causal, window;
@@ -303,6 +310,10 @@ __global__ void flash_attention_kernel(const __grid_constant__ Attn a) {
         const int dd = ch * DC + c;
         if ((c & (G - 1)) == lane && dd < a.d) orow[dd * a.o.sd] = acc[c] / den;
       }
+      // every chunk of D recomputes the same m and l: the first writes
+      if (a.lse != nullptr && ch == 0 && lane == 0)
+        a.lse[(long long)bh * a.sq + qpos] =
+            (m == kNegInf ? 0.0f : m) + logf(den);
     }
   }
 }
@@ -418,11 +429,12 @@ int occupancy(const Shape& s) {
 
 // q, k, v: (nb, nh, sq | skv, d) fp32 views with element strides
 // strides[0..3], [4..7], [8..11] over (B, H, S, D); out likewise with
-// strides[12..15].  1 <= d <= kMaxHeadDim; window <= 0: no window;
+// strides[12..15]; lse: null, or (nb * nh, sq) contiguous fp32 for each
+// row's log-sum-exp.  1 <= d <= kMaxHeadDim; window <= 0: no window;
 // logit_cap == 0: no cap.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a d it does not take.
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* out,
+                                   const void* v, void* out, void* lse,
                                    const long long* strides, int nb, int nh,
                                    int sq, int skv, int d, int causal,
                                    int window, float logit_cap,
@@ -436,6 +448,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                       strides[4 * i + 1], strides[4 * i + 2],
                       strides[4 * i + 3]};
   }
+  a.lse = (float*)lse;
   a.nh = nh;
   a.nbh = nb * nh;
   a.sq = sq;

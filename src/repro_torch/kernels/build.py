@@ -42,7 +42,7 @@ SIGNATURES = {
     "quantize_f32": [_P, _P, ctypes.c_longlong, _I, _I, _P],
     "dfg_segment_f32": [_P, ctypes.c_longlong, _P, _P] + [_I] * 5 + [_P],
     "dfg_segment_shape": [_I, _P],
-    "flash_attention_f32": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P],
+    "flash_attention_f32": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P],
     "flash_attention_shape": [_I] * 4 + [_P],
     "slstm_scan_f32": [_P] * 7 + [_I] * 4 + [_P],
 }

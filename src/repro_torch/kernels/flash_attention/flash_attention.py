@@ -5,8 +5,9 @@ Online-softmax attention over (BH, S, D) fp32 with heads pre-flattened
 into BH, scale 1/sqrt(D), optionally causal, windowed and soft-capped —
 the reference ``flash_attention``'s contract, any S and any D up to
 ``MAX_HEAD_DIM``.  The operands may be strided views, and may keep batch
-and heads apart as (B, H, S, D).  ``flash_attention.launches`` counts the
-launches.
+and heads apart as (B, H, S, D).  For training the kernel also writes
+each query row's log-sum-exp into a given ``lse`` buffer, which the
+backward reads.  ``flash_attention.launches`` counts the launches.
 """
 
 from __future__ import annotations
@@ -37,13 +38,17 @@ def _heads(t: torch.Tensor, name: str) -> tuple[int, int, list[int]]:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     logit_cap: float = 0.0,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None,
+                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (BH, Sq, D), k/v: (BH, Skv, D) — or (B, H, S, D) — fp32 views on
     one CUDA device, any strides -> (BH, Sq, D), written into ``out`` (a
-    view of q's shape, any strides) when it is given."""
+    view of q's shape, any strides) when it is given.  ``lse``, when
+    given: a contiguous fp32 (B*H, Sq) tensor that receives each row's
+    log-sum-exp, ``m + log(max(l, 1e-37))`` (``m`` 0 for a row that sees
+    no key)."""
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         require(t, name, ndim=q.dim(), contiguous=False)
-    same_device(q, k, v, out)
+    same_device(q, k, v, out, lse)
     nb, nh, q_strides = _heads(q, "q")
     sq, d = q.shape[-2:]
     skv = k.shape[-2]
@@ -61,6 +66,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if out.shape != q.shape:
             raise ValueError(f"out {tuple(out.shape)} is not q's shape "
                              f"{tuple(q.shape)}")
+    if lse is not None:
+        require(lse, "lse", ndim=2)
+        if tuple(lse.shape) != (nb * nh, sq):
+            raise ValueError(f"lse {tuple(lse.shape)} is not (B*H, Sq) = "
+                             f"{(nb * nh, sq)}")
     if q.numel() == 0:
         return out
     strides = q_strides + _heads(k, "k")[2] + _heads(v, "v")[2] \
@@ -68,6 +78,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = build.library().flash_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         (ctypes.c_longlong * 16)(*strides), nb, nh, sq, skv, d,
         int(causal), int(window or 0), float(logit_cap), stream)
     build.check(err, "flash_attention")

@@ -1,5 +1,6 @@
 """Plain PyTorch version of flash_attention (flattened-heads layout): the
-whole score matrix, the reference's mask and soft-cap, then softmax."""
+whole score matrix, the reference's mask and soft-cap, then softmax; and,
+for training, each row's log-sum-exp as the kernel writes it."""
 
 from __future__ import annotations
 
@@ -13,8 +14,10 @@ NEG_INF = -2.3819763e38
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
-                        logit_cap: float = 0.0) -> torch.Tensor:
-    """q: (BH, Sq, D), k/v: (BH, Skv, D)."""
+                        logit_cap: float = 0.0, with_lse: bool = False):
+    """q: (BH, Sq, D), k/v: (BH, Skv, D) -> (BH, Sq, D); with ``with_lse``
+    also the fp32 (BH, Sq) log-sum-exp ``m + log(max(l, 1e-37))`` of each
+    row's scores (``m`` 0 where the row sees no key), the kernel's."""
     d = q.shape[-1]
     # sqrt(d) rounds to the same fp32 as the reference's jnp.sqrt
     s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
@@ -31,4 +34,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ok &= (qp - kp) < window
     s = torch.where(ok[None], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", w, v.to(torch.float32)).to(q.dtype)
+    out = torch.einsum("bqk,bkd->bqd", w, v.to(torch.float32)).to(q.dtype)
+    if not with_lse:
+        return out
+    m = torch.amax(s, dim=-1)
+    m = torch.where(m == NEG_INF, 0.0, m)
+    l = torch.where(ok[None], torch.exp(s - m[..., None]), 0.0).sum(-1)
+    return out, m + torch.log(torch.clamp(l, min=1e-37))

@@ -16,7 +16,16 @@ def scan(x_pre: Sequence[torch.Tensor], rec: Sequence[torch.Tensor],
          ) -> torch.Tensor:
     """hs (B, S, H, W) of the sLSTM over x_pre's steps, the (B, H, W)
     state ``h, c, n, m`` updated in place (shapes as in
-    :func:`slstm_scan`)."""
+    :func:`slstm_scan`).
+
+    On the CPU the plain step loop is differentiable, as the reference's
+    ``lax.scan`` is.  The kernel has no backward yet: on the card a call
+    that needs a gradient raises."""
     if h.device.type == "cpu":
         return slstm_scan_ref(x_pre, rec, h, c, n, m)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*x_pre, *rec, h, c, n, m)):
+        raise NotImplementedError(
+            "slstm_scan has no backward kernel: xLSTM's training on the "
+            "card waits for it, ROADMAP.md queue 1 item 8.5b")
     return slstm_scan(x_pre, rec, h, c, n, m)

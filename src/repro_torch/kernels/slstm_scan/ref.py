@@ -15,8 +15,10 @@ def slstm_scan_ref(x_pre: Sequence[torch.Tensor], rec: Sequence[torch.Tensor],
     """x_pre: the gates' (i, f, z, o) preactivations, four (B, S, H, W);
     rec: their recurrent weights, four (H, W, W); h, c, n, m: the (B, H, W)
     state, written back in place -> hs (B, S, H, W), every step's h.  All
-    fp32."""
+    fp32.  Differentiable: the loop reads copies of the state, so the
+    write-back leaves autograd's saved tensors intact."""
     state = (h, c, n, m)
+    h, c, n, m = (t.clone() for t in state)
     hs = []
     for t in range(x_pre[0].shape[1]):
         pre = [x[:, t] + torch.einsum("bhw,hwv->bhv", h, r)

@@ -1,4 +1,6 @@
-"""Launch layer: the LM serving launcher (:mod:`repro_torch.launch.serve`)
-and the machine constants of the card the port serves on
+"""Launch layer: the LM serving and training launchers
+(:mod:`repro_torch.launch.serve`, :mod:`repro_torch.launch.train`), the
+step factories they share (:mod:`repro_torch.launch.steps`) and the
+machine constants of the card the port serves on
 (:mod:`repro_torch.launch.roofline`), which the tuner's dry cost model
 reads."""

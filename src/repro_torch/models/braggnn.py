@@ -147,16 +147,22 @@ def make_step(opt_cfg: adamw.AdamWConfig, *, s: int = 1):
     the first call runs eagerly and captures): each call copies the
     parameters, moments, step count and batch into the graph's static
     inputs, replays it, and returns copies of its static outputs, which
-    the caller may keep.  On the CPU it runs eagerly; ``step.eager`` runs
-    it eagerly anywhere."""
-    def eager(params, state, x, y):
+    the caller may keep.  On the CPU it runs eagerly on copies (AdamW
+    updates in place); ``step.eager`` runs it so anywhere."""
+    def update(params, state, x, y):
+        """The step, written into ``params`` and ``state``."""
         leaves, treedef = tree_flatten(params)
         live = [p.detach().requires_grad_() for p in leaves]
         loss = loss_fn(tree_unflatten(treedef, live), x, y, s=s)
         grads = torch.autograd.grad(loss, live)
-        new_p, new_s, _ = adamw.apply_updates(
-            opt_cfg, params, tree_unflatten(treedef, list(grads)), state)
-        return new_p, new_s, loss.detach()
+        adamw.apply_updates(opt_cfg, params,
+                            tree_unflatten(treedef, list(grads)), state)
+        return params, state, loss.detach()
+
+    def eager(params, state, x, y):
+        leaves, treedef = tree_flatten((params, state))
+        params, state = tree_unflatten(treedef, [t.clone() for t in leaves])
+        return update(params, state, x, y)
 
     runners: dict = {}               #: (device, tree) -> its GraphRunner
 
@@ -171,7 +177,7 @@ def make_step(opt_cfg: adamw.AdamWConfig, *, s: int = 1):
             def call(feeds):
                 p, st = tree_unflatten(treedef, [feeds[str(i)] for i in
                                                  range(n)])
-                new_p, new_s, loss = eager(p, st, feeds["x"], feeds["y"])
+                new_p, new_s, loss = update(p, st, feeds["x"], feeds["y"])
                 return tree_flatten((new_p, new_s))[0] + [loss]
             run = runners[(x.device, treedef)] = GraphRunner(call, x.device)
         out = run({**{str(i): t for i, t in enumerate(leaves)},

@@ -15,8 +15,12 @@ output, with the materialised scores, as the reference does.
 ``serve_step`` writes the self-attention cache in place; on the card it is
 replayed from one captured CUDA graph per batch shape
 (:func:`step_runner`, the counterpart of the reference's ``jax.jit``).
-The training loss comes with the LM's training (ROADMAP.md queue 1 item
-8).
+``train_loss`` is the teacher-forced cross-entropy the train step
+(``launch/steps.py``) differentiates; K5's gradient runs through the
+reference's blockwise backward.  As in the reference, neither stack is
+rematerialised.  A stacked leaf (``encoder``, ``decoder``) may also be a
+sequence of per-layer tensors, which ``a[li]`` indexes alike: the train
+step's leaves.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.graphs import GraphRunner
+from repro_torch.models.lm import next_token_loss
 from repro_torch.nn import attention, layers, module
 from repro_torch.nn.module import map_tree
 
@@ -144,6 +149,16 @@ def decode_forward(cfg: ModelConfig, params, tokens: torch.Tensor,
     if last_logit_only:
         x = x[:, -1:, :]
     return _logits(cfg, params, x)
+
+
+def train_loss(cfg: ModelConfig, params, batch: dict
+               ) -> tuple[torch.Tensor, dict]:
+    """batch: {frames (B, T, d), tokens (B, S), targets (B, S)} ->
+    (next-token cross-entropy over targets >= 0, {"loss"})."""
+    enc = encode(cfg, params, batch["frames"])
+    logits = decode_forward(cfg, params, batch["tokens"], enc)
+    loss, _ = next_token_loss(logits, batch["targets"])
+    return loss, {"loss": loss}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -1,30 +1,77 @@
-"""Causal language model: the serving prefill and the cached serve step.
+"""Causal language model: loss, the serving prefill and the cached serve
+step.
 
-``prefill`` is the prefill workload: a full-sequence forward that returns
-the logits of the last position (the serving prefill contract);
-``serve_step`` (one token, cached) is what the decode loop runs.  The
-training loss comes with the LM's training slice (ROADMAP.md queue 1
-item 8).
+``train_loss`` is the objective the train step (``launch/steps.py``)
+differentiates; ``prefill`` is the prefill workload: a full-sequence
+forward that returns the logits of the last position (the serving prefill
+contract), the VLM's patches in front of the tokens; ``serve_step`` (one
+token, cached) is what the decode loop runs.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import module as module_lib
 from repro_torch.nn import transformer
 
 
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    """Prefill workload: fp32 logits at the final position, (B, vocab).
+#: MoE load-balance loss weight
+AUX_WEIGHT = 0.01
+
+
+def train_loss(cfg: ModelConfig, params, batch: dict
+               ) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy.  batch: {tokens, targets[, patches]}
+    (tensors; targets < 0 are not counted).  The VLM's patch positions
+    are dropped before the loss.
+
+    Returns (loss + ``AUX_WEIGHT`` x the MoE aux loss, {"loss",
+    "aux_loss", "tokens"}), fp32 scalars.
+    """
+    logits, aux = transformer.forward(cfg, params, batch["tokens"],
+                                      patches=batch.get("patches"))
+    targets = batch["targets"]
+    if logits.shape[1] != targets.shape[1]:      # VLM: drop patch positions
+        logits = logits[:, -targets.shape[1]:, :]
+    loss, tokens = next_token_loss(logits, targets)
+    total = loss + AUX_WEIGHT * aux
+    return total, {"loss": loss, "aux_loss": aux, "tokens": tokens}
+
+
+def next_token_loss(logits: torch.Tensor, targets: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean cross-entropy of ``logits`` (B, S, V) at ``targets`` (B, S)
+    over the targets >= 0, their count), fp32."""
+    targets = targets.long()
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    # -logp at each target (a target < 0 reads class 0, then counts 0):
+    # nll_loss's gradient writes each row once, where a gather's
+    # backward would add with atomics
+    nll = F.nll_loss(logp.reshape(-1, logp.shape[-1]),
+                     targets.clamp(min=0).reshape(-1),
+                     reduction="none").reshape(targets.shape)
+    mask = (targets >= 0).to(torch.float32)
+    count = torch.sum(mask)
+    return torch.sum(nll * mask) / torch.clamp(count, min=1.0), count
+
+
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
+            patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Prefill workload: fp32 logits at the final position, (B, vocab);
+    ``patches`` (B, P, d), the VLM's, go in front of the tokens.
 
     Only the last position is unembedded — (B, S, vocab) logits would cost
     GBs and S x the unembed FLOPs for values that are thrown away.
     """
-    return transformer.forward(cfg, params, tokens,
-                               last_logit_only=True)[:, -1, :]
+    logits, _ = transformer.forward(cfg, params, tokens, patches=patches,
+                                    last_logit_only=True)
+    return logits[:, -1, :]
 
 
 def serve_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache: dict,

@@ -4,15 +4,18 @@ decode.
 
 The reference's ``repro.nn.attention`` in torch.  Projections take their
 operands in the activation dtype and sum in fp32; scores, softmax and the
-probabilities-by-values product are fp32.  Prefill's self-attention runs
-the flash-attention kernel (K5, ``kernels/flash_attention``) at positions
-``arange(S)``, the reference's ``blockwise_attention`` forward on the
-card; a one-token decode step attends to the cache with the plain
-:func:`full_attention`, as the reference does, and so does the
-encoder-decoder's :func:`cross_attention` (no TPU kernel serves it in the
-reference either).  ``attn_specs``,
-``qkv_project`` and ``out_project`` also serve the transformer encoder
-block's tensor twin (``models/transformer.py``).
+probabilities-by-values product are fp32.  Prefill's and training's
+self-attention at positions ``arange(S)`` runs the flash-attention kernel
+(K5, ``kernels/flash_attention``), the reference's ``blockwise_attention``
+forward on the card, with :func:`blockwise_grads` as its backward.  At a
+caller's positions ((B, S), or (B, 3, S) for M-RoPE) it runs the
+reference's own paths on either device: :func:`blockwise_attention` above
+``block_size``, :func:`full_attention` up to it.  A one-token decode step
+attends to the cache with :func:`full_attention`, as the reference does,
+and so does the encoder-decoder's :func:`cross_attention` (no TPU kernel
+serves it in the reference either).  ``attn_specs``, ``qkv_project`` and
+``out_project`` also serve the transformer encoder block's tensor twin
+(``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.nn.layers import maybe_quantize, matmul_f32, softcap
@@ -113,8 +117,8 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    q_pos: torch.Tensor, k_pos: torch.Tensor,
                    causal: bool = True, window: Optional[int] = None,
                    logit_cap: float = 0.0) -> torch.Tensor:
-    """Materialised-scores attention (the decode step's, and the plain
-    path for a caller's positions).
+    """Materialised-scores attention (the decode step's, and a caller's
+    positions up to ``block_size``).
 
     q: (B,S,H,D); k,v: (B,T,K,D); q_pos: (B,S); k_pos: (B,T).  Scores,
     softmax and sums are fp32 on widened operands; the probabilities are
@@ -136,6 +140,148 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, s, h, d).to(v.dtype)
 
 
+# -- blockwise streaming attention, with its gradient -----------------------
+#
+# The reference's ``blockwise_attention`` and its ``jax.custom_vjp``
+# (``src/repro/nn/attention.py:124-270``) ported from jnp to torch: a loop
+# over key blocks with a running (max, denominator, accumulator), memory
+# O(S x block) instead of O(S x T), numerically the full-matrix path.  It
+# is not the plain version of a kernel: no TPU kernel has a backward, and
+# the reference trains through this function.  Its backward recomputes
+# each block's scores from the saved (out, m, l) instead of keeping every
+# block's probabilities, and serves K5's training path too
+# (``kernels/flash_attention/ops.py``), whose forward writes the rows'
+# log-sum-exp in place of (m, l).
+
+def _scale(d: int) -> float:
+    """1/sqrt(d) rounded as the reference's fp32 ``1 / jnp.sqrt(d)``."""
+    return float(1.0 / torch.sqrt(torch.tensor(float(d))))
+
+
+def _blocks(k: torch.Tensor, v: torch.Tensor, k_pos: torch.Tensor,
+            block_size: int):
+    """(k, v, k_pos) blocks of ``block_size`` keys; the last one padded with
+    zero keys at position ``INVALID_POS``, which every mask refuses."""
+    pad = -k.shape[1] % block_size
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=INVALID_POS)
+    return zip(k.split(block_size, 1), v.split(block_size, 1),
+               k_pos.split(block_size, 1))
+
+
+def _block_scores(qr, kc, pc, q_pos, scale, causal, window, logit_cap):
+    """(raw scores, masked and capped scores) of one key block, fp32
+    (B, K, G, S, block): qr (B, S, K, G, D) and kc (B, block, K, D) fp32."""
+    raw = torch.einsum("bskgd,btkd->bkgst", qr, kc) * scale
+    bias = mask_bias(q_pos, pc, causal=causal, window=window)
+    return raw, softcap(raw, logit_cap) + bias[:, None, None, :, :]
+
+
+def _blockwise_fwd(q, k, v, q_pos, k_pos, causal, window, logit_cap,
+                   block_size):
+    """The streaming forward: out (B, S, K, G, D) fp32, m and l (B, K, G,
+    S), each step in the reference's order."""
+    b, s, h, d = q.shape
+    n_kv = k.shape[2]
+    g = h // n_kv
+    qr = q.reshape(b, s, n_kv, g, d).to(ACCUM)
+    scale = _scale(d)
+    m = torch.full((b, n_kv, g, s), NEG_INF, dtype=ACCUM, device=q.device)
+    l = torch.zeros((b, n_kv, g, s), dtype=ACCUM, device=q.device)
+    acc = torch.zeros((b, s, n_kv, g, d), dtype=ACCUM, device=q.device)
+    for kc, vc, pc in _blocks(k, v, k_pos, block_size):
+        _, sc = _block_scores(qr, kc.to(ACCUM), pc, q_pos, scale, causal,
+                              window, logit_cap)
+        m_new = torch.maximum(m, sc.amax(-1))
+        m_safe = torch.where(m_new == NEG_INF, 0.0, m_new)
+        p = torch.exp(sc - m_safe[..., None])
+        p = torch.where(sc == NEG_INF, 0.0, p)
+        corr = torch.exp(torch.where(m == NEG_INF, NEG_INF, m - m_safe))
+        l = l * corr + p.sum(-1)
+        # the probabilities rounded to v's dtype, as the reference's are
+        pv = torch.einsum("bkgst,btkd->bskgd", p.to(vc.dtype).to(ACCUM),
+                          vc.to(ACCUM))
+        acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+        m = m_new
+    l = torch.clamp(l, min=1e-37)
+    return acc / l.permute(0, 3, 1, 2)[..., None], m, l
+
+
+def blockwise_grads(q, k, v, q_pos, k_pos, out, m, l, do, *, causal: bool,
+                    window: Optional[int], logit_cap: float,
+                    block_size: int):
+    """The reference's ``_blockwise_vjp_bwd``: (dq, dk, dv) in q's, k's
+    and v's dtypes from the forward's fp32 ``out`` (B, S, K, G, D) and the
+    rows' ``m`` and ``l`` (B, K, G, S), each key block's scores recomputed;
+    ``l=None`` takes ``m`` as the rows' log-sum-exp (K5's).  The widened
+    original q, k and v, fp32 throughout; a score at ``NEG_INF`` has
+    probability 0, and the soft-cap's tanh is differentiated.  Grouped KV
+    heads get the sum over their group, with no copy per group."""
+    b, s, h, d = q.shape
+    n_kv = k.shape[2]
+    g = h // n_kv
+    t = k.shape[1]
+    qr = q.reshape(b, s, n_kv, g, d).to(ACCUM)
+    scale = _scale(d)
+    do_r = do.reshape(b, s, n_kv, g, d).to(ACCUM)
+    delta = (do_r * out).sum(-1).permute(0, 2, 3, 1)          # (B,K,G,S)
+    m_safe = torch.where(m == NEG_INF, 0.0, m)
+    dq = torch.zeros((b, s, n_kv, g, d), dtype=ACCUM, device=q.device)
+    dks, dvs = [], []
+    for kc, vc, pc in _blocks(k, v, k_pos, block_size):
+        kc, vc = kc.to(ACCUM), vc.to(ACCUM)
+        raw, sc = _block_scores(qr, kc, pc, q_pos, scale, causal, window,
+                                logit_cap)
+        p = torch.exp(sc - m_safe[..., None])
+        p = torch.where(sc == NEG_INF, 0.0, p)
+        if l is not None:
+            p = p / l[..., None]                              # (B,K,G,S,T)
+        dp = torch.einsum("bskgd,btkd->bkgst", do_r, vc)
+        ds = p * (dp - delta[..., None])
+        if logit_cap:
+            ds = ds * (1.0 - torch.tanh(raw / logit_cap) ** 2)
+        dvs.append(torch.einsum("bkgst,bskgd->btkd", p, do_r))
+        dks.append(torch.einsum("bkgst,bskgd->btkd", ds, qr) * scale)
+        dq = dq + torch.einsum("bkgst,btkd->bskgd", ds, kc) * scale
+    dk = torch.cat(dks, 1)[:, :t]
+    dv = torch.cat(dvs, 1)[:, :t]
+    return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _Blockwise(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, logit_cap,
+                block_size):
+        out, m, l = _blockwise_fwd(q, k, v, q_pos, k_pos, causal, window,
+                                   logit_cap, block_size)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, m, l)
+        ctx.opts = dict(causal=causal, window=window, logit_cap=logit_cap,
+                        block_size=block_size)
+        return out.reshape(q.shape).to(v.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, k_pos, out, m, l = ctx.saved_tensors
+        dq, dk, dv = blockwise_grads(q, k, v, q_pos, k_pos, out, m, l, do,
+                                     **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, q_pos: torch.Tensor, k_pos: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        logit_cap: float = 0.0,
+                        block_size: int = 512) -> torch.Tensor:
+    """Exact streaming attention with a flash-style forward and backward:
+    q (B,S,H,D), k/v (B,T,K,D), q_pos (B,S), k_pos (B,T) -> (B,S,H,D) in
+    v's dtype."""
+    return _Blockwise.apply(q, k, v, q_pos, k_pos, causal, window,
+                            logit_cap, block_size)
+
+
 # -- top-level self-attention ------------------------------------------------
 
 def self_attention(p: dict, x: torch.Tensor,
@@ -143,22 +289,17 @@ def self_attention(p: dict, x: torch.Tensor,
                    n_kv_heads: int, causal: bool = True,
                    window: Optional[int] = None, logit_cap: float = 0.0,
                    rope_theta: float = 10000.0, rope_fraction: float = 1.0,
-                   mrope_sections=None, quant: Optional[str] = None
-                   ) -> torch.Tensor:
-    """Self-attention for prefill (no cache).
+                   mrope_sections=None, quant: Optional[str] = None,
+                   block_size: Optional[int] = None) -> torch.Tensor:
+    """Self-attention for prefill and training (no cache).
 
     ``positions=None`` means ``arange(S)`` for every sequence: the flash
     kernel's contract, which it serves on the card (its plain version on
-    the CPU).  A caller's positions ((B, S), or (B, 3, S) for M-RoPE) need
-    the materialised scores, which only the CPU computes: on the card no
-    kernel of the port takes them yet (they come with the VLM, ROADMAP.md
-    queue 1 item 8), so there they raise.
+    the CPU), with a gradient.  A caller's positions ((B, S), or (B, 3, S)
+    for M-RoPE) take the reference's paths on either device:
+    :func:`blockwise_attention` when S > ``block_size``, else
+    :func:`full_attention`.
     """
-    if positions is not None and x.device.type != "cpu":
-        raise NotImplementedError(
-            "self-attention at a caller's positions has no kernel on the "
-            "card (positions=None serves arange(S) through flash "
-            "attention); it comes with the VLM, ROADMAP.md queue 1 item 8")
     q, k, v = qkv_project(p, x, quant=quant)
     b, s = x.shape[:2]
     pos = positions
@@ -171,7 +312,11 @@ def self_attention(p: dict, x: torch.Tensor,
         y = flash_ops.attention(q, k, v, **kw)
     else:
         pos_1d = positions if positions.dim() == 2 else positions[:, 0, :]
-        y = full_attention(q, k, v, q_pos=pos_1d, k_pos=pos_1d, **kw)
+        kw.update(q_pos=pos_1d, k_pos=pos_1d)
+        if block_size is not None and s > block_size:
+            y = blockwise_attention(q, k, v, block_size=block_size, **kw)
+        else:
+            y = full_attention(q, k, v, **kw)
     return out_project(p, y, quant=quant)
 
 

@@ -41,16 +41,48 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """
     if x.dtype == torch.float32:
         return x @ w
+    if x.is_cuda:
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _MatmulF32.apply(x, w)
+        return _mm_f32(x, w)
     if w.dim() == 3:
-        if x.is_cuda:
-            return torch.bmm(x, w, out_dtype=ACCUM)
         return torch.bmm(x.to(ACCUM), w.to(ACCUM))
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
-        y = torch.mm(x2, w, out_dtype=ACCUM)
-    else:
-        y = x2.to(ACCUM) @ w.to(ACCUM)
+    y = x2.to(ACCUM) @ w.to(ACCUM)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """bf16 operands on the card: cuBLAS with an fp32 result."""
+    if w.dim() == 3:
+        return torch.bmm(x, w, out_dtype=ACCUM)
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=ACCUM)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+class _MatmulF32(torch.autograd.Function):
+    """:func:`matmul_f32` of bf16 operands on the card: cuBLAS with an fp32
+    result, whose ``out_dtype`` overloads have no derivative in PyTorch.
+    The backward takes the two products of the same kind on the cotangent
+    rounded to the operands' dtype, each summed in fp32 and rounded once
+    to that dtype: the gradients of bf16 operands are bf16, as the
+    reference's VJP converts them."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        if w.dim() == 3:
+            return (torch.bmm(g, w.transpose(1, 2)),
+                    torch.bmm(x.transpose(1, 2), g))
+        g2 = g.reshape(-1, g.shape[-1])
+        return ((g2 @ w.T).reshape(x.shape),
+                x.reshape(-1, x.shape[-1]).T @ g2)
 
 
 def activation(name: str):

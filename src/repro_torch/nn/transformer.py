@@ -14,7 +14,13 @@ stacked index in Python.  Caches (KV, the RG-LRU's ``h``, the xLSTM cells' state
 conv states) mirror the parameter layout, and the decode step writes each
 layer's slice of the stacked cache in place.
 
-Patches (VLM), decoder-only learned positions and bf16 cross-device sums
+The VLM's patch embeddings (qwen2-vl) are normed and put in front of the
+tokens.  :func:`forward` also serves training: it returns the MoE layers'
+load-balancing loss beside the logits, takes each stacked leaf either as
+one tensor or as a sequence of per-layer tensors (the train step's, so
+each layer's gradient lands in its own slice), and with gradients on runs
+each superblock layer under ``torch.utils.checkpoint`` where ``cfg.remat``
+asks for it.  Decoder-only learned positions and bf16 cross-device sums
 are not ported yet: a config that asks for one raises
 ``NotImplementedError``.  The encoder-decoder (whisper-tiny) is not a
 decoder of this module: it runs through :mod:`repro_torch.models.encdec`.
@@ -22,9 +28,11 @@ decoder of this module: it runs through :mod:`repro_torch.models.encdec`.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import attention, layers, module
@@ -50,8 +58,6 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"repro_torch.models.encdec, not this decoder")
     later = [f"layer kind {k!r}" for k in dict.fromkeys(cfg.attn_pattern)
              if k not in _KINDS]
-    if cfg.n_patches:
-        later.append("patches (qwen2-vl)")
     if cfg.learned_positions:
         # no config of the repo has them: the reference's forward adds
         # them, its decode_step does not (ROADMAP.md R9)
@@ -126,13 +132,13 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                 positions: Optional[torch.Tensor] = None, *,
                 cache: Optional[dict] = None,
                 pos: Optional[torch.Tensor] = None
-                ) -> tuple[torch.Tensor, Optional[dict]]:
-    """One layer: prefill when ``cache`` is None (``positions``: see
-    :func:`attention.self_attention`), else one decode step at ``pos``
-    (B,), which writes ``cache`` in place.  Returns (x_out, cache): an MoE
-    layer's load-balancing loss is dropped on the serving path (the
-    training loss comes with the LM's training, ROADMAP.md queue 1 item
-    8)."""
+                ) -> tuple[torch.Tensor, Optional[dict],
+                           Optional[torch.Tensor]]:
+    """One layer: prefill or training when ``cache`` is None
+    (``positions``: see :func:`attention.self_attention`), else one decode
+    step at ``pos`` (B,), which writes ``cache`` in place.  Returns
+    (x_out, cache, aux): ``aux`` the MoE layer's load-balancing loss, None
+    for every other layer."""
     if kind not in _KINDS:
         raise NotImplementedError(f"layer kind {kind!r} not ported yet "
                                   f"({_LATER})")
@@ -141,6 +147,7 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                    rope_fraction=cfg.rope_fraction,
                    mrope_sections=cfg.mrope_sections or None,
                    quant=cfg.quant_format, n_kv_heads=cfg.n_kv_heads)
+    aux = None
     h = _apply_norm(cfg, p["ln1"], x)
     if kind == "rglru":
         y, cache = rglru.rglru_block(p["mixer"], h, n_heads=cfg.n_heads,
@@ -154,7 +161,9 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                                      cache=cache, quant=cfg.quant_format)
     elif cache is None:
         y = attention.self_attention(p["mixer"], h, positions, causal=True,
-                                     window=window, **attn_kw)
+                                     window=window,
+                                     block_size=cfg.attn_block_size,
+                                     **attn_kw)
     else:
         y, cache = attention.decode_attention(
             p["mixer"], h, cache, pos, window=window or None, **attn_kw)
@@ -165,7 +174,7 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     if "mlp" in p or "moe" in p:
         h = _apply_norm(cfg, p["ln2"], x)
         if "moe" in p:
-            y, _ = moe_lib.moe(
+            y, aux = moe_lib.moe(
                 p["moe"], h, n_experts=cfg.n_experts,
                 top_k=cfg.experts_per_token,
                 capacity_factor=cfg.capacity_factor, act=cfg.act,
@@ -175,7 +184,7 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
         if cfg.post_norms:
             y = _apply_norm(cfg, p["post2"], y)
         x = x + y
-    return x, cache
+    return x, cache, aux
 
 
 # -- cache construction ------------------------------------------------------
@@ -240,23 +249,28 @@ def model_specs(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         s["unembed"] = {"kernel": module.ParamSpec(
             (cfg.d_model, cfg.vocab_size), ("embed", "vocab"))}
+    if cfg.n_patches:
+        s["patch_norm"] = _norm_specs(cfg)
     return s
 
 
 # -- forward (prefill) and decode --------------------------------------------
 
 def _layers(cfg: ModelConfig, params: Params, cache: Optional[dict] = None):
-    """Each layer in order as (kind, params, cache): views into the stacked
-    trees, so a decode step's cache writes land in the stack."""
+    """Each layer in order as (kind, params, cache, stacked): views into
+    the stacked trees, so a decode step's cache writes land in the stack
+    (a stacked leaf may also be a sequence of per-layer tensors, which
+    ``a[li]`` indexes alike); ``stacked`` is False for a remainder
+    layer."""
     for li in range(cfg.n_superblocks):
         for i, kind in enumerate(cfg.attn_pattern):
             at = (lambda a, li=li: a[li])
             yield (kind, map_tree(at, params["blocks"][str(i)]),
                    None if cache is None
-                   else map_tree(at, cache["blocks"][str(i)]))
+                   else map_tree(at, cache["blocks"][str(i)]), True)
     for j in range(cfg.n_remainder_layers):
         yield (cfg.attn_pattern[j], params["extra"][str(j)],
-               None if cache is None else cache["extra"][str(j)])
+               None if cache is None else cache["extra"][str(j)], False)
 
 
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor
@@ -279,22 +293,66 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor
     return layers.softcap(logits.to(torch.float32), cfg.final_softcap)
 
 
+def _remat_context(cfg: ModelConfig):
+    """``torch.utils.checkpoint``'s ``context_fn`` for ``cfg.remat``: the
+    reference's ``nothing_saveable`` for "full", its
+    ``dots_with_no_batch_dims_saveable`` for "dots": the outputs of plain
+    matrix products are kept, everything else recomputed."""
+    if cfg.remat != "dots":
+        return ckpt.noop_context_fn
+
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             policy)
+
+
+#: the products "dots" keeps: matrix products with no batch dimension
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.mm.dtype,
+                   torch.ops.aten.addmm.default})
+
+
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
-            last_logit_only: bool = False) -> torch.Tensor:
-    """Full-sequence forward: fp32 logits (B, S, vocab), or (B, 1, vocab)
-    with ``last_logit_only``.
+            patches: Optional[torch.Tensor] = None,
+            last_logit_only: bool = False
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward: (fp32 logits (B, S, vocab), or (B, 1, vocab)
+    with ``last_logit_only``; the fp32 sum of the MoE layers'
+    load-balancing losses).
 
-    tokens: (B, S) integer ids.  ``positions=None`` is ``arange(S)``, which
-    every attention layer serves with the flash kernel on the card.
+    tokens: (B, S) integer ids.  patches: (B, P, d) precomputed frontend
+    embeddings (the VLM's stub), cast to the activation dtype, normed with
+    ``patch_norm`` and put in front of the tokens; the logits then cover
+    P + S positions.  ``positions=None`` is ``arange`` over them, which
+    every attention layer serves with the flash kernel on the card.  With
+    gradients on and ``cfg.remat`` not "none", each superblock layer runs
+    under ``torch.utils.checkpoint`` (non-reentrant), the reference's
+    ``_maybe_remat``; remainder layers do not, as there.
     """
     _check_supported(cfg)
     x = _embed(cfg, params, tokens)
-    for kind, p, _ in _layers(cfg, params):
-        x, _ = apply_block(cfg, kind, p, x, positions)
+    if patches is not None:
+        pt = patches.to(x.dtype)
+        if "patch_norm" in params:
+            pt = _apply_norm(cfg, params["patch_norm"], pt)
+        x = torch.cat([pt, x], dim=1)
+    aux = None
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    for kind, p, _, stacked in _layers(cfg, params):
+        if remat and stacked:
+            x, _, a = ckpt.checkpoint(
+                apply_block, cfg, kind, p, x, positions, use_reentrant=False,
+                preserve_rng_state=False, context_fn=_remat_context(cfg))
+        else:
+            x, _, a = apply_block(cfg, kind, p, x, positions)
+        if a is not None:
+            aux = a if aux is None else aux + a
     if last_logit_only:
         x = x[:, -1:, :]
-    return _logits(cfg, params, x)
+    logits = _logits(cfg, params, x)
+    return logits, logits.new_zeros(()) if aux is None else aux
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -305,6 +363,6 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     Returns (logits (B, vocab), cache), the cache written in place.
     """
     x = _embed(cfg, params, tokens)
-    for kind, p, c in _layers(cfg, params, cache):
-        x, _ = apply_block(cfg, kind, p, x, cache=c, pos=pos)
+    for kind, p, c, _ in _layers(cfg, params, cache):
+        x, _, _ = apply_block(cfg, kind, p, x, cache=c, pos=pos)
     return _logits(cfg, params, x)[:, 0, :], cache

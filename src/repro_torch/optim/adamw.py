@@ -1,12 +1,18 @@
 """AdamW with a cosine schedule and global-norm clipping, over trees of
 tensors (nested dicts, lists and tuples, as the models' param trees are).
 
-Functional, as the reference's pytree implementation is: every call returns
-new tensors and writes none of its inputs in place, so the host snapshot an
-async checkpoint takes of one step's state never races with the next step.
-The optimizer state has the parameters' tree and lies on their device.
-Leaves are visited in the reference's pytree order (dict keys sorted), so
-the global norm sums in the same order.
+The update runs in place, leaf by leaf: parameters, moments and the step
+count are written where they lie; the gradients are only read.
+The reference's pytree update is functional; here a second copy of the
+state does not fit: Qwen2.5-3B's parameters, gradients and two moments
+are 49.4 GB in fp32 on an 80 GB card, and the largest leaf's temporaries
+(the stacked MLP weight, 3.2 GB) are the update's whole overhead.  A
+caller that keeps the old state (BraggNN's functional step) copies it
+first.  An async checkpoint snapshots to host memory before it returns,
+so the next step's writes never race with it.  The optimizer state has
+the parameters' tree and lies on their device.  Leaves are visited in the
+reference's pytree order (dict keys sorted), so the global norm sums in
+the same order, and each leaf's arithmetic is the reference's, op for op.
 """
 
 from __future__ import annotations
@@ -57,35 +63,35 @@ def init_state(params: Any) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _clip(flat: list, max_norm: float) -> tuple[list, torch.Tensor]:
-    """fp32 copies of ``flat`` scaled by ``min(1, max_norm / global norm)``,
-    and the norm: a handful of launches for all the leaves together."""
+def _clip_scale(flat: list, max_norm: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(``min(1, max_norm / global norm)``, the norm) of the leaves,
+    summed in fp32: a handful of launches for all the leaves together,
+    and no wait for the host."""
     g32 = [g.to(torch.float32) for g in flat]
     gn = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g32)))
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return torch._foreach_mul(g32, scale), gn
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0), gn
 
 
 def clip_by_global_norm(grads: Any, max_norm: float
                         ) -> tuple[Any, torch.Tensor]:
     """Scale every gradient by ``min(1, max_norm / global norm)``; returns
-    the scaled tree and the norm before scaling."""
+    the scaled tree (new tensors) and the norm before scaling."""
     leaves, treedef = tree_flatten(grads)
-    scaled, gn = _clip(leaves, max_norm)
-    return tree_unflatten(treedef, [s.to(g.dtype) for s, g in
-                                    zip(scaled, leaves)]), gn
+    scale, gn = _clip_scale(leaves, max_norm)
+    return tree_unflatten(treedef, [(g.to(torch.float32) * scale).to(
+        g.dtype) for g in leaves]), gn
 
 
 def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
                   ) -> tuple[Any, dict, dict]:
-    """One AdamW step.  Returns ``(new_params, new_state, metrics)`` with
-    ``metrics = {"grad_norm", "lr"}`` as tensors; the inputs are left as
-    they were.
+    """One AdamW step, in place.  Returns ``(params, state, metrics)``:
+    the given trees, written, and ``metrics = {"grad_norm", "lr"}`` as
+    tensors.  ``grads`` are only read.
 
-    Each elementwise op runs over every leaf at once (``torch._foreach_*``,
-    out of place): a step is bound by the host's launches, and this takes
-    about 20 of them where one per op and leaf took about 300.  The ops
-    and their order are the reference's.
+    The ops and their order are the reference's, leaf by leaf, so each
+    leaf's temporaries are the update's whole overhead; nothing waits for
+    the host, so a captured step holds the update.
     """
     flat_p, treedef = tree_flatten(params)
     flat_g, flat_mu, flat_nu = (tree_flatten(t)[0] for t in (
@@ -94,22 +100,24 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
         raise ValueError(
             f"params, grads and moments differ in leaves: {len(flat_p)}, "
             f"{len(flat_g)}, {len(flat_mu)}, {len(flat_nu)}")
-    add, mul, div = (torch._foreach_add, torch._foreach_mul,
-                     torch._foreach_div)
     with torch.no_grad():
-        g, gnorm = _clip(flat_g, cfg.clip_norm)
-        step = state["step"] + 1
+        scale, gnorm = _clip_scale(flat_g, cfg.clip_norm)
+        step = state["step"]
+        step.add_(1)
         lr = cosine_lr(cfg, step)
         b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
         b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
-        mu = add(mul(flat_mu, cfg.b1), mul(g, 1 - cfg.b1))
-        nu = add(mul(flat_nu, cfg.b2), mul(mul(g, g), 1 - cfg.b2))
-        delta = div(div(mu, b1c),
-                    add(torch._foreach_sqrt(div(nu, b2c)), cfg.eps))
-        p32 = [p.to(torch.float32) for p in flat_p]
-        delta = add(delta, mul(p32, cfg.weight_decay))
-        new_p = [q.to(p.dtype) for q, p in zip(
-            torch._foreach_sub(p32, mul(delta, lr)), flat_p)]
-    return tree_unflatten(treedef, new_p), {
-        "mu": tree_unflatten(treedef, mu), "nu": tree_unflatten(treedef, nu),
-        "step": step}, {"grad_norm": gnorm, "lr": lr}
+        for p, g, mu, nu in zip(flat_p, flat_g, flat_mu, flat_nu):
+            g = g.to(torch.float32) * scale          # the clipped gradient
+            mu.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+            nu.mul_(cfg.b2).add_(g.mul_(g).mul_(1 - cfg.b2))
+            # g is free now: it holds sqrt(nu / b2c) + eps
+            delta = torch.div(mu, b1c).div_(
+                g.copy_(nu).div_(b2c).sqrt_().add_(cfg.eps))
+            p32 = p.to(torch.float32)
+            delta.add_(p32 * cfg.weight_decay)
+            if p.dtype == torch.float32:
+                p.sub_(delta.mul_(lr))
+            else:
+                p.copy_(p32 - delta.mul_(lr))
+    return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -111,9 +111,12 @@ class TrainingDriver:
     ``get(step)`` and ``stop()`` (a
     :class:`repro_torch.data.SyntheticTokenPipeline`, or one of peaks).
     ``metrics["loss"]`` is a scalar tensor or a number; the step's device
-    work is waited for before its time is taken.  ``train_step`` must not
-    write its inputs in place: a failure before the first checkpoint
-    restarts from the ``params`` and ``opt_state`` given to :meth:`run`.
+    work is waited for before its time is taken.  A failure before the
+    first checkpoint restarts from the ``params`` and ``opt_state`` given
+    to :meth:`run`; a ``train_step`` that writes its inputs in place (its
+    ``in_place`` attribute is true, as ``launch.steps.make_train_step``'s
+    is) has them checkpointed at step 0 first, since its steps overwrite
+    them.
     """
 
     def __init__(self, cfg: DriverConfig, *, train_step: Callable,
@@ -132,6 +135,8 @@ class TrainingDriver:
         losses: list[float] = []
         watchdog = StepWatchdog(self.cfg.deadline_factor)
         metrics: dict = {}
+        if getattr(self.train_step, "in_place", False):
+            self.ckpt.save(0, state)
 
         while True:
             try:
@@ -165,7 +170,7 @@ class TrainingDriver:
                 latest = self.ckpt.latest_step()
                 if latest is None:
                     # restart from scratch: the state the run began with
-                    # (the update is functional, so it is intact)
+                    # (a functional update left it intact)
                     state, start_step = initial, 0
                 else:
                     state, start_step = (

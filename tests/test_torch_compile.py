@@ -188,6 +188,9 @@ def test_runtime_imports_neither_jax_nor_repro():
             "import repro_torch.examples.serve_moe\n"
             "import repro_torch.examples.quickstart\n"
             "import repro_torch.examples.braggnn_serve\n"
+            "import repro_torch.configs.qwen2_vl_2b\n"
+            "import repro_torch.launch.steps, repro_torch.launch.train\n"
+            "import repro_torch.examples.train_lm\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

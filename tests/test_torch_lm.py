@@ -442,7 +442,7 @@ def test_model_matches_reference(ref, name, dtype):
     s = rc.attn_block_size + 8           # the reference goes blockwise
     toks = np.random.default_rng(1).integers(0, rc.vocab_size, (2, s))
     want = np.asarray(ref.tr.forward(rc, rp, ref.jnp.asarray(toks))[0])
-    got = transformer.forward(pc, pp, _t(toks))
+    got = transformer.forward(pc, pp, _t(toks))[0]
     assert got.dtype == torch.float32 and got.shape == want.shape
     want_pre = np.asarray(ref.lm.prefill(rc, rp, ref.jnp.asarray(toks)))
     got_pre = lm.prefill(pc, pp, _t(toks))
@@ -507,7 +507,7 @@ def test_decode_matches_forward(name):
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (2, s)))
     full = transformer.forward(cfg, params, toks,
-                               torch.arange(s).expand(2, s))
+                               torch.arange(s).expand(2, s))[0]
     cache = transformer.init_cache(cfg, 2, s + 4)
     dec = torch.stack(_decode_all(
         lambda t, c, p: transformer.decode_step(cfg, params, t, c, p),
@@ -516,7 +516,6 @@ def test_decode_matches_forward(name):
 
 
 @pytest.mark.parametrize("change,what", [
-    (dict(n_patches=4), "patches"),
     (dict(learned_positions=True, max_position=64), "learned positions"),
     (dict(bf16_reduce=True), "bf16 cross-device"),
 ])

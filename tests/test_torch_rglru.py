@@ -186,7 +186,7 @@ def test_model_logits_and_greedy_tokens_match_reference(ref):
     toks = np.random.default_rng(1).integers(0, rc.vocab_size, (2, 40))
     fwd = ref.jax.jit(lambda t: ref.tr.forward(rc, rp, t)[0])
     want = np.asarray(fwd(ref.jnp.asarray(toks)))
-    got = transformer.forward(pc, pp, _t(toks))
+    got = transformer.forward(pc, pp, _t(toks))[0]
     got_pre = lm.prefill(pc, pp, _t(toks))
     assert got.dtype == torch.float32 and got.shape == want.shape
     step = ref.jax.jit(lambda t, c, p: ref.tr.decode_step(rc, rp, t, c, p))
@@ -207,7 +207,7 @@ def test_model_logits_and_greedy_tokens_match_reference(ref):
     rc16, pc16 = (c.replace(activation_dtype="bfloat16") for c in (rc, pc))
     ref16 = np.asarray(ref.jax.jit(lambda t: ref.tr.forward(rc16, rp, t)[0])(
         ref.jnp.asarray(toks)))
-    got16 = transformer.forward(pc16, pp, _t(toks))
+    got16 = transformer.forward(pc16, pp, _t(toks))[0]
     assert _scale_err(got16, want) <= max(BF16_SCALE_TOL,
                                           2 * _scale_err(ref16, want))
 
@@ -342,8 +342,8 @@ def test_model_on_card_matches_its_cpu_run(cuda):
     on_card = module.map_tree(lambda a: a.to(cuda), params)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 40)))
-    want = transformer.forward(cfg, params, toks)
-    got = transformer.forward(cfg, on_card, toks.to(cuda))
+    want = transformer.forward(cfg, params, toks)[0]
+    got = transformer.forward(cfg, on_card, toks.to(cuda))[0]
     assert _scale_err(got.cpu(), want.numpy()) <= CARD_SCALE_TOL
     caches = [transformer.init_cache(cfg, 2, 12),
               transformer.init_cache(cfg, 2, 12, cuda)]

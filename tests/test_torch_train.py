@@ -203,9 +203,11 @@ def test_apply_updates_equals_reference_after_1_and_20_steps(ref,
         new_p, p_s, p_m = adamw.apply_updates(p_cfg, p_p,
                                               params_from_numpy(g), p_s)
         if i == 0:
-            # functional: the inputs are left as they were
-            for t, b in zip(tree_leaves(p_p), before):
-                np.testing.assert_array_equal(_np(t), b)
+            # in place: the given tensors are returned, written
+            assert all(a is b for a, b in zip(tree_leaves(new_p),
+                                              tree_leaves(p_p)))
+            assert not any(np.array_equal(_np(t), b) for t, b in zip(
+                tree_leaves(p_p), before))
         p_p = new_p
         if i in (0, 19):
             _assert_tree_close(p_p, r_p, 1e-5, 1e-7)
@@ -418,7 +420,8 @@ def test_train_step_on_the_card_equals_its_cpu_run(cuda):
     grads = tree_unflatten(treedef, list(out["cpu"][1]))
     new = {}
     for dev in (torch.device("cpu"), cuda):
-        p = map_tree(lambda t: t.to(dev), params)
+        # copies: the update writes the parameters in place
+        p = map_tree(lambda t: t.detach().to(dev, copy=True), params)
         g = map_tree(lambda t: t.to(dev), grads)
         new[dev.type] = adamw.apply_updates(cfg, p, g, adamw.init_state(p))
     _assert_tree_close(new["cuda"][0], map_tree(_np, new["cpu"][0]), 1e-5,

@@ -280,7 +280,7 @@ def test_model_matches_reference_at_fp32(ref):
     toks = np.random.default_rng(1).integers(0, rc.vocab_size, (2, 21))
     want = np.asarray(ref.jax.jit(lambda t: ref.tr.forward(rc, rp, t)[0])(
         ref.jnp.asarray(toks)))
-    got = transformer.forward(pc, pp, _t(toks))
+    got = transformer.forward(pc, pp, _t(toks))[0]
     assert _scale_err(got, want) <= FP32_SCALE_TOL
     np.testing.assert_array_equal(got.argmax(-1).numpy(), want.argmax(-1))
 
@@ -483,8 +483,8 @@ def test_model_on_card_matches_its_cpu_run(cuda):
     on_card = module.map_tree(lambda a: a.to(cuda), params)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 40)))
-    want = transformer.forward(cfg, params, toks)
-    got = transformer.forward(cfg, on_card, toks.to(cuda))
+    want = transformer.forward(cfg, params, toks)[0]
+    got = transformer.forward(cfg, on_card, toks.to(cuda))[0]
     assert _scale_err(got.cpu(), want.numpy()) <= CARD_SCALE_TOL
     caches = [transformer.init_cache(cfg, 2, 12),
               transformer.init_cache(cfg, 2, 12, cuda)]
