@@ -193,11 +193,31 @@ Phases, each printing one JSON line (``"phase": ...``):
              one step on the card against the CPU at 2 layers, B 1 x 256
              (loss 1e-4, grad norm 2%, each gradient leaf within 5% of
              its max |gradient|); whisper-tiny's training steps
-             (finite losses, K5 launches per step); xlstm-1.3b's step at
-             one superblock raising the sLSTM kernel's
-             ``NotImplementedError``.
+             (finite losses, K5 launches per step); xLSTM's training: the
+             sLSTM's backward kernel (``slstm_scan_backward``) against
+             its plain reverse loop on the forward kernel's saves at
+             xlstm-1.3b's training call (B 1, S 1,024, H 4, W 512) and a
+             ragged one (W 36), timed beside the plain loop and the
+             bound, the forward timed with and without its saves;
+             xlstm-1.3b trained at full width and depth (3,503,016,272
+             parameters, batch 8 x 1,024 in 8 microbatches, full remat):
+             the first call with its loss held to the no-grad forward's,
+             3 replayed steps timed (96 forward and 48 backward sLSTM
+             launches a step and nothing else of the port's), one
+             profiled; 2 replayed steps against 2 eager ones at one
+             superblock (8 layers, 2 microbatches) under deterministic
+             algorithms; ``lm.train_loss``'s loss and gradients on the
+             card against the CPU at one superblock, with fp32
+             activations (loss 1e-4, grad norm 2%,
+             each gradient leaf within 5% of its max |gradient|, floored
+             at 1e-3 of the largest: the sLSTM's input-gate bias has a
+             zero gradient), then with the config's bf16 activations
+             beside a witness of bf16's own noise (the CPU run again on
+             one intra-op thread): loss, grad norm and worst leaf each
+             within max(the fp32 bar, 2x the witness's reading).
 
-Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
+Then the script's seconds, the ``{"kernels": [...]}`` line, the card's
+``nvidia-smi`` line, and
 the last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before that line; so does a run without a CUDA device or without
 the repository's ``src/repro_torch`` beside this script.
@@ -1176,17 +1196,16 @@ def phase_profile(torch, design, x, fmt, cuda_kw=None,
           **device_profile(torch, lambda: fn(x), reps)})
 
 
-def device_profile(torch, step, reps: int = 5, op: str = "") -> dict:
+def device_profile(torch, step, reps: int = 5, warm: bool = True) -> dict:
     """``torch.profiler`` over ``reps`` calls of ``step``, each ending in a
-    synchronise, after one untraced call: device operations and device
+    synchronise, after one untraced call (``warm``; a caller whose step
+    has just run passes False): device operations and device
     time per call by kernel name, busy time and idle share of the host's
     wall time, and the host operations that take the most of the host's
-    own time (under the profiler, which adds its own).  With ``op``, also
-    the device µs per call spent under the host operations whose name
-    holds it (the largest such total, so an operation nested in another
-    of the same name is not counted twice)."""
+    own time (under the profiler, which adds its own)."""
     from torch.profiler import ProfilerActivity, profile
-    step()
+    if warm:
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1195,29 +1214,14 @@ def device_profile(torch, step, reps: int = 5, op: str = "") -> dict:
             step()
             torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels, host, under_op = [], [], [0.0]
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CPU and op \
-                and op in e.key:
-            under_op.append((getattr(e, "device_time_total", None)
-                             or getattr(e, "cuda_time_total", 0.0)) / reps)
-        if e.device_type == torch.autograd.DeviceType.CPU \
-                and e.self_cpu_time_total > 0:
-            host.append({"name": e.key[:60], "calls": e.count / reps,
-                         "host_us_per_batch": e.self_cpu_time_total / reps})
-        # device-side events only: a host op (aten::bmm) also reports its
-        # kernels' time as its own, which would count them twice; CUPTI's
-        # own buffer requests are the profiler's cost, not the batch's
-        if e.device_type != torch.autograd.DeviceType.CUDA \
-                or e.key == "Activity Buffer Request":
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            kernels.append({"name": e.key[:90], "calls": e.count / reps,
-                            "device_us_per_batch": dev_us / reps})
+    kernels, host = profile_events(torch, prof)
+    kernels = [{"name": k[:90], "calls": n / reps,
+                "device_us_per_batch": ns / 1e3 / reps}
+               for k, (n, ns) in kernels.items() if ns > 0]
     kernels.sort(key=lambda k: -k["device_us_per_batch"])
+    host = [{"name": k[:60], "calls": n / reps,
+             "host_us_per_batch": ns / 1e3 / reps}
+            for k, (n, ns) in host.items() if ns > 0]
     busy = sum(k["device_us_per_batch"] for k in kernels)
     return {"device_operations_per_batch": sum(k["calls"] for k in kernels),
             "host_us_per_batch": wall_us / reps,
@@ -1225,9 +1229,52 @@ def device_profile(torch, step, reps: int = 5, op: str = "") -> dict:
             "device_idle_share": (1.0 - busy * reps / wall_us
                                   if kernels else None),
             "device_time_seen": bool(kernels), "kernels": kernels,
-            **({"op_device_us_per_batch": max(under_op)} if op else {}),
             "host_top": sorted(host, key=lambda h: -h["host_us_per_batch"]
                                )[:6]}
+
+
+def profile_events(torch, prof) -> tuple:
+    """From a finished profile's raw events: per kernel name on the card,
+    (events, device ns); per host operation, (events, self ns: its time
+    less that of the operations nested in it on its thread).  The same
+    sums as ``prof.key_averages()``'s device and self CPU totals, in
+    seconds where that takes a minute at a training step's 468,177
+    kernels.  CUPTI's own buffer requests are the profiler's cost, not
+    the step's, and memory records are not operations."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    kernels, host, threads = {}, {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name.startswith("[") or getattr(e, "is_hidden_event",
+                                           lambda: False)():
+            continue
+        if e.device_type() == cuda:
+            if name != "Activity Buffer Request":
+                k = kernels.setdefault(name, [0, 0])
+                k[0] += 1
+                k[1] += e.duration_ns()
+        elif e.device_type() == cpu and not e.is_async() \
+                and e.start_thread_id() == e.end_thread_id():
+            threads.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), -e.end_ns(), name))
+
+    def close(item) -> None:
+        h = host.setdefault(item[1], [0, 0])
+        h[0] += 1
+        h[1] += item[2]
+
+    for evs in threads.values():
+        evs.sort()                      # by start, the outer one first
+        stack = []                      # [end, name, self ns]
+        for start, neg_end, name in evs:
+            while stack and stack[-1][0] <= start:
+                close(stack.pop())
+            if stack:
+                stack[-1][2] -= -neg_end - start
+            stack.append([-neg_end, name, -neg_end - start])
+        for item in stack:
+            close(item)
+    return kernels, host
 
 
 def _tensors(out) -> dict:
@@ -3670,8 +3717,35 @@ TR_CPU_LEAF_TOL = 0.05
 #: whisper-tiny's steps: global batch (its 8 microbatches of one), frames,
 #: tokens
 TR_ED_BATCH, TR_ED_TOKENS, TR_ED_STEPS = 8, 448, 3
-#: xLSTM's refusal: one superblock (7 mLSTM + 1 sLSTM layers)
-TR_XL_LAYERS = 8
+#: xLSTM's training at xlstm-1.3b's full width and depth: global batch
+#: (in cfg.microbatches = 8 microbatches of 1 x 1,024) and replayed steps
+#: timed
+TR_XL_BATCH, TR_XL_STEPS = 8, 3
+#: one superblock (7 mLSTM + 1 sLSTM layers): replay against eager (two
+#: copies of the full state, 2 x 56.0 GB, do not fit; at 2 microbatches of
+#: 1 x 1,024, a quarter of the step's eager host time) and the card
+#: against the CPU
+TR_XL_LAYERS, TR_XL_EAGER_MICRO = 8, 2
+#: the sLSTM's backward kernel against its plain reverse loop: (B, S, H,
+#: W) of xlstm-1.3b's training call, and a ragged one (W 36: the
+#: cluster's last block part-filled); the forward kernel with and without
+#: its saves at the first
+TR_XL_SLSTM_CASES = ((1, 1024, 4, 512), (2, 37, 3, 36))
+#: the card against the CPU at one superblock, in two steps.  In fp32
+#: activations the bars above hold the kernels.  In the config's bf16
+#: the mLSTM's exponential gating lets roundings move gradient leaves by
+#: tenths of their scale between any two sound runs: the CPU's own, on
+#: its pool and on one intra-op thread (other sum orders, nothing else),
+#: differed by 0.140 of blocks/1/mixer/igate/bias's max and the card's
+#: from the CPU's by 0.179 (an H100 host, PERF.md).  So the bf16
+#: gradients are held beside that witness, made in the same run: each
+#: reading within max(its fp32 bar, TR_XL_BF16_WITNESS x the witness's).
+#: A leaf that is zero in exact arithmetic (the sLSTM's input-gate bias:
+#: its stabiliser scales c and n alike) holds rounding noise on both
+#: devices, so each leaf's scale is floored at this share of the model's
+#: largest gradient, as tests/test_torch_lm_train.py floors it
+TR_XL_LEAF_FLOOR = 1e-3
+TR_XL_BF16_WITNESS = 2.0
 
 
 def train_attention(torch) -> dict:
@@ -3819,10 +3893,15 @@ def first_loss_vs_cpu(torch, cfg, params, batch: dict) -> dict:
             "rtol": TR_FIRST_RTOL, "cpu_seconds": seconds}
 
 
-def train_full(torch) -> dict:
-    """Qwen2.5-3B trained at full width and depth: the first call (one
-    eager step, then the capture), TR_STEPS replayed steps timed, one
-    profiled; memory; the launches per replayed step."""
+def train_full(torch, arch: str, n_params: int, batch: int, n_steps: int,
+               want_launches, cpu_prefix: bool) -> dict:
+    """``arch`` trained at full width and depth, ``batch`` x TR_SEQ tokens
+    in its config's microbatches: the first call (one eager step, then the
+    capture) with its loss held to the no-grad forward's, ``n_steps``
+    replayed steps timed, one profiled; memory; the launches per replayed
+    step held to ``want_launches(cfg)`` (kernel -> launches) and nothing
+    else of the port's.  ``cpu_prefix``: the first microbatch's loss
+    prefix against the CPU's at full depth too."""
     import math
 
     from repro_torch.configs import registry as configs
@@ -3833,23 +3912,27 @@ def train_full(torch) -> dict:
     from repro_torch.nn import module, transformer
     from repro_torch.optim import adamw
 
-    cfg = configs.get_config(LM_ARCH)
+    cfg = configs.get_config(arch)
     free_card(torch)
-    params, model = draw(torch, cfg, LM_ARCH, LM_PARAMS)
+    params, model = draw(torch, cfg, arch, n_params)
     state = adamw.init_state(params)
     state_bytes = torch.cuda.memory_allocated()
     pipe = SyntheticTokenPipeline(DataConfig(
-        seq_len=TR_SEQ, global_batch=TR_BATCH, vocab_size=cfg.vocab_size))
-    batches = [pipe.batch_at(i) for i in range(TR_STEPS + 3)]
-    # the first batch's loss with no gradient: the step's first loss must
-    # be it (the forward's values do not depend on autograd or remat); and
-    # its first microbatch's prefix against the CPU at full depth
+        seq_len=TR_SEQ, global_batch=batch, vocab_size=cfg.vocab_size))
+    batches = [pipe.batch_at(i) for i in range(n_steps + 3)]
+    # the first batch's loss with no gradient, in one call: the step's
+    # first loss must be it (the mean of its microbatches' means, every
+    # target counted; the forward's values do not depend on autograd or
+    # remat); and its first microbatch's prefix against the CPU at full
+    # depth
+    t0 = time.perf_counter()
     with torch.no_grad():
-        first = sum(float(lm.train_loss(cfg, params, {
-            k_: torch.as_tensor(v_[i:i + 1]).cuda()
+        first = float(lm.train_loss(cfg, params, {
+            k_: torch.as_tensor(v_).cuda()
             for k_, v_ in batches[0].items()})[1]["loss"])
-            for i in range(TR_BATCH)) / TR_BATCH
-    vs_cpu = first_loss_vs_cpu(torch, cfg, params, batches[0])
+    no_grad_s = time.perf_counter() - t0
+    vs_cpu = first_loss_vs_cpu(torch, cfg, params, batches[0]) \
+        if cpu_prefix else None
     step = steps.make_train_step(cfg)
     before = _sample(torch, params)
     torch.cuda.reset_peak_memory_stats()
@@ -3858,47 +3941,51 @@ def train_full(torch) -> dict:
     torch.cuda.synchronize()
     first_call_s = time.perf_counter() - t0
     losses = [float(m["loss"])]
-    emit({"phase": "train_lm", "step": "first call", "seconds": first_call_s,
-          "loss": losses[0], "no_grad_loss": first,
+    emit({"phase": "train_lm", "step": f"{arch} first call",
+          "seconds": first_call_s, "loss": losses[0], "no_grad_loss": first,
           "ln_vocab": math.log(cfg.vocab_size), "prefix_vs_cpu": vs_cpu,
           "grad_norm": float(m["grad_norm"]),
           "peak_device_bytes": torch.cuda.max_memory_allocated()})
     check(math.isfinite(losses[0])
           and abs(losses[0] - first) <= 1e-4 * abs(first),
-          f"{LM_ARCH} first loss {losses[0]}, no-grad forward {first}")
+          f"{arch} first loss {losses[0]}, no-grad forward {first}")
     registry.reset_launch_counts()
     times = []
-    for i in range(1, TR_STEPS + 1):
+    for i in range(1, n_steps + 1):
         t0 = time.perf_counter()
         _, _, m = step(params, state, batches[i])
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
-    per_step = {k_: v_ / TR_STEPS
+    per_step = {k_: v_ / n_steps
                 for k_, v_ in registry.launch_counts().items() if v_}
     after = _sample(torch, params)
     moved = sum(not torch.equal(a, b_) for a, b_ in zip(before, after))
     check(all(math.isfinite(x) for x in losses)
           and moved == len(before),
-          f"{LM_ARCH} training: losses {losses}, {moved} of "
+          f"{arch} training: losses {losses}, {moved} of "
           f"{len(before)} leaves moved")
-    want_k5 = 2 * cfg.n_layers * cfg.microbatches
-    check(per_step == {"flash_attention": want_k5},
-          f"{LM_ARCH} replayed step launched {per_step}, want "
-          f"flash_attention {want_k5} (forward and remat recompute per "
-          f"layer and microbatch) and nothing else")
+    want = want_launches(cfg)
+    check(per_step == want,
+          f"{arch} replayed step launched {per_step}, want {want} "
+          f"(per layer and microbatch, the forward twice under remat) and "
+          f"nothing else")
+    t0 = time.perf_counter()
     prof = device_profile(torch, lambda: step(params, state, batches[-1]),
-                          reps=1)
+                          reps=1, warm=False)
+    profile_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     p50 = statistics.median(times)
-    tokens = TR_BATCH * TR_SEQ
+    tokens = batch * TR_SEQ
     n = module.param_count(transformer.model_specs(cfg))
-    out = {"arch": LM_ARCH, **model, "reduced": None,
-           "first_loss_vs_cpu": vs_cpu, "batch": TR_BATCH, "seq": TR_SEQ,
+    out = {"arch": arch, **model, "reduced": None,
+           "first_loss_vs_cpu": vs_cpu, "batch": batch, "seq": TR_SEQ,
            "microbatches": cfg.microbatches, "remat": cfg.remat,
            "state_bytes": state_bytes, "peak_device_bytes": peak,
            "reserved_bytes": torch.cuda.memory_reserved(),
-           "first_call_s": first_call_s, "losses": losses,
+           "first_call_s": first_call_s, "no_grad_loss": first,
+           "no_grad_s": no_grad_s, "profile_s": profile_s,
+           "losses": losses,
            "step_ms_p50": p50, "step_ms": times,
            "tokens_per_s": tokens / p50 * 1e3,
            "model_flops_per_step": 6 * n * tokens,
@@ -3913,9 +4000,11 @@ def train_full(torch) -> dict:
     return out
 
 
-def train_replay_vs_eager(torch) -> dict:
+def train_replay_vs_eager(torch, arch: str, layers: int,
+                          microbatches: int = 0) -> dict:
     """TR_EAGER_STEPS replayed steps against as many eager ones on a copy
-    of the state, at Qwen2.5-3B's width and TR_EAGER_LAYERS layers, under
+    of the state, at ``arch``'s width and ``layers`` layers (and
+    ``microbatches`` of 1 x TR_SEQ where given, else the config's), under
     deterministic algorithms (the step made, and so captured, under them):
     losses, parameters and moments value for value."""
     from repro_torch.configs import registry as configs
@@ -3925,10 +4014,15 @@ def train_replay_vs_eager(torch) -> dict:
     from repro_torch.nn.module import tree_leaves
     from repro_torch.optim import adamw
 
-    cfg = configs.get_config(LM_ARCH).replace(n_layers=TR_EAGER_LAYERS)
+    full = configs.get_config(arch)
+    cfg = full.replace(n_layers=layers,
+                       microbatches=microbatches or full.microbatches)
     specs = transformer.model_specs(cfg)
+    # parameters, gradients and both moments, fp32
+    state_gb = 16 * module.param_count(transformer.model_specs(full)) / 1e9
     pipe = SyntheticTokenPipeline(DataConfig(
-        seq_len=TR_SEQ, global_batch=TR_BATCH, vocab_size=cfg.vocab_size))
+        seq_len=TR_SEQ, global_batch=cfg.microbatches,
+        vocab_size=cfg.vocab_size))
     saved = torch.are_deterministic_algorithms_enabled()
     try:
         torch.use_deterministic_algorithms(True)
@@ -3950,14 +4044,16 @@ def train_replay_vs_eager(torch) -> dict:
     finally:
         torch.use_deterministic_algorithms(saved)
     check(losses["replayed"] == losses["eager"] and differ == 0,
-          f"{LM_ARCH} ({TR_EAGER_LAYERS} layers): replayed losses "
+          f"{arch} ({layers} layers): replayed losses "
           f"{losses['replayed']}, eager {losses['eager']}, {differ} state "
           f"values differing")
     del trees
     free_card(torch)
-    return {"layers": TR_EAGER_LAYERS,
-            "reduced": f"n_layers {TR_EAGER_LAYERS} of 36: two copies of "
-                       f"the full state (2 x 49.4 GB) do not fit",
+    return {"arch": arch, "layers": layers,
+            "microbatches": cfg.microbatches,
+            "reduced": f"n_layers {layers} of {full.n_layers}: two copies "
+                       f"of the full state (2 x {state_gb:.1f} GB) do not "
+                       f"fit",
             "steps": TR_EAGER_STEPS + 1, "replays_checked": TR_EAGER_STEPS,
             "losses": losses, "state_values_differing": differ,
             "deterministic": True}
@@ -3969,6 +4065,22 @@ def _named_leaves(tree, prefix: str = "") -> list:
         return [x for k in sorted(tree)
                 for x in _named_leaves(tree[k], f"{prefix}{k}/")]
     return [(prefix[:-1], tree)]
+
+
+def _leaf_errors(named: list, got: list, want: list,
+                 leaf_floor: float) -> tuple:
+    """Each leaf's max |got - want| over want's max |gradient|, floored at
+    ``leaf_floor`` of the largest; and the names of the floored leaves."""
+    err, floored = {}, []
+    top = max(float(c.abs().max()) for c in want)
+    for (name, _), a, c in zip(named, got, want):
+        scale = float(c.abs().max())
+        if scale < leaf_floor * top:
+            scale = leaf_floor * top
+            floored.append(name)
+        err[name] = float((a - c).abs().max()) / scale if scale \
+            else float(a.abs().max())
+    return err, floored
 
 
 def train_card_vs_cpu(torch) -> dict:
@@ -4009,11 +4121,7 @@ def train_card_vs_cpu(torch) -> dict:
                     "seconds": time.perf_counter() - t0}
         del p
     free_card(torch)
-    leaf_err = {}
-    for (name, _), a, c in zip(named, grads["cuda"], grads["cpu"]):
-        scale = float(c.abs().max())
-        leaf_err[name] = float((a - c).abs().max()) / scale if scale \
-            else float(a.abs().max())
+    leaf_err, _ = _leaf_errors(named, grads["cuda"], grads["cpu"], 0.0)
     worst = max(leaf_err, key=leaf_err.get)
     dl = abs(out["cuda"]["loss"] - out["cpu"]["loss"]) / abs(
         out["cpu"]["loss"])
@@ -4030,6 +4138,114 @@ def train_card_vs_cpu(torch) -> dict:
             "tolerance": {"loss_rtol": TR_CPU_LOSS_RTOL,
                           "grad_norm_rtol": TR_CPU_GN_RTOL,
                           "grad_leaf_over_max": TR_CPU_LEAF_TOL}}
+
+
+def train_grads_vs_cpu(torch, arch: str, layers: int,
+                       leaf_floor: float) -> dict:
+    """``lm.train_loss``'s loss and gradients at ``layers`` layers of
+    ``arch`` (1 x TR_CPU_S, one microbatch) on the card and on the CPU,
+    from the same weights and batch.  In fp32 activations the loss is
+    held within TR_CPU_LOSS_RTOL, the gradient norm within TR_CPU_GN_RTOL
+    and each leaf within TR_CPU_LEAF_TOL of its max |gradient| (floored as
+    in :func:`_leaf_errors`).  In the config's bf16 the CPU's run is made
+    again on one intra-op thread, which sums in other orders: that pair
+    is the witness of bf16's own noise, and each of the card's readings
+    is held within max(its fp32 bar, TR_XL_BF16_WITNESS x the
+    witness's).  The witness, the longest run, runs in a thread of its
+    own beside the others (intra-op threads are set per thread)."""
+    import threading
+
+    from repro_torch.configs import registry as configs
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.models import lm
+    from repro_torch.nn import module, transformer
+
+    base = configs.get_config(arch).replace(n_layers=layers, microbatches=1)
+    w = module.init_tree(transformer.model_specs(base),
+                         torch.Generator().manual_seed(81))
+    b = SyntheticTokenPipeline(DataConfig(
+        seq_len=TR_CPU_S, global_batch=1,
+        vocab_size=base.vocab_size)).batch_at(0)
+    pool = torch.get_num_threads()
+    bars = {"loss_rel_err": TR_CPU_LOSS_RTOL,
+            "grad_norm_rel_err": TR_CPU_GN_RTOL,
+            "worst_leaf_err": TR_CPU_LEAF_TOL}
+
+    def run(cfg, dev: str, threads: int = 0) -> dict:
+        t0 = time.perf_counter()
+        if threads:
+            torch.set_num_threads(threads)
+        try:
+            p = module.map_tree(
+                lambda t: t.to(dev, copy=True).requires_grad_(), w)
+            total, _ = lm.train_loss(cfg, p, {
+                k_: torch.as_tensor(v_).to(dev) for k_, v_ in b.items()})
+            g = [x.float().cpu() for x in torch.autograd.grad(
+                total, [t for _, t in _named_leaves(p)])]
+            used = torch.get_num_threads()
+        finally:
+            if threads:
+                torch.set_num_threads(pool)
+        return {"loss": float(total.detach()), "grads": g,
+                "grad_norm": float(torch.sqrt(sum(
+                    (x.double() ** 2).sum() for x in g))),
+                "intra_op_threads": used,
+                "seconds": time.perf_counter() - t0}
+
+    def readings(got: dict, want: dict) -> dict:
+        leaf, floored = _leaf_errors(_named_leaves(w), got["grads"],
+                                     want["grads"], leaf_floor)
+        worst = max(leaf, key=leaf.get)
+        return {"loss_rel_err": abs(got["loss"] - want["loss"])
+                / abs(want["loss"]),
+                "grad_norm_rel_err": abs(got["grad_norm"]
+                                         - want["grad_norm"])
+                / want["grad_norm"],
+                "worst_leaf": worst, "worst_leaf_err": leaf[worst],
+                "leaves_over_5pct": sum(v > TR_CPU_LEAF_TOL
+                                        for v in leaf.values()),
+                "floored_leaves": floored}
+
+    bf16 = base.activation_dtype
+    witness_box: dict = {}
+
+    def witness() -> None:
+        try:
+            witness_box["run"] = run(base, "cpu", threads=1)
+        except Exception as exc:        # raised again in the caller
+            witness_box["error"] = exc
+    side = threading.Thread(target=witness, name="bf16 witness")
+    side.start()
+    out = {"arch": arch, "layers": layers, "seq": TR_CPU_S,
+           "threads": pool, "leaf_scale_floor": leaf_floor,
+           "witness_factor": TR_XL_BF16_WITNESS}
+    for dtype in ("float32", bf16):
+        cfg = base.replace(activation_dtype=dtype)
+        runs = {"cuda": run(cfg, "cuda"), "cpu": run(cfg, "cpu")}
+        card = readings(runs["cuda"], runs["cpu"])
+        rec = {"card_vs_cpu": card, "bars": dict(bars)}
+        if dtype == bf16:
+            side.join()
+            if "error" in witness_box:
+                raise witness_box["error"]
+            runs["cpu, 1 thread"] = witness_box["run"]
+            check(runs["cpu, 1 thread"]["intra_op_threads"] == 1
+                  and runs["cpu"]["intra_op_threads"] == pool,
+                  f"the bf16 witness ran on "
+                  f"{runs['cpu, 1 thread']['intra_op_threads']} intra-op "
+                  f"threads beside {runs['cpu']['intra_op_threads']}")
+            witness = readings(runs["cpu, 1 thread"], runs["cpu"])
+            rec["witness_cpu_1_thread_vs_cpu"] = witness
+            rec["bars"] = {k: max(bar, TR_XL_BF16_WITNESS * witness[k])
+                           for k, bar in bars.items()}
+        free_card(torch)
+        check(all(card[k] <= rec["bars"][k] for k in bars),
+              f"{arch} ({layers} layers) {dtype} gradients on the card "
+              f"against the CPU: {card}, bars {rec['bars']}")
+        out[dtype] = {**rec, **{k: {k_: v_ for k_, v_ in r.items()
+                                    if k_ != "grads"}
+                                for k, r in runs.items()}}
+    return out
 
 
 def train_whisper(torch) -> dict:
@@ -4085,37 +4301,113 @@ def train_whisper(torch) -> dict:
             "launches_per_step": launches}
 
 
-def train_xlstm_refused(torch) -> dict:
-    """xlstm-1.3b at one superblock: its training step on the card raises
-    the sLSTM kernel's ``NotImplementedError`` (no backward kernel yet)
-    and runs no plain loop in its place."""
-    import numpy as np
-    from repro_torch.configs import registry as configs
-    from repro_torch.kernels import registry
-    from repro_torch.launch import steps
-    from repro_torch.nn import module, transformer
-    from repro_torch.optim import adamw
+def slstm_backward_kernel(torch) -> dict:
+    """The sLSTM's backward kernel against its plain reverse loop at
+    TR_XL_SLSTM_CASES, both on the saves of the forward kernel (themselves
+    held against the plain forward's); its device time beside the plain
+    loop's and the bound (the products dpre_g @ R_g^T: 8 W^2 flops per
+    (batch row, head, step); dhs, the seven saves, R and the start state
+    read once, the four dx written once); the forward kernel with and
+    without its saves at the training call."""
+    from repro_torch.kernels.slstm_scan.ref import (slstm_scan_backward_ref,
+                                                    slstm_scan_ref)
+    from repro_torch.kernels.slstm_scan.slstm_scan import (
+        SAVES, slstm_scan, slstm_scan_backward)
+    gen = torch.Generator(device="cuda").manual_seed(84)
+    calls = []
+    for b, s, nh, w in TR_XL_SLSTM_CASES:
+        x_pre = [torch.randn(b, s, nh, w, generator=gen, device="cuda")
+                 for _ in range(4)]
+        rec = [0.02 * torch.randn(nh, w, w, generator=gen, device="cuda")
+               for _ in range(4)]       # the spec's scale
+        state = [torch.zeros(b, nh, w, device="cuda") for _ in range(3)]
+        state.append(torch.full((b, nh, w), -1e30, device="cuda"))
+        dhs = torch.randn(b, s, nh, w, generator=gen, device="cuda")
+        saves = [torch.empty_like(dhs) for _ in SAVES]
+        plain = [torch.empty_like(dhs) for _ in SAVES]
+        slstm_scan(x_pre, rec, *[t.clone() for t in state], saves=saves)
+        slstm_scan_ref(x_pre, rec, *[t.clone() for t in state], saves=plain)
+        got = slstm_scan_backward(dhs, rec, saves, *state[1:])
+        want = slstm_scan_backward_ref(dhs, rec, saves, *state[1:])
+        torch.cuda.synchronize()
+        call = f"(B {b}, S {s}, H {nh}, W {w})"
+        save_err = {n: float((a - b_).abs().max())
+                    for n, a, b_ in zip(SAVES, saves, plain)}
+        err = {f"d{g}": float((a - b_).abs().max())
+               for g, a, b_ in zip("ifzo", got, want)}
+        bad = [n for n, a, b_ in zip(SAVES, saves, plain)
+               if not torch.allclose(a, b_, rtol=SLSTM_RTOL,
+                                     atol=SLSTM_ATOL)]
+        bad += [f"d{g}" for g, a, b_ in zip("ifzo", got, want)
+                if not torch.allclose(a, b_, rtol=SLSTM_RTOL,
+                                      atol=SLSTM_ATOL)]
+        check(not bad, f"slstm_scan_backward {call}: {bad} differ from "
+                       f"the plain version (saves {save_err}, dx {err})")
+        nbytes = 4 * (12 * b * s * nh * w + 4 * nh * w * w + 3 * b * nh * w)
+        flops = 8 * w * w * b * nh * s
+        bound_ms, bound_by = bound(nbytes, flops)
+        label = f"slstm_scan_backward {call}"
+        runs = 20 if s > 64 else TIMED_RUNS
+        kern = lambda: slstm_scan_backward(  # noqa: E731
+            dhs, rec, saves, *state[1:])
+        plain = lambda: slstm_scan_backward_ref(  # noqa: E731
+            dhs, rec, saves, *state[1:])
+        rec_ = {"call": call, "max_abs_err": max(err.values()),
+                "max_abs_err_by_gate": err, "saves_max_abs_err": save_err,
+                "tolerance": {"rtol": SLSTM_RTOL, "atol": SLSTM_ATOL},
+                "ms": device_ms(torch, kern, runs, label=label),
+                "plain_ms": _blocking_ms(torch, plain, 3, f"{label} plain"),
+                "library_ms": None, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+        rec_["us_per_step"] = rec_["ms"] * 1e3 / s
+        if (b, s, nh, w) == TR_XL_SLSTM_CASES[0]:
+            work = [t.clone() for t in state]
+            rec_["forward_ms"] = {
+                "without_saves": device_ms(torch, lambda: slstm_scan(
+                    x_pre, rec, *work), runs, label="slstm_scan train"),
+                "with_saves": device_ms(torch, lambda: slstm_scan(
+                    x_pre, rec, *work, saves=saves), runs,
+                    label="slstm_scan train saves")}
+            rec_["saves_bytes"] = 4 * len(SAVES) * b * s * nh * w
+        calls.append(rec_)
+        del x_pre, rec, state, dhs, saves, plain, got, want
+    torch.cuda.empty_cache()
+    return {"calls": calls}
 
-    cfg = configs.get_config("xlstm-1.3b").replace(n_layers=TR_XL_LAYERS)
-    params = module.init_tree(transformer.model_specs(cfg), torch.Generator(
-        device="cuda").manual_seed(0), device="cuda")
-    rng = np.random.default_rng(83)
-    toks = rng.integers(1, cfg.vocab_size, (cfg.microbatches, 65))
-    b = {"tokens": toks[:, :-1].astype(np.int32),
-         "targets": toks[:, 1:].astype(np.int32)}
-    registry.reset_launch_counts()
-    try:
-        steps.make_train_step(cfg)(params, adamw.init_state(params), b)
-        raised = None
-    except NotImplementedError as e:
-        raised = str(e)
-    check(raised is not None and "8.5b" in raised,
-          f"xlstm-1.3b's training step on the card did not raise: {raised}")
-    launched = {k_: v_ for k_, v_ in registry.launch_counts().items() if v_}
-    del params
-    free_card(torch)
-    return {"layers": TR_XL_LAYERS, "raised": raised,
-            "port_kernel_launches": launched}
+
+def train_xlstm(torch) -> dict:
+    """xLSTM's training on the card: the sLSTM's backward kernel against
+    its plain reverse loop; xlstm-1.3b trained at full width and depth
+    (96 forward and 48 backward sLSTM launches a replayed step, nothing
+    else of the port's); replay against eager and the card against the
+    CPU at one superblock, in fp32 and in bf16 activations."""
+    t0 = time.perf_counter()
+    kern = slstm_backward_kernel(torch)
+    emit({"phase": "train_lm", "step": "slstm backward", **kern,
+          "timing": {k: v for k, v in TIMING_NOTES.items()
+                     if k.startswith("slstm_scan_backward")},
+          "seconds": time.perf_counter() - t0})
+
+    def want(cfg):
+        n = forward_launches(cfg)["slstm_scan"] * cfg.microbatches
+        return {"slstm_scan": 2 * n, "slstm_scan_backward": n}
+    t0 = time.perf_counter()
+    full = train_full(torch, XL_ARCH, XL_PARAMS, TR_XL_BATCH, TR_XL_STEPS,
+                      want, cpu_prefix=False)
+    emit({"phase": "train_lm", "step": XL_ARCH, **full,
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    eager = train_replay_vs_eager(torch, XL_ARCH, TR_XL_LAYERS,
+                                  TR_XL_EAGER_MICRO)
+    emit({"phase": "train_lm", "step": f"{XL_ARCH} replayed vs eager",
+          **eager, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    cpu = train_grads_vs_cpu(torch, XL_ARCH, TR_XL_LAYERS, TR_XL_LEAF_FLOOR)
+    emit({"phase": "train_lm", "step": f"{XL_ARCH} card vs cpu", **cpu,
+          "seconds": time.perf_counter() - t0})
+    return {"backward": kern,
+            "launches": {k_: int(v_) for k_, v_ in
+                         full["launches_per_step"].items()}}
 
 
 def phase_train_lm(torch) -> dict:
@@ -4124,27 +4416,35 @@ def phase_train_lm(torch) -> dict:
     depth (3,085,938,688 parameters, batch 4 x 1,024 in 4 microbatches,
     full remat, each step a replayed graph); replay against eager at four
     layers; the card against the CPU at two layers; whisper-tiny's
-    training steps; xLSTM's refusal."""
+    training steps; xlstm-1.3b's: the sLSTM's backward kernel, the model
+    trained at full width and depth (batch 8 x 1,024 in 8 microbatches),
+    replay against eager and the card against the CPU at one
+    superblock."""
     t_phase = time.perf_counter()
     att = train_attention(torch)
     emit({"phase": "train_lm", "step": "attention", **att})
-    full = train_full(torch)
+    full = train_full(torch, LM_ARCH, LM_PARAMS, TR_BATCH, TR_STEPS,
+                      lambda cfg: {"flash_attention":
+                                   2 * cfg.n_layers * cfg.microbatches},
+                      cpu_prefix=True)
     emit({"phase": "train_lm", "step": "qwen2.5-3b", **full})
-    eager = train_replay_vs_eager(torch)
+    eager = train_replay_vs_eager(torch, LM_ARCH, TR_EAGER_LAYERS)
     emit({"phase": "train_lm", "step": "replayed vs eager", **eager})
     cpu = train_card_vs_cpu(torch)
     emit({"phase": "train_lm", "step": "card vs cpu", **cpu})
     ed = train_whisper(torch)
     emit({"phase": "train_lm", "step": "whisper-tiny", **ed})
-    xl = train_xlstm_refused(torch)
-    emit({"phase": "train_lm", "step": "xlstm refused", **xl})
+    t_xl = time.perf_counter()
+    xl = train_xlstm(torch)
     emit({"phase": "train_lm", "step": "done",
-          "seconds": time.perf_counter() - t_phase})
+          "seconds": time.perf_counter() - t_phase,
+          "xlstm_seconds": time.perf_counter() - t_xl})
     return {"attention": att,
             "launches": {k_: int(v_) for k_, v_ in
                          full["launches_per_step"].items()},
             "whisper_launches": {k_: int(v_) for k_, v_ in
-                                 ed["launches_per_step"][-1].items()}}
+                                 ed["launches_per_step"][-1].items()},
+            "xlstm": xl}
 
 
 KERNEL_META = {
@@ -4187,6 +4487,7 @@ def main() -> int:
         print("chip_smoke: FAIL: no CUDA device (torch.cuda.is_available() "
               "is False)", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     try:
         dev = phase_device(torch)
         phase_build()
@@ -4227,6 +4528,7 @@ def main() -> int:
     by_path["vlm_prefill"] = vlm["launches"]
     by_path["train_lm_step"] = trl["launches"]
     by_path["whisper_train_step"] = trl["whisper_launches"]
+    by_path["xlstm_train_step"] = trl["xlstm"]["launches"]
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         rec = kern[name]
@@ -4353,6 +4655,37 @@ def main() -> int:
                  "tick": {k: tick[k] for k in (
                      "call", "ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms", "max_abs_err")}})
+    # its backward, which replaces no TPU kernel either: its main path is
+    # xlstm-1.3b's training step (phase train_lm)
+    bwd, ragged = trl["xlstm"]["backward"]["calls"]
+    n = trl["xlstm"]["launches"].get("slstm_scan_backward", 0)
+    if n == 0:
+        print("chip_smoke: FAIL: slstm_scan_backward was not launched on "
+              "the xLSTM training step", file=sys.stderr)
+        return 1
+    rows.append({"name": "slstm_scan_backward", "route": "cuda",
+                 "source": "src/repro_torch/csrc/slstm_scan_backward.cu",
+                 "replaces": "src/repro/nn/xlstm.py:275",
+                 "replaces_note": "no TPU kernel: jax.grad through the "
+                                  "reference's _slstm_scan under lax.scan",
+                 "launches": n, "max_abs_err": bwd["max_abs_err"],
+                 "tolerance": bwd["tolerance"], "ms": bwd["ms"],
+                 "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+                 "bound_by": bwd["bound_by"], "library_ms": None,
+                 "library_ms_null_because": "no single PyTorch call runs "
+                                            "the gated recurrence's "
+                                            "gradient",
+                 "per": f"one call {bwd['call']}, an xlstm-1.3b training "
+                        f"microbatch's layer; launches: one replayed "
+                        f"training step",
+                 "launches_by_path": {p: c["slstm_scan_backward"]
+                                      for p, c in by_path.items()
+                                      if c.get("slstm_scan_backward")},
+                 "forward_ms_at_this_call": bwd["forward_ms"],
+                 "ragged": {k: ragged[k] for k in (
+                     "call", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "max_abs_err")}})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(dev["nvidia_smi"])
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

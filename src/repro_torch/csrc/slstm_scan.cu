@@ -38,14 +38,23 @@
 // a fixed order; the threads that own a unit apply the gating, keep c, n
 // and m in registers, write h_t to their slice and to hs; one cluster
 // barrier ends the step.  R (16 MB a layer) does not fit in shared memory
-// and stays in L2 (50 MB), read once per step by each block.  The
-// exponentials are expf, log1pf and tanhf, not the fast intrinsics.
+// and stays in L2 (50 MB), read once per step by each block.  The gating
+// is slstm_gates.cuh's, which the backward shares.
+//
+// For training the launch may also save, per step, what the backward
+// (slstm_scan_backward.cu) reads: the four preactivations pre_g and the
+// state c, n, m after the step, seven (B, S, H, W) fp32 tensors (56 MB at
+// B 1, S 1,024, H 4, W 512; the backward rebuilds the gates from them with
+// no second product over R).  On the serving paths the save pointers are
+// null and the step writes nothing more.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <algorithm>
+
+#include "slstm_gates.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -63,6 +72,8 @@ struct Scan {
   float* n;
   float* m;
   float* hs;           // (B, S, H, W) the h of every step
+  float* save[7];      // null, or (B, S, H, W) pre_i, pre_f, pre_z, pre_o
+                       // and c, n, m after the step
   int steps, heads, width;
   int units;           // units per block (a multiple of kVec)
 };
@@ -142,18 +153,20 @@ __global__ void __launch_bounds__(kThreads) slstm_scan_kernel(Scan a) {
         for (int k = 0; k < slices; ++k) rec += part[(k * 4 + g) * U + u];
         pre[g] = xg[g] + rec;
       }
-      const float log_f = fminf(pre[1], 0.f) - log1pf(expf(-fabsf(pre[1])));
-      const float m_new = fmaxf(log_f + m, pre[0]);
-      const float ig = expf(pre[0] - m_new);
-      const float fg = expf(log_f + m - m_new);
-      const float z = tanhf(pre[2]);
-      const float o = 1.f / (1.f + expf(-pre[3]));
-      c = fg * c + ig * z;
-      n = fg * n + ig;
-      m = m_new;
-      const float h = o * c / fmaxf(n, 1e-6f);
+      const SlstmGates q = slstm_gates(pre, m);
+      c = q.fg * c + q.ig * q.z;
+      n = q.fg * n + q.ig;
+      m = q.m_new;
+      const float h = q.o * c / fmaxf(n, 1e-6f);
       h_own[(p ^ 1) * U + u] = h;
       a.hs[row + v0 + u] = h;
+      if (a.save[0]) {
+        const long long at = row + v0 + u;
+        for (int g = 0; g < 4; ++g) a.save[g][at] = pre[g];
+        a.save[4][at] = c;
+        a.save[5][at] = n;
+        a.save[6][at] = m;
+      }
     }
     // h_t is in every slice, and nobody reads h_{t-1} any more
     cluster.sync();
@@ -170,14 +183,16 @@ __global__ void __launch_bounds__(kThreads) slstm_scan_kernel(Scan a) {
 
 // x, r: arrays of four device pointers (the gates i, f, z, o): x_pre
 // (B, S, H, W) and R (H, W, W), contiguous fp32; h, c, n, m: (B, H, W)
-// fp32, read and written in place; hs: (B, S, H, W) fp32.  R is read as
-// float4: W a multiple of 4, each R 16-byte aligned, W <= kCluster *
-// kThreads.  One launch of B * H clusters of kCluster blocks.  Returns the
-// launch's CUDA error, or cudaGetLastError().
+// fp32, read and written in place; hs: (B, S, H, W) fp32; save: null, or
+// seven (B, S, H, W) fp32 pointers (pre_i, pre_f, pre_z, pre_o, then c, n,
+// m after each step).  R is read as float4: W a multiple of 4, each R
+// 16-byte aligned, W <= kCluster * kThreads.  One launch of B * H clusters
+// of kCluster blocks.  Returns the launch's CUDA error, or
+// cudaGetLastError().
 extern "C" int slstm_scan_f32(const void* const* x, const void* const* r,
                               void* h, void* c, void* n, void* m, void* hs,
-                              int batch, int steps, int heads, int width,
-                              void* stream) {
+                              void* const* save, int batch, int steps,
+                              int heads, int width, void* stream) {
   if (width < kVec || width > kCluster * kThreads || width % kVec)
     return (int)cudaErrorInvalidValue;
   Scan a;
@@ -190,6 +205,8 @@ extern "C" int slstm_scan_f32(const void* const* x, const void* const* r,
   a.n = static_cast<float*>(n);
   a.m = static_cast<float*>(m);
   a.hs = static_cast<float*>(hs);
+  for (int k = 0; k < 7; ++k)
+    a.save[k] = save ? static_cast<float*>(save[k]) : nullptr;
   a.steps = steps;
   a.heads = heads;
   a.width = width;

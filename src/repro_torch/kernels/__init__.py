@@ -17,8 +17,9 @@ flash_attention   — online-softmax attention (the NLB throughput mode)
 dfg_segment       — one fused segment of the generic DFG tier: levelised
                     gather/compute/re-quantise/scatter in one launch
 slstm_scan        — the sLSTM's time loop (xLSTM), one launch per layer
-                    call; it replaces no TPU kernel (the reference runs
-                    ``lax.scan``)
+                    call, and its backward, one launch per layer call in
+                    training; they replace no TPU kernel (the reference
+                    runs ``lax.scan`` and differentiates it)
 
 ``registry.py`` catalogues the first four as pattern-matched fast paths for
 the nest tier (:mod:`repro_torch.core.emit_cuda`), and holds the opcode

@@ -44,7 +44,8 @@ SIGNATURES = {
     "dfg_segment_shape": [_I, _P],
     "flash_attention_f32": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P],
     "flash_attention_shape": [_I] * 4 + [_P],
-    "slstm_scan_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "slstm_scan_f32": [_P] * 8 + [_I] * 4 + [_P],
+    "slstm_scan_backward_f32": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 

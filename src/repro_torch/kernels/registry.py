@@ -182,16 +182,19 @@ NO_QUANT_OPCODES = frozenset({"cmpugt", "load", "store", "copy"})
 
 def _launch_counters() -> dict[str, Callable]:
     from repro_torch.kernels.dfg_segment.dfg_segment import dfg_segment
-    from repro_torch.kernels.slstm_scan.slstm_scan import slstm_scan
+    from repro_torch.kernels.slstm_scan.slstm_scan import (
+        slstm_scan, slstm_scan_backward)
     counters = {name: e.kernel for name, e in KERNELS.items()}
     counters["dfg_segment"] = dfg_segment
     counters["slstm_scan"] = slstm_scan
+    counters["slstm_scan_backward"] = slstm_scan_backward
     return counters
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel name -> launches so far in this process: the registry's
-    kernels, the DFG tier's segment kernel and the sLSTM's time loop."""
+    kernels, the DFG tier's segment kernel and the sLSTM's time loop and
+    its backward."""
     return {name: k.launches
             for name, k in sorted(_launch_counters().items())}
 

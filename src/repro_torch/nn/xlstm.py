@@ -13,7 +13,9 @@ sLSTM has state-dependent gating (recurrent R matrices, a shared
 max-stabiliser) and cannot be parallelised over time.  Its time loop is
 one launch of the ``slstm_scan`` kernel per layer call on the card
 (:mod:`repro_torch.kernels.slstm_scan`), the prefill's and the decode
-tick's alike; on the CPU the kernel's plain version runs the steps.
+tick's alike; on the CPU the kernel's plain version runs the steps.  In
+training the loop's gradient is one launch of ``slstm_scan_backward`` per
+layer call (the plain reverse loop on the CPU).
 
 Block structure follows the official xLSTM backbone: an mLSTM block with
 projection factor 2 and a causal conv of width 4; an sLSTM block with a
@@ -75,6 +77,21 @@ def mlstm_block_specs(d: int, n_heads: int, *, proj_factor: int = 2,
     }
 
 
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``cumsum(x, dim=1)`` of (B, L, H) fp32 as one product with a
+    lower-triangular matrix of ones in fp64, rounded to fp32: near exact,
+    so the CPU and the card give the same sums, and deterministic, so a
+    training step's replay equals its eager run (PyTorch flags its CUDA
+    floating-point cumsum as nondeterministic; under
+    ``torch.use_deterministic_algorithms`` it raises).  A decode step's
+    one-row sum is its input."""
+    l = x.shape[1]
+    if l == 1:
+        return x
+    tri = torch.ones(l, l, dtype=torch.float64, device=x.device).tril()
+    return torch.einsum("ts,bsh->bth", tri, x.double()).to(x.dtype)
+
+
 def _mlstm_chunk(q, k, v, log_f, log_i, state):
     """One chunk of the stabilised chunkwise mLSTM.
 
@@ -87,7 +104,7 @@ def _mlstm_chunk(q, k, v, log_f, log_i, state):
     # the reference's fp32 1 / sqrt(d)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))
     qf, kf, vf = (t.to(ACCUM) for t in (q, k, v))
-    f_cum = torch.cumsum(log_f, dim=1)                  # inclusive (B,L,H)
+    f_cum = _cumsum(log_f)                              # inclusive (B,L,H)
     # intra-chunk log decays  D[t, s] = F_t - F_s + log_i_s  (s <= t)
     dmat = (f_cum[:, :, None, :] - f_cum[:, None, :, :]
             + log_i[:, None, :, :])                     # (B,T,S,H)

@@ -290,7 +290,8 @@ class DesignEngine:
             t0 = time.perf_counter()
             try:
                 self.injector.check(idx)
-                out = self._run_one(stacked)
+                with devices.host_threads(self.device, bucket):
+                    out = self._run_one(stacked)
                 devices.synchronize(self.device)
             except Exception as exc:
                 rep.restarts += 1

@@ -382,6 +382,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                                         "flash_attention": 0,
                                         "fused_softmax": 0,
                                         "slstm_scan": 0,
+                                        "slstm_scan_backward": 0,
                                         "smallfloat_matmul": 0}
 
 

@@ -27,8 +27,10 @@ fp32, and the reference's calls are jitted once per case.  Tolerances:
   bit: the same ops on the same values.
 
 On the card (``gpu``): K5's log-sum-exp against its plain version, its
-gradients against autograd through ``full_attention``, a tiny train
-step's replay against eager, and xLSTM's refusal.
+gradients against autograd through ``full_attention``; the sLSTM's
+backward kernel against its plain reverse loop, and its Function against
+autograd through the plain step loop; tiny Qwen2.5-3B's and tiny xLSTM's
+train steps replayed against eager.
 """
 
 import dataclasses
@@ -487,12 +489,102 @@ def test_replayed_train_step_equals_eager_on_card(cuda, monkeypatch):
         assert torch.equal(a, b)
 
 
+def _slstm_inputs(cuda, b, s, nh, w, seed):
+    """One sLSTM training call on the card: x_pre and R per gate (R at the
+    spec's scale grown so the recurrence shows), the init state (zeros, m
+    = -1e30) and a cotangent for hs."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x_pre = [torch.randn(b, s, nh, w, generator=g, device=cuda)
+             for _ in range(4)]
+    rec = [torch.randn(nh, w, w, generator=g, device=cuda) * w ** -0.5
+           for _ in range(4)]
+    state = [torch.zeros(b, nh, w, device=cuda) for _ in range(3)]
+    state.append(torch.full((b, nh, w), -1e30, device=cuda))
+    return x_pre, rec, state, torch.randn(b, s, nh, w, generator=g,
+                                          device=cuda)
+
+
 @pytest.mark.gpu
-def test_xlstm_training_raises_on_card(cuda):
-    cfg = registry.get_tiny("xlstm-1.3b")
+@pytest.mark.parametrize("b,s,nh,w", [(1, 1024, 4, 512), (2, 37, 3, 36),
+                                      (1, 5, 2, 20)])
+def test_slstm_backward_kernel_matches_plain_on_card(cuda, b, s, nh, w):
+    """The forward kernel's saves against the plain loop's, and the
+    backward kernel against the plain reverse loop on the kernel's saves,
+    at rtol 1e-4 / atol 1e-5 (fp32 sums in other orders, carried through
+    the steps): xlstm-1.3b's training call, and W 36 and 20, which leave
+    the cluster's last block part-filled and three blocks empty."""
+    from repro_torch.kernels.slstm_scan.ref import (slstm_scan_backward_ref,
+                                                    slstm_scan_ref)
+    from repro_torch.kernels.slstm_scan.slstm_scan import (
+        SAVES, slstm_scan, slstm_scan_backward)
+    x_pre, rec, state, dhs = _slstm_inputs(cuda, b, s, nh, w, w)
+    saves = [torch.empty_like(dhs) for _ in SAVES]
+    plain = [torch.empty_like(dhs) for _ in SAVES]
+    slstm_scan(x_pre, rec, *[t.clone() for t in state], saves=saves)
+    slstm_scan_ref(x_pre, rec, *[t.clone() for t in state], saves=plain)
+    for a, b_ in zip(saves, plain):
+        torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-5)
+    n = slstm_scan_backward.launches
+    got = slstm_scan_backward(dhs, rec, saves, *state[1:])
+    assert slstm_scan_backward.launches == n + 1
+    want = slstm_scan_backward_ref(dhs, rec, saves, *state[1:])
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_slstm_function_gradients_on_card(cuda):
+    """The sLSTM Function on the card (both kernels, R's gradient as one
+    product per gate) against autograd through the plain step loop on the
+    card, one forward and one backward launch."""
+    from repro_torch.kernels import registry as kernels
+    from repro_torch.kernels.slstm_scan import ops as slstm_ops
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+    x_pre, rec, state, dhs = _slstm_inputs(cuda, 2, 29, 3, 36, 7)
+    grads = []
+    for fn in (slstm_ops.scan, slstm_scan_ref):
+        ts = [t.clone().requires_grad_() for t in x_pre + rec]
+        kernels.reset_launch_counts()
+        hs = fn(ts[:4], ts[4:], *[t.clone() for t in state])
+        grads.append(torch.autograd.grad(hs, ts, dhs))
+        if fn is slstm_ops.scan:
+            launched = {k: v for k, v in kernels.launch_counts().items()
+                        if v}
+            assert launched == {"slstm_scan": 1, "slstm_scan_backward": 1}
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_replayed_xlstm_train_step_equals_eager_on_card(cuda, monkeypatch):
+    """Two steps of tiny xLSTM at microbatches 2 replayed from the
+    captured graph, the sLSTM's kernels inside it, against two eager steps
+    on a copy under deterministic algorithms: losses, parameters and
+    moments value for value; 4 forward launches (2 microbatches, forward
+    and remat recompute) and 2 backward launches a replay."""
+    from repro_torch.kernels import registry as kernels
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = registry.get_tiny("xlstm-1.3b").replace(microbatches=2)
     params = module.init_tree(transformer.model_specs(cfg),
-                              torch.Generator(device=cuda).manual_seed(0),
-                              device=cuda)
-    step = steps.make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="8.5b"):
-        step.eager(params, adamw.init_state(params), _batch(cfg, 2, 8, 0))
+                              torch.Generator().manual_seed(0))
+    trees = [module.map_tree(lambda t: t.to(cuda), params) for _ in range(2)]
+    states = [adamw.init_state(t) for t in trees]
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        step = steps.make_train_step(cfg)
+        for i in range(3):
+            b = _batch(cfg, 4, 16, 10 + i)
+            kernels.reset_launch_counts()
+            _, _, m_run = step(trees[0], states[0], b)
+            if i:
+                assert {k: v for k, v in kernels.launch_counts().items()
+                        if v} == {"slstm_scan": 4, "slstm_scan_backward": 2}
+            _, _, m_eager = step.eager(trees[1], states[1], b)
+            assert torch.isfinite(m_run["loss"])
+            assert torch.equal(m_run["loss"], m_eager["loss"])
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for a, b in zip(*(tree_flatten((t, s))[0]
+                      for t, s in zip(trees, states))):
+        assert torch.equal(a, b)

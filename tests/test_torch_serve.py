@@ -407,6 +407,7 @@ def test_slice_on_card_matches_evaluate_and_launches_kernels(x):
                                         "flash_attention": 0,
                                         "fused_softmax": 3,
                                         "slstm_scan": 0,
+                                        "slstm_scan_backward": 0,
                                         "smallfloat_matmul": 3}
     for out, xb in zip(rep.outputs, batches):
         want = d.run(xb)

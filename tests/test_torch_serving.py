@@ -16,6 +16,7 @@ runner value for value on the card.
 import pickle
 import subprocess
 import sys
+import threading
 import time
 import types
 from pathlib import Path
@@ -26,6 +27,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch.hls as hls  # noqa: E402
+from repro_torch.core import device as devices  # noqa: E402
 from repro_torch.core import graphs  # noqa: E402
 from repro_torch.core.pipeline import ARTIFACT_MAGIC  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
@@ -403,6 +405,80 @@ def test_queue_depth_counts_idle_and_ramp_periods(bound_design, samples):
     # the dwell at depth 8 dominates the drain transitions
     assert rep.p95_queue_depth >= 7
     assert rep.mean_queue_depth > 5
+
+
+def _threads_in_a_new_thread() -> int:
+    got = []
+    t = threading.Thread(target=lambda: got.append(torch.get_num_threads()))
+    t.start()
+    t.join()
+    return got[0]
+
+
+@pytest.fixture
+def pool_of_two_or_more():
+    """torch's intra-op pool at >= 2 threads for the test, then as it was."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(before, 2))
+    yield torch.get_num_threads()
+    torch.set_num_threads(before)
+
+
+def test_small_cpu_batches_run_on_one_thread_and_overlaps_restore_the_pool(
+        pool_of_two_or_more):
+    """host_threads in two threads, A in, B in, A out, B out: each runs
+    on one thread inside, and afterwards the process (this thread and a
+    thread started later) has its pool back; a batch at the cutoff, or on
+    no device, keeps the pool."""
+    pool = pool_of_two_or_more
+    cpu = torch.device("cpu")
+    a_in, b_in, a_out = (threading.Event() for _ in range(3))
+    inside = {}
+
+    def a():
+        with devices.host_threads(cpu, 1, serial_below=2):
+            inside["a"] = torch.get_num_threads()
+            a_in.set()
+            b_in.wait(10)
+        a_out.set()
+
+    def b():
+        a_in.wait(10)
+        with devices.host_threads(cpu, 1, serial_below=2):
+            inside["b"] = torch.get_num_threads()
+            b_in.set()
+            a_out.wait(10)
+
+    ts = [threading.Thread(target=f) for f in (a, b)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(20)
+    assert inside == {"a": 1, "b": 1}
+    assert torch.get_num_threads() == pool
+    assert _threads_in_a_new_thread() == pool
+    with devices.host_threads(cpu, 2, serial_below=2):
+        assert torch.get_num_threads() == pool
+    with devices.host_threads(None, 1, serial_below=2):
+        assert torch.get_num_threads() == pool
+
+
+def test_two_engines_draining_at_once_keep_the_thread_pool(
+        bound_design, samples, pool_of_two_or_more):
+    """Two threaded engines serving single-sample batches at once leave
+    torch's intra-op pool as they found it."""
+    engines = [bound_design.engine(backend="tensor", buckets=(1,))
+               for _ in range(2)]
+    for eng in engines:
+        eng.start()
+    for x in samples[:8]:
+        for eng in engines:
+            eng.submit(x)
+    for eng in engines:
+        eng.stop()
+    assert [eng.report().completed for eng in engines] == [8, 8]
+    assert torch.get_num_threads() == pool_of_two_or_more
+    assert _threads_in_a_new_thread() == pool_of_two_or_more
 
 
 # ---------------------------------------------------------------------------

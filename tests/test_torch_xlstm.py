@@ -214,6 +214,98 @@ def test_slstm_plain_loop_matches_reference_scan(ref):
                        got)
 
 
+def _slstm_case(b, s, w, nh=3, start="init"):
+    """Numpy inputs of one sLSTM call: x_pre and R per gate, the state it
+    starts from (``init``: zeros and m = -1e30, as training starts;
+    ``cached``: a drawn state, as a decode continues) and a cotangent."""
+    x_pre = {g: _rand(60 + i, b, s, nh, w) for i, g in enumerate("ifzo")}
+    rec = {g: _rand(70 + i, nh, w, w, scale=0.4) for i, g in enumerate("ifzo")}
+    if start == "init":
+        st = [np.zeros((b, nh, w), np.float32) for _ in range(3)]
+        st.append(np.full((b, nh, w), xlstm.M_INIT, np.float32))
+    else:
+        st = [_rand(80 + i, b, nh, w) for i in range(4)]
+        st[2] = np.abs(st[2])
+    return x_pre, rec, st, _rand(90, b, s, nh, w)
+
+
+def _function_grads(x_pre, rec, st, dhs, fn=slstm_ops.scan):
+    """hs, the state written back, and the gradients of x_pre and rec (in
+    the order i, f, z, o) of ``fn`` on fresh tensors."""
+    xs = [_t(x_pre[g]).requires_grad_() for g in "ifzo"]
+    rs = [_t(rec[g]).requires_grad_() for g in "ifzo"]
+    state = [_t(a.copy()) for a in st]
+    hs = fn(xs, rs, *state)
+    grads = torch.autograd.grad(hs, xs + rs, _t(dhs))
+    return hs.detach(), state, grads
+
+
+@pytest.mark.parametrize("start", ["init", "cached"])
+@pytest.mark.parametrize("b,s,w", [(2, 12, 8), (1, 20, 4)])
+def test_slstm_gradients_match_reference_vjp(ref, b, s, w, start):
+    """The sLSTM Function (the plain forward and the plain reverse loop on
+    the CPU) against ``jax.vjp`` of the reference's ``_slstm_scan`` on hs:
+    the gradients of x_pre and R at rtol 1e-4 / atol 1e-5, and the
+    forward's hs and written-back state at the blocks' bar; from the
+    training's init state and from a cached one."""
+    x_pre, rec, st, dhs = _slstm_case(b, s, w, start=start)
+    jx = {g: ref.jnp.asarray(a) for g, a in x_pre.items()}
+    jp = {"gates": {g: {"rec": ref.jnp.asarray(a)} for g, a in rec.items()}}
+    (want_hs, want_st), vjp = ref.jax.vjp(
+        lambda p, x: ref.xlstm._slstm_scan(p, x, *map(ref.jnp.asarray, st)),
+        jp, jx)
+    zero_st = ref.jax.tree_util.tree_map(ref.jnp.zeros_like, want_st)
+    want_dp, want_dx = vjp((ref.jnp.asarray(dhs), zero_st))
+    hs, state, grads = _function_grads(x_pre, rec, st, dhs)
+    assert _scale_err(hs, want_hs) <= BLOCK_SCALE_TOL
+    for g_, w_ in zip(state, want_st):
+        assert _scale_err(g_, w_) <= BLOCK_SCALE_TOL
+    want = [want_dx[g] for g in "ifzo"] + [want_dp["gates"][g]["rec"]
+                                           for g in "ifzo"]
+    for got, w_ in zip(grads, want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w_),
+                                   rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+
+
+@pytest.mark.parametrize("start", ["init", "cached"])
+def test_slstm_gradients_match_autograd_through_plain_loop(start):
+    """The Function's gradients against autograd through the plain step
+    loop, which runs the same forward ops: the explicit reverse loop is
+    autograd's derivative (the random data hold no ties)."""
+    x_pre, rec, st, dhs = _slstm_case(2, 16, 8, start=start)
+    hs, state, grads = _function_grads(x_pre, rec, st, dhs)
+    hs_a, state_a, grads_a = _function_grads(x_pre, rec, st, dhs,
+                                             fn=slstm_scan_ref)
+    assert torch.equal(hs, hs_a)
+    assert all(torch.equal(a, b) for a, b in zip(state, state_a))
+    for a, b in zip(grads, grads_a):
+        torch.testing.assert_close(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+
+
+@pytest.mark.parametrize("start", ["init", "cached"])
+def test_slstm_plain_backward_passes_gradcheck(start):
+    """The plain backward at (1, 4, 2, 4) in float64 against finite
+    differences of the plain forward (``torch.autograd.gradcheck``)."""
+    x_pre, rec, st, _ = _slstm_case(1, 4, 4, nh=2, start=start)
+    xr = [_t(a[g]).double().requires_grad_() for a in (x_pre, rec)
+          for g in "ifzo"]
+
+    def f(*xr):
+        state = [_t(a.copy()).double() for a in st]
+        return slstm_ops.scan(xr[:4], xr[4:], *state)
+
+    assert torch.autograd.gradcheck(f, tuple(xr))
+
+
+def test_slstm_state_that_needs_a_gradient_is_refused():
+    x_pre, rec, st, _ = _slstm_case(1, 3, 4)
+    state = [_t(a.copy()) for a in st]
+    state[1].requires_grad_()
+    with pytest.raises(ValueError, match="takes no gradient"):
+        slstm_ops.scan([_t(x_pre[g]) for g in "ifzo"],
+                       [_t(rec[g]) for g in "ifzo"], *state)
+
+
 # ---------------------------------------------------------------------------
 # the blocks, prefill and decode
 # ---------------------------------------------------------------------------
