@@ -215,6 +215,23 @@ Phases, each printing one JSON line (``"phase": ...``):
              beside a witness of bf16's own noise (the CPU run again on
              one intra-op thread): loss, grad norm and worst leaf each
              within max(the fp32 bar, 2x the witness's reading).
+22. mesh   — the sharded pieces on a 1 x 1 (data, model) NCCL mesh:
+             Qwen2.5-3B at full width cut to 4 layers (619,474,944
+             parameters; two full-depth states side by side do not fit),
+             its parameters and AdamW state sharded by
+             ``model_param_shardings`` and ``state_axes`` (no leaf
+             copied), the split batch by ``input_axes``; under
+             deterministic algorithms the sharded step (first call, then
+             replays of its captured graph, the NCCL collectives inside)
+             against the unsharded step from the same seed, 3 calls
+             each, metrics and every parameter and moment value for
+             value, without and then with ``grad_compression``; 32 K5
+             launches per replayed sharded step and nothing else of the
+             port's; 5 replays of each timed, tokens/s, the peak memory
+             each step adds, held within 5%; ``compressed_psum`` over
+             ``data`` on the embedding table against its one-rank value,
+             the dequantised int8, bit for bit; ``reshard_checkpoint`` of
+             tiny Qwen2.5-3B's saved state onto the mesh, bit for bit.
 
 Then the script's seconds, the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and
@@ -4447,6 +4464,259 @@ def phase_train_lm(torch) -> dict:
             "xlstm": xl}
 
 
+#: phase mesh: Qwen2.5-3B at full width cut to MESH_LAYERS layers (two
+#: copies of the full-depth state, 2 x 49.4 GB, do not fit), batch
+#: TR_BATCH x TR_SEQ in the config's 4 microbatches; the sharded and the
+#: unsharded step's first calls, MESH_COMPARED replays each held value for
+#: value, then MESH_TIMED replays each timed
+MESH_LAYERS, MESH_COMPARED, MESH_TIMED = 4, 2, 5
+#: the sharded step's peak device memory over the unsharded one's
+MESH_PEAK_RATIO = 1.05
+
+
+def _mesh_pair(torch, cfg, mesh, trees, batches, comp: bool) -> dict:
+    """The sharded and the unsharded step (with compression where
+    ``comp``) on ``trees`` ((sharded params, state), (params, state)),
+    made and captured under deterministic algorithms: each step's first
+    call, then MESH_COMPARED replays of each, metrics value for value; the
+    K5 launches of one replayed sharded step; then MESH_TIMED replays of
+    each timed (host clock, synchronised), with the peak device memory
+    each step adds over the live states."""
+    from repro_torch.configs import registry as configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import steps
+    from repro_torch.nn import module, transformer
+
+    rules = sh.rules_for(cfg)
+    axes = module.axes_tree(transformer.model_specs(cfg))
+    abstract, _ = sh.model_param_shardings(cfg, mesh)
+    o_sh = sh.state_shardings(abstract, axes, mesh, rules)
+    per = TR_BATCH // cfg.microbatches
+    train = configs.input_axes(cfg, configs.get_shape("train_4k"))
+    micro_sh = {k: sh.sharding_for((cfg.microbatches, per, TR_SEQ),
+                                   (None,) + ax, mesh, rules)
+                for k, ax in train.items()}
+    made = {"sharded": steps.make_train_step(
+        cfg, grad_compression=comp, microbatch_shardings=micro_sh,
+        grad_shardings=o_sh["mu"]),
+        "unsharded": steps.make_train_step(cfg, grad_compression=comp)}
+    tree = dict(zip(("sharded", "unsharded"), trees))
+    out: dict = {"metrics": {}, "first_call_s": {}, "step_ms": {},
+                 "peak_extra_bytes": {}}
+    for label, step in made.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ms = [step(*tree[label], batches[0])[2]]
+        torch.cuda.synchronize()
+        out["first_call_s"][label] = time.perf_counter() - t0
+        for i in range(MESH_COMPARED):
+            if label == "sharded" and i == 0:
+                registry.reset_launch_counts()
+            ms.append(step(*tree[label], batches[1 + i])[2])
+            if label == "sharded" and i == 0:
+                torch.cuda.synchronize()
+                out["launches_per_step"] = {
+                    k: v for k, v in registry.launch_counts().items() if v}
+        times = []
+        for i in range(MESH_TIMED):
+            t0 = time.perf_counter()
+            step(*tree[label], batches[1 + MESH_COMPARED + i])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["peak_extra_bytes"][label] = torch.cuda.max_memory_allocated() \
+            - base
+        out["metrics"][label] = [{k: float(v) for k, v in m.items()}
+                                 for m in ms]
+        out["step_ms"][label] = times
+    check(out["metrics"]["sharded"] == out["metrics"]["unsharded"],
+          f"sharded step's metrics {out['metrics']['sharded']} against "
+          f"the unsharded step's {out['metrics']['unsharded']}")
+    differ = 0
+    (ps, ss), (pu, su) = trees
+    for a, b in zip(module.tree_leaves((ps, ss)),
+                    module.tree_leaves((pu, su))):
+        differ += value_diff(torch, sh.local(a), b)
+    out["state_values_differing"] = differ
+    check(differ == 0, f"sharded step's state differs from the unsharded "
+                       f"step's in {differ} values")
+    for step in made.values():
+        step.runner().release()
+    return out
+
+
+def mesh_psum(torch, mesh, x) -> dict:
+    """``compressed_psum`` over ``data`` on the card (NCCL, int32 payload)
+    of ``x``, against its one-rank value, the dequantised int8 of ``x``
+    (bit for bit); timed."""
+    from repro_torch.optim import compress
+    fn = compress.compressed_psum("data", mesh)
+    got = fn(x)
+    want = compress.dequantize_int8(*compress.quantize_int8(x))
+    differ = value_diff(torch, got, want)
+    check(differ == 0, f"compressed_psum on the 1 x 1 mesh differs from "
+                       f"the dequantised int8 in {differ} values")
+    ms = device_ms(torch, lambda: fn(x), 10, chunk=5,
+                   label="compressed_psum")
+    return {"elements": x.numel(), "values_differing": differ, "ms": ms,
+            "payload_bytes": 4 * x.numel()}
+
+
+def mesh_reshard(torch, mesh) -> dict:
+    """``reshard_checkpoint`` onto the 1 x 1 NCCL mesh of a checkpoint of
+    tiny Qwen2.5-3B's parameters and AdamW state: every leaf bit for bit
+    what was saved, on the card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs import registry as configs
+    from repro_torch.nn import module, transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.elastic import reshard_checkpoint
+
+    cfg = configs.get_tiny(LM_ARCH)
+    p = module.init_tree(transformer.model_specs(cfg),
+                         torch.Generator().manual_seed(3))
+    saved = {"params": p, "opt": adamw.init_state(p)}
+    for t in module.tree_leaves(saved["opt"]["mu"]):
+        t.normal_(generator=torch.Generator().manual_seed(4))
+    tmp = Path(tempfile.mkdtemp(prefix=".smoke_mesh_", dir=ROOT))
+    try:
+        CheckpointManager(str(tmp)).save(7, saved)
+        t0 = time.perf_counter()
+        tree, step = reshard_checkpoint(CheckpointManager(str(tmp)), cfg,
+                                        mesh)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got, want = module.tree_leaves(tree), module.tree_leaves(saved)
+    differ = sum(value_diff(torch, g.to_local().cpu(), w)
+                 for g, w in zip(got, want))
+    on_card = all(g.to_local().is_cuda for g in got)
+    check(step == 7 and len(got) == len(want) and differ == 0 and on_card,
+          f"reshard_checkpoint onto the card's mesh: step {step}, "
+          f"{len(got)} of {len(want)} leaves, {differ} values differing, "
+          f"on the card {on_card}")
+    return {"arch": cfg.name, "leaves": len(got), "values_differing": differ,
+            "seconds": seconds}
+
+
+def phase_mesh(torch) -> dict:
+    """The sharded pieces on the card: a 1 x 1 (data, model) NCCL mesh;
+    Qwen2.5-3B at full width, 4 layers, its parameters and AdamW state
+    sharded by ``model_param_shardings`` and ``state_axes``
+    (``shard_tree``: no copy on this mesh), the batch by ``input_axes``;
+    the sharded step replayed against the unsharded one from the same
+    seed, value for value, without and then with ``grad_compression``;
+    K5 launches per sharded step; step times and peak memory side by
+    side; ``compressed_psum`` over ``data``; ``reshard_checkpoint`` onto
+    the mesh."""
+    import torch.distributed
+
+    from repro_torch.launch.mesh import single_device_mesh
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    mesh = single_device_mesh()
+    try:
+        return _mesh_phase(torch, mesh, t_phase)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _mesh_phase(torch, mesh, t_phase: float) -> dict:
+    """:func:`phase_mesh` on its mesh."""
+    from repro_torch.configs import registry as configs
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch import shardings as sh
+    from repro_torch.nn import module, transformer
+    from repro_torch.optim import adamw, compress
+
+    full = configs.get_config(LM_ARCH)
+    cfg = full.replace(n_layers=MESH_LAYERS)
+    specs = transformer.model_specs(cfg)
+    rules = sh.rules_for(cfg)
+    abstract, p_sh = sh.model_param_shardings(cfg, mesh)
+    o_sh = sh.state_shardings(abstract, module.axes_tree(specs), mesh,
+                              rules)
+    pipe = SyntheticTokenPipeline(DataConfig(
+        seq_len=TR_SEQ, global_batch=TR_BATCH, vocab_size=cfg.vocab_size))
+    n_batches = 1 + MESH_COMPARED + MESH_TIMED
+    trees = []
+    for sharded in (True, False):
+        p = module.init_tree(specs, torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        st = adamw.init_state(p)
+        if sharded:
+            ptrs = [t.data_ptr() for t in module.tree_leaves(p)]
+            p, st = sh.shard_tree(p, p_sh), sh.shard_tree(st, o_sh)
+            copied = sum(sh.local(t).data_ptr() != q for t, q in zip(
+                module.tree_leaves(p), ptrs))
+            check(copied == 0, f"shard_tree copied {copied} parameters "
+                               f"on the 1 x 1 mesh")
+        trees.append((p, st))
+    state_bytes = torch.cuda.memory_allocated() // 2
+    saved = torch.are_deterministic_algorithms_enabled()
+    pairs = {}
+    try:
+        torch.use_deterministic_algorithms(True)
+        pairs["plain"] = _mesh_pair(
+            torch, cfg, mesh, trees,
+            [pipe.batch_at(i) for i in range(n_batches)], False)
+        (_, ss), (pu, su) = trees
+        su["err"] = compress.init_error_state(pu)
+        ss["err"] = sh.shard_tree(compress.init_error_state(pu), o_sh["mu"])
+        pairs["compressed"] = _mesh_pair(
+            torch, cfg, mesh, trees,
+            [pipe.batch_at(n_batches + i) for i in range(n_batches)], True)
+    finally:
+        torch.use_deterministic_algorithms(saved)
+    want = {"flash_attention": 2 * cfg.n_layers * cfg.microbatches}
+    for label, pair in pairs.items():
+        check(pair["launches_per_step"] == want,
+              f"mesh {label}: a replayed sharded step launched "
+              f"{pair['launches_per_step']}, want {want} (per layer and "
+              f"microbatch, the forward twice under remat) and nothing "
+              f"else")
+    plain = pairs["plain"]
+    peak = {k: state_bytes + v for k, v in plain["peak_extra_bytes"].items()}
+    ratio = peak["sharded"] / peak["unsharded"]
+    check(ratio <= MESH_PEAK_RATIO,
+          f"the sharded step's peak {peak['sharded']} B is {ratio:.4f} of "
+          f"the unsharded step's {peak['unsharded']} B")
+    p50 = {k: statistics.median(v) for k, v in plain["step_ms"].items()}
+    psum = mesh_psum(torch, mesh, sh.local(
+        trees[0][1]["err"]["embed"]["table"]))
+    trees.clear()
+    free_card(torch)
+    reshard = mesh_reshard(torch, mesh)
+    n = module.param_count(specs)
+    out = {"arch": LM_ARCH, "layers": MESH_LAYERS,
+           "reduced": f"n_layers {MESH_LAYERS} of {full.n_layers}: the "
+                      f"sharded and the unsharded state side by side (2 x "
+                      f"{16 * module.param_count(transformer.model_specs(full)) / 1e9:.1f}"
+                      f" GB at full depth) do not fit",
+           "parameters": n, "mesh": dict(mesh.shape), "backend": "nccl",
+           "batch": TR_BATCH, "seq": TR_SEQ,
+           "microbatches": cfg.microbatches, "deterministic": True,
+           "state_bytes_each": state_bytes,
+           "pairs": {k: {kk: vv for kk, vv in v.items()
+                         if kk != "peak_extra_bytes"}
+                     for k, v in pairs.items()},
+           "step_ms_p50": p50,
+           "tokens_per_s": {k: TR_BATCH * TR_SEQ / v * 1e3
+                            for k, v in p50.items()},
+           "peak_device_bytes": peak, "peak_ratio": ratio,
+           "compressed_psum": psum, "reshard": reshard,
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "mesh", **out})
+    return {"launches": {k: int(v) for k, v in
+                         plain["launches_per_step"].items()}}
+
+
 KERNEL_META = {
     "conv2d_vmem": ("src/repro_torch/csrc/conv2d_vmem.cu",
                     "src/repro/kernels/conv2d_vmem/conv2d_vmem.py:82"),
@@ -4508,6 +4778,7 @@ def main() -> int:
         ed = phase_encdec(torch)
         vlm = phase_vlm(torch)
         trl = phase_train_lm(torch)
+        msh = phase_mesh(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4529,6 +4800,7 @@ def main() -> int:
     by_path["train_lm_step"] = trl["launches"]
     by_path["whisper_train_step"] = trl["whisper_launches"]
     by_path["xlstm_train_step"] = trl["xlstm"]["launches"]
+    by_path["mesh_train_step"] = msh["launches"]
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         rec = kern[name]

@@ -13,11 +13,11 @@ Guarantees:
   * **Async** — ``save_async`` copies every tensor to host memory (a
     consistent point: the step loop may then overwrite or free its
     tensors), then writes on a background thread.  ``wait()`` joins.
+  * **Elastic restore** — leaves are stored whole (gathered); ``restore``
+    places them on a device, or, given shardings for ANY mesh shape, as
+    DTensors, each rank keeping its block, so a job checkpointed on N
+    devices resumes on M (``runtime.elastic``).
   * **Retention** — the newest ``keep`` checkpoints stay.
-
-Leaves are stored whole; ``restore`` places them on a device.  (Restoring
-onto a sharded layout, the reference's ``shardings=``, comes with the
-port's mesh.)
 """
 
 from __future__ import annotations
@@ -142,14 +142,19 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, like: Any, step: Optional[int] = None,
-                device=None) -> tuple[Any, int]:
+                shardings: Optional[Any] = None, device=None
+                ) -> tuple[Any, int]:
         """Restore the checkpoint at ``step`` (default: the latest) into
         the structure of ``like``, as tensors.
 
-        Each leaf goes to ``device`` when given, else to the device of
-        ``like``'s tensor in its place (a leaf of ``like`` that is not a
-        tensor: the default device, the card).  A checkpoint whose leaf
-        count or shapes differ from ``like``'s raises ``ValueError``.
+        With ``shardings`` (a tree of ``NamedSharding``s matching
+        ``like``) every rank reads each whole leaf and keeps its block:
+        DTensors on the shardings' meshes (``distribute_tensor`` with
+        their placements, split locally).  Else each leaf goes to
+        ``device`` when given, else to the device of ``like``'s tensor in
+        its place (a leaf of ``like`` that is not a tensor: the default
+        device, the card).  A checkpoint whose leaf count or shapes differ
+        from ``like``'s raises ``ValueError``.
         """
         if step is None:
             step = self.latest_step()
@@ -163,14 +168,28 @@ class CheckpointManager:
                 f"checkpoint/tree structure mismatch: {path} holds "
                 f"{manifest['n_leaves']} leaves, the tree has "
                 f"{len(leaves_like)}")
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+            place = tree_flatten(shardings)[0]
+            if len(place) != len(leaves_like):
+                raise ValueError(f"{len(place)} shardings for "
+                                 f"{len(leaves_like)} leaves")
         dev = devices.resolve(device) if device is not None else None
         loaded = []
         for i, ref in enumerate(leaves_like):
             arr = np.load(path / f"leaf_{i:05d}.npy", allow_pickle=False)
-            if list(arr.shape) != list(np.shape(ref)):
+            want = tuple(ref.shape) if isinstance(ref, torch.Tensor) else \
+                np.shape(ref)
+            if arr.shape != want:
                 raise ValueError(
                     f"leaf {i} ({manifest['names'][i]}): shape "
-                    f"{arr.shape} != {tuple(np.shape(ref))}")
+                    f"{arr.shape} != {want}")
+            if shardings is not None:
+                s = place[i]
+                loaded.append(distribute_tensor(
+                    torch.from_numpy(arr), s.mesh.device_mesh, s.placements,
+                    src_data_rank=None))
+                continue
             where = dev or (ref.device if isinstance(ref, torch.Tensor)
                             else devices.resolve(None))
             loaded.append(torch.from_numpy(arr).to(where))

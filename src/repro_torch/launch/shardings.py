@@ -1,0 +1,159 @@
+"""Sharding resolution: logical axes -> NamedShardings on a concrete mesh.
+
+The reference's ``repro.launch.shardings`` in torch.  This is where the
+paper's K_i binding rule meets real shapes: a logical binding is *pruned*
+where the tensor dimension does not divide the mesh axes' extent (batch 1
+cannot shard over 16 data rows; 60 experts do not split 16 ways).
+Pruning is per tensor and deterministic, so checkpoints, the elastic
+resharder and the train step agree, and every block a rank holds is
+whole: the port never relies on DTensor's uneven shards, so
+``bytes_per_device`` is each rank's true footprint.
+
+``shard_tree`` turns a tree of whole tensors into DTensors under a tree of
+shardings, each rank keeping its block; a tensor the sharding leaves
+whole is wrapped as it is, with no copy (every leaf on a 1 x 1 mesh).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.binding import BindingRules, NamedSharding, \
+    PartitionSpec, entry_axes
+from repro_torch.nn import module as module_lib
+
+
+def rules_for(cfg) -> BindingRules:
+    overrides = dict(getattr(cfg, "rules_overrides", ()) or ())
+    rules = BindingRules()
+    if overrides:
+        rules = rules.with_overrides(**overrides)
+    return rules
+
+
+def prune_spec(shape: tuple[int, ...], spec: PartitionSpec, mesh
+               ) -> PartitionSpec:
+    """Drop mesh axes that don't evenly divide the tensor dimension."""
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * (len(shape)
+                                                         - len(spec))):
+        kept = []
+        extent = 1
+        for a in entry_axes(entry):
+            sz = mesh.shape[a]
+            if dim % (extent * sz) == 0:
+                kept.append(a)
+                extent *= sz
+        if not kept:
+            out.append(None)
+        elif len(kept) == 1:
+            out.append(kept[0])
+        else:
+            out.append(tuple(kept))
+    return PartitionSpec(*out)
+
+
+def sharding_for(shape: tuple[int, ...], axes: tuple, mesh,
+                 rules: BindingRules) -> NamedSharding:
+    spec = rules.spec(axes, mesh)
+    return NamedSharding(mesh, prune_spec(shape, spec, mesh))
+
+
+def _zip_map(fn, a: Any, b: Any) -> Any:
+    """``fn(leaf_a, leaf_b)`` over two nested dicts of one structure, the
+    second's leaves axes tuples or shardings."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            raise ValueError(f"trees differ: {sorted(a)} against "
+                             f"{sorted(b) if isinstance(b, dict) else b}")
+        return {k: _zip_map(fn, a[k], b[k]) for k in a}
+    return fn(a, b)
+
+
+def tree_shardings(abstract_tree: Any, axes_tree: Any, mesh,
+                   rules: BindingRules) -> Any:
+    """Shardings for a tree of tensors (``meta`` ones will do) and its
+    matching axes tree."""
+    return _zip_map(lambda a, x: sharding_for(tuple(a.shape), x, mesh,
+                                              rules), abstract_tree,
+                    axes_tree)
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, PartitionSpec())
+
+
+def bytes_per_device(abstract_tree: Any, shardings: Any) -> int:
+    """The bytes each device holds of a sharded tree (every block is the
+    same size: the specs divide their shapes)."""
+    sizes: list[int] = []
+
+    def one(a, s):
+        n = math.prod(a.shape)
+        for entry in s.spec:
+            for ax in entry_axes(entry):
+                n //= s.mesh.shape[ax]
+        sizes.append(n * a.dtype.itemsize)
+    _zip_map(one, abstract_tree, shardings)
+    return sum(sizes)
+
+
+def model_param_shardings(cfg: ModelConfig, mesh):
+    """(abstract_params, shardings) for an LM config."""
+    from repro_torch.models import encdec
+    from repro_torch.nn import transformer
+    rules = rules_for(cfg)
+    specs = encdec.model_specs(cfg) if cfg.is_encoder_decoder else \
+        transformer.model_specs(cfg)
+    abstract = module_lib.abstract_tree(specs)
+    axes = module_lib.axes_tree(specs)
+    return abstract, tree_shardings(abstract, axes, mesh, rules)
+
+
+def state_shardings(abstract_params: Any, param_axes: Any, mesh,
+                    rules: BindingRules) -> dict:
+    """The AdamW state's shardings (ZeRO: ``optim.adamw.state_axes``)."""
+    from repro_torch.optim import adamw
+    return tree_shardings(adamw.abstract_state(abstract_params),
+                          adamw.state_axes(param_axes), mesh, rules)
+
+
+def shard(t: torch.Tensor, sharding: NamedSharding):
+    """A DTensor of the whole tensor ``t`` under ``sharding``, holding
+    this rank's block (on the mesh's device): ``t`` itself where the block
+    is all of it and ``t`` lies there already."""
+    from torch.distributed.tensor import DTensor
+    mesh = sharding.mesh
+    local = t[mesh.block(sharding, t.shape)].to(mesh.device_type)
+    return DTensor.from_local(
+        local.contiguous(), mesh.device_mesh, sharding.placements,
+        run_check=False, shape=t.shape,
+        stride=torch.empty(t.shape, device="meta").stride())
+
+
+def shard_tree(tree: Any, shardings: Any) -> Any:
+    """:func:`shard` over a nested dict of tensors and its shardings."""
+    return _zip_map(shard, tree, shardings)
+
+
+def local(t) -> torch.Tensor:
+    """A DTensor's local block (the tensor itself, not a copy), or a
+    plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def sharding_of(t, mesh) -> NamedSharding:
+    """The NamedSharding a DTensor's placements say on ``mesh``."""
+    from torch.distributed.tensor import Shard
+    spec: list = [()] * t.ndim
+    for name, pl in zip(mesh.axis_names, t.placements):
+        if isinstance(pl, Shard):
+            spec[pl.dim] = spec[pl.dim] + (name,)
+    return NamedSharding(mesh, PartitionSpec(*(
+        None if not e else e[0] if len(e) == 1 else e for e in spec)))
+

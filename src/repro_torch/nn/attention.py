@@ -81,13 +81,16 @@ def qkv_project(p: dict, x: torch.Tensor, *, quant: Optional[str] = None
     return tuple(_project(p[n], x, quant) for n in ("q", "k", "v"))
 
 
-def out_project(p: dict, y: torch.Tensor, *, quant: Optional[str] = None
-                ) -> torch.Tensor:
-    """y: (B, S, H, dh) -> (B, S, D), in y's dtype (fp32 sums)."""
+def out_project(p: dict, y: torch.Tensor, *, quant: Optional[str] = None,
+                reduce_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """y: (B, S, H, dh) -> (B, S, D), in y's dtype (fp32 sums).
+    ``reduce_dtype``: the dtype of the product, whose partial sums cross
+    devices under tensor parallelism (bf16 halves that all-reduce's
+    bytes); the result is rounded to it before y's dtype."""
     w = maybe_quantize(p["o"]["kernel"], quant).to(y.dtype)
     h, k, d = w.shape
-    return matmul_f32(y.reshape(*y.shape[:-2], h * k),
-                      w.reshape(h * k, d)).to(y.dtype)
+    out = matmul_f32(y.reshape(*y.shape[:-2], h * k), w.reshape(h * k, d))
+    return out.to(reduce_dtype or out.dtype).to(y.dtype)
 
 
 # -- masks -------------------------------------------------------------------
@@ -290,7 +293,9 @@ def self_attention(p: dict, x: torch.Tensor,
                    window: Optional[int] = None, logit_cap: float = 0.0,
                    rope_theta: float = 10000.0, rope_fraction: float = 1.0,
                    mrope_sections=None, quant: Optional[str] = None,
-                   block_size: Optional[int] = None) -> torch.Tensor:
+                   block_size: Optional[int] = None,
+                   reduce_dtype: Optional[torch.dtype] = None
+                   ) -> torch.Tensor:
     """Self-attention for prefill and training (no cache).
 
     ``positions=None`` means ``arange(S)`` for every sequence: the flash
@@ -317,7 +322,7 @@ def self_attention(p: dict, x: torch.Tensor,
             y = blockwise_attention(q, k, v, block_size=block_size, **kw)
         else:
             y = full_attention(q, k, v, **kw)
-    return out_project(p, y, quant=quant)
+    return out_project(p, y, quant=quant, reduce_dtype=reduce_dtype)
 
 
 # -- KV caches ---------------------------------------------------------------

@@ -178,7 +178,11 @@ def mlp_specs(d: int, d_ff: int, *, gated: bool = True) -> dict:
 
 
 def mlp(p: dict, x: torch.Tensor, *, act: str = "silu",
-        quant: Optional[str] = None) -> torch.Tensor:
+        quant: Optional[str] = None,
+        reduce_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``reduce_dtype``: dtype of the row-parallel output projection whose
+    partial sums cross devices (bf16 halves the TP all-reduce bytes): its
+    fp32 sum is rounded to it before x's dtype."""
     f = activation(act)
     wi = maybe_quantize(p["wi"], quant).to(x.dtype)
     wo = maybe_quantize(p["wo"], quant).to(x.dtype)
@@ -188,7 +192,8 @@ def mlp(p: dict, x: torch.Tensor, *, act: str = "silu",
         h = f(matmul_f32(x, wg)) * h
     else:
         h = f(h)
-    return matmul_f32(h.to(x.dtype), wo).to(x.dtype)
+    out = matmul_f32(h.to(x.dtype), wo)
+    return out.to(reduce_dtype or out.dtype).to(x.dtype)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

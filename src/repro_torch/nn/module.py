@@ -1,8 +1,8 @@
 """Parameter specs and their materialisation as torch tensors.
 
 Every parameter is declared by a ``ParamSpec`` carrying its shape and a
-tuple of *logical axis names* (kept from the reference for the sharded
-slices to come).  Specs compose as plain nested dicts; :func:`init_tree`
+tuple of *logical axis names*, which ``core.binding``'s rules resolve to
+mesh axes.  Specs compose as plain nested dicts; :func:`init_tree`
 walks them in sorted key order and draws from one ``torch.Generator``, so a
 seed fixes every tensor.  The draws differ from ``jax.random``'s for the
 same seed: tests that compare the two packages hand both the same numpy
@@ -68,6 +68,18 @@ def init_tree(specs: SpecTree, generator: torch.Generator, *,
         return torch.randn(spec.shape, generator=generator, device=device,
                            dtype=torch.float32).mul_(std).to(spec.dtype)
     return map_specs(make, specs)
+
+
+def abstract_tree(specs: SpecTree) -> Any:
+    """Stand-ins with each spec's shape and dtype on the ``meta`` device
+    (the reference's ``ShapeDtypeStruct``s): no storage."""
+    return map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                           device="meta"), specs)
+
+
+def axes_tree(specs: SpecTree) -> Any:
+    """The logical-axes tree matching the param tree's structure."""
+    return map_specs(lambda s: s.axes, specs)
 
 
 def stack(specs: SpecTree, n: int) -> SpecTree:

@@ -20,9 +20,10 @@ load-balancing loss beside the logits, takes each stacked leaf either as
 one tensor or as a sequence of per-layer tensors (the train step's, so
 each layer's gradient lands in its own slice), and with gradients on runs
 each superblock layer under ``torch.utils.checkpoint`` where ``cfg.remat``
-asks for it.  Decoder-only learned positions and bf16 cross-device sums
-are not ported yet: a config that asks for one raises
-``NotImplementedError``.  The encoder-decoder (whisper-tiny) is not a
+asks for it.  ``cfg.bf16_reduce`` rounds the attention out-projection's
+and the MLP's ``wo`` products to bf16, as the reference does for their
+cross-device sums.  Decoder-only learned positions are not ported: a
+config that asks for them raises ``NotImplementedError``.  The encoder-decoder (whisper-tiny) is not a
 decoder of this module: it runs through :mod:`repro_torch.models.encdec`.
 """
 
@@ -63,8 +64,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         # them, its decode_step does not (ROADMAP.md R9)
         later.append("decoder-only learned positions (the encoder-decoder "
                      "runs through models/encdec)")
-    if cfg.bf16_reduce:
-        later.append("bf16 cross-device sums (the sharded pieces)")
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} not ported yet ({_LATER})")
@@ -143,6 +142,7 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
         raise NotImplementedError(f"layer kind {kind!r} not ported yet "
                                   f"({_LATER})")
     window = cfg.window if kind == "local" else None
+    rdt = torch.bfloat16 if cfg.bf16_reduce else None
     attn_kw = dict(logit_cap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
                    rope_fraction=cfg.rope_fraction,
                    mrope_sections=cfg.mrope_sections or None,
@@ -163,7 +163,7 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
         y = attention.self_attention(p["mixer"], h, positions, causal=True,
                                      window=window,
                                      block_size=cfg.attn_block_size,
-                                     **attn_kw)
+                                     reduce_dtype=rdt, **attn_kw)
     else:
         y, cache = attention.decode_attention(
             p["mixer"], h, cache, pos, window=window or None, **attn_kw)
@@ -180,7 +180,8 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                 capacity_factor=cfg.capacity_factor, act=cfg.act,
                 quant=cfg.quant_format, token_chunks=cfg.moe_token_chunks)
         else:
-            y = layers.mlp(p["mlp"], h, act=cfg.act, quant=cfg.quant_format)
+            y = layers.mlp(p["mlp"], h, act=cfg.act, quant=cfg.quant_format,
+                           reduce_dtype=rdt)
         if cfg.post_norms:
             y = _apply_norm(cfg, p["post2"], y)
         x = x + y
@@ -338,6 +339,10 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         if "patch_norm" in params:
             pt = _apply_norm(cfg, params["patch_norm"], pt)
         x = torch.cat([pt, x], dim=1)
+    # the reference pins the activations' batch (and sequence) sharding
+    # here and after every layer (its _pin_batch, a GSPMD constraint);
+    # the port's sharded step runs each rank's own rows on local tensors,
+    # so there is nothing to pin
     aux = None
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     for kind, p, _, stacked in _layers(cfg, params):

@@ -13,17 +13,23 @@ so the next step's writes never race with it.  The optimizer state has
 the parameters' tree and lies on their device.  Leaves are visited in the
 reference's pytree order (dict keys sorted), so the global norm sums in
 the same order, and each leaf's arithmetic is the reference's, op for op.
+
+The state is sharded like the parameters, and further (ZeRO):
+:func:`state_axes` binds each moment's ``embed`` dimension to the data
+axis too.  On a mesh each rank updates its own blocks; the sharded train
+step (``launch.steps``) hands :func:`apply_updates` the blocks and the
+collective that sums the global norm across ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
-from repro_torch.nn.module import tree_flatten, tree_unflatten
+from repro_torch.nn.module import map_tree, tree_flatten, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,13 +69,39 @@ def init_state(params: Any) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _clip_scale(flat: list, max_norm: float
+def abstract_state(abstract_params: Any) -> dict:
+    """``meta`` stand-ins of :func:`init_state`'s tree."""
+    z = map_tree(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                       device="meta"), abstract_params)
+    return {"mu": z, "nu": z,
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def state_axes(param_axes: Any) -> dict:
+    """Optimizer-state logical axes: the parameters' axes, with ``embed``
+    additionally bound to the data axis (rule ``opt_embed -> data``).
+
+    This is ZeRO-style optimizer-state sharding: mu/nu shard over BOTH
+    mesh axes wherever a tensor has an embed dimension (every projection,
+    norm and embedding does), cutting per-device optimizer bytes by the
+    data axis's size.
+    """
+    mapped = map_tree(lambda axes: tuple(
+        "opt_embed" if a == "embed" else a for a in axes), param_axes)
+    return {"mu": mapped, "nu": mapped, "step": ()}
+
+
+def _clip_scale(flat: list, max_norm: float, combine=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(``min(1, max_norm / global norm)``, the norm) of the leaves,
     summed in fp32: a handful of launches for all the leaves together,
-    and no wait for the host."""
+    and no wait for the host.  ``combine``, on a mesh, maps this rank's
+    vector of leaf norms to every rank's, whose norm is the global one."""
     g32 = [g.to(torch.float32) for g in flat]
-    gn = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g32)))
+    norms = torch.stack(torch._foreach_norm(g32))
+    if combine is not None:
+        norms = combine(norms)
+    gn = torch.linalg.vector_norm(norms)
     return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0), gn
 
 
@@ -84,6 +116,7 @@ def clip_by_global_norm(grads: Any, max_norm: float
 
 
 def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
+                  *, norm_leaves: Optional[list] = None, combine=None
                   ) -> tuple[Any, dict, dict]:
     """One AdamW step, in place.  Returns ``(params, state, metrics)``:
     the given trees, written, and ``metrics = {"grad_norm", "lr"}`` as
@@ -92,6 +125,11 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
     The ops and their order are the reference's, leaf by leaf, so each
     leaf's temporaries are the update's whole overhead; nothing waits for
     the host, so a captured step holds the update.
+
+    On a mesh the trees are this rank's blocks; the global norm is then
+    that of ``norm_leaves`` (the blocks this rank alone counts: a block
+    held by several ranks counted by one, empty tensors elsewhere)
+    gathered across ranks by ``combine`` (see :func:`_clip_scale`).
     """
     flat_p, treedef = tree_flatten(params)
     flat_g, flat_mu, flat_nu = (tree_flatten(t)[0] for t in (
@@ -101,7 +139,9 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
             f"params, grads and moments differ in leaves: {len(flat_p)}, "
             f"{len(flat_g)}, {len(flat_mu)}, {len(flat_nu)}")
     with torch.no_grad():
-        scale, gnorm = _clip_scale(flat_g, cfg.clip_norm)
+        scale, gnorm = _clip_scale(
+            flat_g if norm_leaves is None else norm_leaves, cfg.clip_norm,
+            combine)
         step = state["step"]
         step.add_(1)
         lr = cosine_lr(cfg, step)

@@ -191,6 +191,9 @@ def test_runtime_imports_neither_jax_nor_repro():
             "import repro_torch.configs.qwen2_vl_2b\n"
             "import repro_torch.launch.steps, repro_torch.launch.train\n"
             "import repro_torch.examples.train_lm\n"
+            "import repro_torch.core.binding, repro_torch.launch.mesh\n"
+            "import repro_torch.launch.shardings\n"
+            "import repro_torch.runtime.elastic\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

@@ -345,9 +345,14 @@ def test_train_step_matches_reference(ref, variant):
 
 
 def test_train_step_refuses_shardings():
-    with pytest.raises(NotImplementedError, match="8.6"):
-        steps.make_train_step(registry.get_tiny("qwen2.5-3b"),
-                              grad_shardings={})
+    """Shardings for parameters that are plain tensors are refused: the
+    sharded step takes DTensors (``launch.shardings.shard_tree``)."""
+    cfg = registry.get_tiny("qwen2.5-3b")
+    params = module.init_tree(transformer.model_specs(cfg),
+                              torch.Generator().manual_seed(0))
+    step = steps.make_train_step(cfg, grad_shardings={})
+    with pytest.raises(ValueError, match="not DTensors"):
+        step(params, adamw.init_state(params), _batch(cfg, 2, 8, 3))
 
 
 def test_in_place_adamw_on_a_stacked_tree_matches_reference(ref):
