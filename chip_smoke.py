@@ -199,10 +199,11 @@ Phases, each printing one JSON line (``"phase": ...``):
              xlstm-1.3b's training call (B 1, S 1,024, H 4, W 512) and a
              ragged one (W 36), timed beside the plain loop and the
              bound, the forward timed with and without its saves;
-             xlstm-1.3b trained at full width and depth (3,503,016,272
-             parameters, batch 8 x 1,024 in 8 microbatches, full remat):
+             xlstm-1.3b trained at full width (3,503,016,272 parameters
+             checked) cut to 24 of 48 layers (3 of 6 superblocks), batch
+             8 x 1,024 in 8 microbatches, full remat:
              the first call with its loss held to the no-grad forward's,
-             3 replayed steps timed (96 forward and 48 backward sLSTM
+             3 replayed steps timed (48 forward and 24 backward sLSTM
              launches a step and nothing else of the port's), one
              profiled; 2 replayed steps against 2 eager ones at one
              superblock (8 layers, 2 microbatches) under deterministic
@@ -232,6 +233,24 @@ Phases, each printing one JSON line (``"phase": ...``):
              ``data`` on the embedding table against its one-rank value,
              the dequantised int8, bit for bit; ``reshard_checkpoint`` of
              tiny Qwen2.5-3B's saved state onto the mesh, bit for bit.
+23. moe_mesh — expert routing over a sharded batch on a 1 x 1 NCCL mesh:
+             qwen2-moe-a2.7b at full width cut to 2 layers (1,832,675,328
+             parameters), batch 4 x 1,024 in 4 microbatches, its state
+             sharded; under deterministic algorithms the sharded step,
+             whose MoE layers route each rank's rows through
+             ``nn.moe.batch_shard`` (counts and probabilities summed over
+             the data axis inside the captured graph), against the
+             unsharded step from the same seed, 3 calls each, metrics and
+             every parameter and moment value for value; 16 K5 launches
+             per replayed sharded step; p50 and peak memory side by side.
+24. dryrun — phase mesh's step traced by ``launch.dryrun`` on fake CUDA
+             tensors over a 1 x 1 fake world: its predicted peak within
+             15% of the card's eager step's (run once after
+             ``reset_peak_memory_stats``), its K5 launches equal to the
+             eager step's and phase mesh's 32, the launch counters
+             untouched by the fake kernels, the rate its FLOPs imply at
+             phase mesh's p50; the reference test's tiny cell (gemma2-27b
+             on a 2 x 2 x 2 fake world) traced "ok".
 
 Then the script's seconds, the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and
@@ -2873,24 +2892,25 @@ MOE_KEPT_SHARE = {MOE_ARCH: 0.933, MIXTRAL_ARCH: 0.996}
 
 
 class KeptShare:
-    """Within ``with``: the routed assignments ``nn.moe.route`` plans and
-    the share kept within the capacity (summed on the card, read once)."""
+    """Within ``with``: the routed assignments ``nn.moe._plan`` plans (the
+    routing of every ``moe`` call) and the share kept within the capacity
+    (summed on the card, read once)."""
 
     def __enter__(self):
         from repro_torch.nn import moe
-        self.moe, self.route = moe, moe.route
+        self.moe, self.plan = moe, moe._plan
         self.kept, self.total = [], 0
 
-        def route(*a, **kw):
-            r = self.route(*a, **kw)
-            self.kept.append(r.keep.sum())
-            self.total += r.keep.numel()
-            return r
-        moe.route = route
+        def plan(*a, **kw):
+            out = self.plan(*a, **kw)
+            self.kept.append(out[0].keep.sum())
+            self.total += out[0].keep.numel()
+            return out
+        moe._plan = plan
         return self
 
     def __exit__(self, *exc):
-        self.moe.route = self.route
+        self.moe._plan = self.plan
 
     def share(self) -> float:
         return float(sum(self.kept)) / self.total
@@ -3743,6 +3763,10 @@ TR_XL_BATCH, TR_XL_STEPS = 8, 3
 #: 1 x 1,024, a quarter of the step's eager host time) and the card
 #: against the CPU
 TR_XL_LAYERS, TR_XL_EAGER_MICRO = 8, 2
+#: xlstm-1.3b's trained depth: 3 of its 6 superblocks (24 of 48 layers),
+#: so the script keeps its time with phases moe_mesh and dryrun (the step's
+#: first call at full depth took 75.4 s of host time)
+TR_XL_TRAIN_LAYERS = 24
 #: the sLSTM's backward kernel against its plain reverse loop: (B, S, H,
 #: W) of xlstm-1.3b's training call, and a ragged one (W 36: the
 #: cluster's last block part-filled); the forward kernel with and without
@@ -3911,9 +3935,11 @@ def first_loss_vs_cpu(torch, cfg, params, batch: dict) -> dict:
 
 
 def train_full(torch, arch: str, n_params: int, batch: int, n_steps: int,
-               want_launches, cpu_prefix: bool) -> dict:
-    """``arch`` trained at full width and depth, ``batch`` x TR_SEQ tokens
-    in its config's microbatches: the first call (one eager step, then the
+               want_launches, cpu_prefix: bool,
+               layers: "int | None" = None) -> dict:
+    """``arch`` trained at full width and depth (``layers``: cut to that
+    depth, the full config's ``n_params`` still checked), ``batch`` x
+    TR_SEQ tokens in its config's microbatches: the first call (one eager step, then the
     capture) with its loss held to the no-grad forward's, ``n_steps``
     replayed steps timed, one profiled; memory; the launches per replayed
     step held to ``want_launches(cfg)`` (kernel -> launches) and nothing
@@ -3930,6 +3956,14 @@ def train_full(torch, arch: str, n_params: int, batch: int, n_steps: int,
     from repro_torch.optim import adamw
 
     cfg = configs.get_config(arch)
+    reduced = None
+    if layers is not None:
+        full_n = module.param_count(transformer.model_specs(cfg))
+        check(full_n == n_params, f"{arch}: {full_n} parameters, want "
+                                  f"{n_params}")
+        reduced = f"n_layers {layers} of {cfg.n_layers}"
+        cfg = cfg.replace(n_layers=layers)
+        n_params = module.param_count(transformer.model_specs(cfg))
     free_card(torch)
     params, model = draw(torch, cfg, arch, n_params)
     state = adamw.init_state(params)
@@ -3995,7 +4029,7 @@ def train_full(torch, arch: str, n_params: int, batch: int, n_steps: int,
     p50 = statistics.median(times)
     tokens = batch * TR_SEQ
     n = module.param_count(transformer.model_specs(cfg))
-    out = {"arch": arch, **model, "reduced": None,
+    out = {"arch": arch, **model, "reduced": reduced,
            "first_loss_vs_cpu": vs_cpu, "batch": batch, "seq": TR_SEQ,
            "microbatches": cfg.microbatches, "remat": cfg.remat,
            "state_bytes": state_bytes, "peak_device_bytes": peak,
@@ -4394,9 +4428,9 @@ def slstm_backward_kernel(torch) -> dict:
 
 def train_xlstm(torch) -> dict:
     """xLSTM's training on the card: the sLSTM's backward kernel against
-    its plain reverse loop; xlstm-1.3b trained at full width and depth
-    (96 forward and 48 backward sLSTM launches a replayed step, nothing
-    else of the port's); replay against eager and the card against the
+    its plain reverse loop; xlstm-1.3b trained at full width, cut to
+    TR_XL_TRAIN_LAYERS layers (48 forward and 24 backward sLSTM launches
+    a replayed step, nothing else of the port's); replay against eager and the card against the
     CPU at one superblock, in fp32 and in bf16 activations."""
     t0 = time.perf_counter()
     kern = slstm_backward_kernel(torch)
@@ -4410,7 +4444,7 @@ def train_xlstm(torch) -> dict:
         return {"slstm_scan": 2 * n, "slstm_scan_backward": n}
     t0 = time.perf_counter()
     full = train_full(torch, XL_ARCH, XL_PARAMS, TR_XL_BATCH, TR_XL_STEPS,
-                      want, cpu_prefix=False)
+                      want, cpu_prefix=False, layers=TR_XL_TRAIN_LAYERS)
     emit({"phase": "train_lm", "step": XL_ARCH, **full,
           "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
@@ -4434,7 +4468,8 @@ def phase_train_lm(torch) -> dict:
     full remat, each step a replayed graph); replay against eager at four
     layers; the card against the CPU at two layers; whisper-tiny's
     training steps; xlstm-1.3b's: the sLSTM's backward kernel, the model
-    trained at full width and depth (batch 8 x 1,024 in 8 microbatches),
+    trained at full width, 24 of 48 layers (batch 8 x 1,024 in 8
+    microbatches),
     replay against eager and the card against the CPU at one
     superblock."""
     t_phase = time.perf_counter()
@@ -4604,6 +4639,89 @@ def mesh_reshard(torch, mesh) -> dict:
             "seconds": seconds}
 
 
+def mesh_states(torch, cfg, mesh, sharded_only: bool = False) -> list:
+    """[(sharded params, state), (params, state)]: ``cfg``'s parameters
+    drawn on the card from seed 0 twice, and each one's AdamW state; the
+    first pair sharded by ``model_param_shardings`` and ``state_axes``
+    (no leaf copied on the 1 x 1 mesh).  ``sharded_only``: that pair
+    alone."""
+    from repro_torch.launch import shardings as sh
+    from repro_torch.nn import module, transformer
+    from repro_torch.optim import adamw
+
+    specs = transformer.model_specs(cfg)
+    abstract, p_sh = sh.model_param_shardings(cfg, mesh)
+    o_sh = sh.state_shardings(abstract, module.axes_tree(specs), mesh,
+                              sh.rules_for(cfg))
+    trees = []
+    for sharded in (True,) if sharded_only else (True, False):
+        p = module.init_tree(specs, torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        st = adamw.init_state(p)
+        if sharded:
+            ptrs = [t.data_ptr() for t in module.tree_leaves(p)]
+            p, st = sh.shard_tree(p, p_sh), sh.shard_tree(st, o_sh)
+            copied = sum(sh.local(t).data_ptr() != q for t, q in zip(
+                module.tree_leaves(p), ptrs))
+            check(copied == 0, f"shard_tree copied {copied} parameters "
+                               f"on the 1 x 1 mesh")
+        trees.append((p, st))
+    return trees
+
+
+def phase_mesh(torch) -> dict:
+    """The sharded pieces on the card: a 1 x 1 (data, model) NCCL mesh;
+    Qwen2.5-3B at full width, 4 layers, its parameters and AdamW state
+    sharded by ``model_param_shardings`` and ``state_axes``
+    (``shard_tree``: no copy on this mesh), the batch by ``input_axes``;
+    the sharded step replayed against the unsharded one from the same
+    seed, value for value, without and then with ``grad_compression``;
+    K5 launches per sharded step; step times and peak memory side by
+    side; ``compressed_psum`` over ``data``; ``reshard_checkpoint`` onto
+    the mesh."""
+    import torch.distributed
+
+    from repro_torch.launch.mesh import single_device_mesh
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    mesh = single_device_mesh()
+    try:
+        return _mesh_phase(torch, mesh, t_phase)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_states(torch, cfg, mesh, sharded_only: bool = False) -> list:
+    """[(sharded params, state), (params, state)]: ``cfg``'s parameters
+    drawn on the card from seed 0 twice, and each one's AdamW state; the
+    first pair sharded by ``model_param_shardings`` and ``state_axes``
+    (no leaf copied on the 1 x 1 mesh).  ``sharded_only``: that pair
+    alone."""
+    from repro_torch.launch import shardings as sh
+    from repro_torch.nn import module, transformer
+    from repro_torch.optim import adamw
+
+    specs = transformer.model_specs(cfg)
+    abstract, p_sh = sh.model_param_shardings(cfg, mesh)
+    o_sh = sh.state_shardings(abstract, module.axes_tree(specs), mesh,
+                              sh.rules_for(cfg))
+    trees = []
+    for sharded in (True,) if sharded_only else (True, False):
+        p = module.init_tree(specs, torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        st = adamw.init_state(p)
+        if sharded:
+            ptrs = [t.data_ptr() for t in module.tree_leaves(p)]
+            p, st = sh.shard_tree(p, p_sh), sh.shard_tree(st, o_sh)
+            copied = sum(sh.local(t).data_ptr() != q for t, q in zip(
+                module.tree_leaves(p), ptrs))
+            check(copied == 0, f"shard_tree copied {copied} parameters "
+                               f"on the 1 x 1 mesh")
+        trees.append((p, st))
+    return trees
+
+
 def phase_mesh(torch) -> dict:
     """The sharded pieces on the card: a 1 x 1 (data, model) NCCL mesh;
     Qwen2.5-3B at full width, 4 layers, its parameters and AdamW state
@@ -4638,26 +4756,13 @@ def _mesh_phase(torch, mesh, t_phase: float) -> dict:
     full = configs.get_config(LM_ARCH)
     cfg = full.replace(n_layers=MESH_LAYERS)
     specs = transformer.model_specs(cfg)
-    rules = sh.rules_for(cfg)
-    abstract, p_sh = sh.model_param_shardings(cfg, mesh)
-    o_sh = sh.state_shardings(abstract, module.axes_tree(specs), mesh,
-                              rules)
+    o_sh = sh.state_shardings(sh.model_param_shardings(cfg, mesh)[0],
+                              module.axes_tree(specs), mesh,
+                              sh.rules_for(cfg))
     pipe = SyntheticTokenPipeline(DataConfig(
         seq_len=TR_SEQ, global_batch=TR_BATCH, vocab_size=cfg.vocab_size))
     n_batches = 1 + MESH_COMPARED + MESH_TIMED
-    trees = []
-    for sharded in (True, False):
-        p = module.init_tree(specs, torch.Generator(
-            device="cuda").manual_seed(0), device="cuda")
-        st = adamw.init_state(p)
-        if sharded:
-            ptrs = [t.data_ptr() for t in module.tree_leaves(p)]
-            p, st = sh.shard_tree(p, p_sh), sh.shard_tree(st, o_sh)
-            copied = sum(sh.local(t).data_ptr() != q for t, q in zip(
-                module.tree_leaves(p), ptrs))
-            check(copied == 0, f"shard_tree copied {copied} parameters "
-                               f"on the 1 x 1 mesh")
-        trees.append((p, st))
+    trees = mesh_states(torch, cfg, mesh)
     state_bytes = torch.cuda.memory_allocated() // 2
     saved = torch.are_deterministic_algorithms_enabled()
     pairs = {}
@@ -4714,7 +4819,203 @@ def _mesh_phase(torch, mesh, t_phase: float) -> dict:
            "seconds": time.perf_counter() - t_phase}
     emit({"phase": "mesh", **out})
     return {"launches": {k: int(v) for k, v in
-                         plain["launches_per_step"].items()}}
+                         plain["launches_per_step"].items()},
+            "step_ms_p50": p50["sharded"]}
+
+
+#: phase moe_mesh: qwen2-moe-a2.7b at full width cut to MOE_MESH_LAYERS
+#: layers (1,832,675,328 parameters; two states side by side, 2 x 29 GB),
+#: phase mesh's batch, microbatches and numbers of calls
+MOE_MESH_LAYERS = 2
+
+
+def phase_moe_mesh(torch) -> dict:
+    """Expert routing over a sharded batch (ROADMAP.md item 8.6b) on the
+    card: a 1 x 1 (data, model) NCCL mesh; qwen2-moe-a2.7b at full width,
+    MOE_MESH_LAYERS layers, its state sharded; under deterministic
+    algorithms the sharded step, whose MoE layers route each microbatch's
+    rows through ``nn.moe.batch_shard`` (the per-(chunk, expert) counts
+    summed over the data axis, the aux loss's probabilities through an
+    all-reduce with a gradient), against the unsharded step from the same
+    seed: 3 calls each, metrics and every parameter and moment value for
+    value; K5 launches per replayed sharded step; p50 and peak memory side
+    by side."""
+    import torch.distributed
+
+    from repro_torch.configs import registry as configs
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.nn import module, transformer
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    full = configs.get_config(MOE_ARCH)
+    cfg = full.replace(n_layers=MOE_MESH_LAYERS)
+    mesh = single_device_mesh()
+    trees: list = []
+    saved = torch.are_deterministic_algorithms_enabled()
+    try:
+        trees += mesh_states(torch, cfg, mesh)
+        state_bytes = torch.cuda.memory_allocated() // 2
+        pipe = SyntheticTokenPipeline(DataConfig(
+            seq_len=TR_SEQ, global_batch=TR_BATCH,
+            vocab_size=cfg.vocab_size))
+        torch.use_deterministic_algorithms(True)
+        pair = _mesh_pair(torch, cfg, mesh, trees, [
+            pipe.batch_at(i) for i in range(1 + MESH_COMPARED + MESH_TIMED)],
+            False)
+    finally:
+        torch.use_deterministic_algorithms(saved)
+        trees.clear()
+        torch.distributed.destroy_process_group()
+    want = {"flash_attention": 2 * cfg.n_layers * cfg.microbatches}
+    check(pair["launches_per_step"] == want,
+          f"moe_mesh: a replayed sharded step launched "
+          f"{pair['launches_per_step']}, want {want} (per layer and "
+          f"microbatch, the forward twice under remat) and nothing else")
+    p50 = {k: statistics.median(v) for k, v in pair["step_ms"].items()}
+    peak = {k: state_bytes + v for k, v in pair["peak_extra_bytes"].items()}
+    free_card(torch)
+    out = {"arch": MOE_ARCH, "layers": MOE_MESH_LAYERS,
+           "reduced": f"n_layers {MOE_MESH_LAYERS} of {full.n_layers}: the "
+                      f"sharded and the unsharded state side by side",
+           "parameters": module.param_count(transformer.model_specs(cfg)),
+           "mesh": {"data": 1, "model": 1},
+           "backend": "nccl", "batch": TR_BATCH, "seq": TR_SEQ,
+           "microbatches": cfg.microbatches,
+           "token_chunks": cfg.moe_token_chunks, "deterministic": True,
+           "state_bytes_each": state_bytes,
+           **{k: v for k, v in pair.items() if k != "peak_extra_bytes"},
+           "step_ms_p50": p50, "peak_device_bytes": peak,
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "moe_mesh", **out})
+    return {"launches": {k: int(v) for k, v in
+                         pair["launches_per_step"].items()}}
+
+
+#: phase dryrun: the predicted peak's bar against the card's eager step
+DRY_PEAK_RTOL = 0.15
+#: the reference test's tiny cell: tiny gemma2-27b in 2 microbatches,
+#: batch 8 x 32, on a (pod 2, data 2, model 2) fake world
+DRY_TINY = ("gemma2-27b", {"pod": 2, "data": 2, "model": 2}, 8, 32)
+
+
+def phase_dryrun(torch, mesh_out: dict) -> dict:
+    """The dry-run (ROADMAP.md item 8.7) on the card's machine: phase
+    mesh's own step (Qwen2.5-3B at full width, MESH_LAYERS layers, TR_BATCH
+    x TR_SEQ in 4 microbatches) traced on fake CUDA tensors over a 1 x 1
+    fake world (the kernels reached as their custom ops' fake
+    implementations), its predicted peak, FLOPs and K5 launches beside the
+    card's eager step run once on a 1 x 1 NCCL mesh (peak memory after
+    ``reset_peak_memory_stats``, launches) and phase mesh's launches per
+    step; the rate the predicted FLOPs imply at phase mesh's p50; the
+    reference test's tiny 2 x 2 x 2 cell."""
+    import shutil
+    import tempfile
+
+    import torch.distributed
+
+    from repro_torch.configs import registry as configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.kernels import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.launch.roofline import PEAK_BF16
+    from repro_torch.nn import module, transformer
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    cfg = configs.get_config(LM_ARCH).replace(n_layers=MESH_LAYERS)
+    out_dir = Path(tempfile.mkdtemp(prefix=".smoke_dryrun_", dir=ROOT))
+    try:
+        launches0 = registry.launch_counts()
+        rec = dryrun.run_cell(
+            LM_ARCH, "smoke_train", {"data": 1, "model": 1}, out_dir,
+            cfg=cfg, shape=ShapeConfig("smoke_train", TR_SEQ, TR_BATCH,
+                                       "train"))
+        arch, world, b, s = DRY_TINY
+        tiny = dryrun.run_cell(
+            arch, "tiny_train", world, out_dir,
+            cfg=configs.get_tiny(arch).replace(microbatches=2),
+            shape=ShapeConfig("tiny_train", s, b, "train"))
+        fake_launched = registry.launch_counts() != launches0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r in (rec, tiny):
+        check(r.get("status") == "ok",
+              f"dry-run of {r['arch']} on {r['mesh']}: "
+              f"{r.get('error')}\n{r.get('traceback', '')[-3000:]}")
+    check(not fake_launched, "the dry-run's fake kernels moved the launch "
+                             "counters")
+    # the card's eager step: the same step on the state it traced
+    mesh = single_device_mesh()
+    try:
+        (p, st), = mesh_states(torch, cfg, mesh, sharded_only=True)
+        rules = sh.rules_for(cfg)
+        train = configs.input_axes(cfg, configs.get_shape("train_4k"))
+        micro_sh = {k: sh.sharding_for(
+            (cfg.microbatches, TR_BATCH // cfg.microbatches, TR_SEQ),
+            (None,) + ax, mesh, rules) for k, ax in train.items()}
+        o_sh = sh.state_shardings(
+            sh.model_param_shardings(cfg, mesh)[0],
+            module.axes_tree(transformer.model_specs(cfg)), mesh, rules)
+        step = steps.make_train_step(cfg, microbatch_shardings=micro_sh,
+                                     grad_shardings=o_sh["mu"])
+        batch = SyntheticTokenPipeline(DataConfig(
+            seq_len=TR_SEQ, global_batch=TR_BATCH,
+            vocab_size=cfg.vocab_size)).batch_at(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, _, m = step.eager(p, st, batch)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        eager_launches = {k: v for k, v in registry.launch_counts().items()
+                          if v}
+        del p, st, step
+    finally:
+        torch.distributed.destroy_process_group()
+    free_card(torch)
+    predicted = rec["memory"]["peak_bytes"]
+    peak_err = abs(predicted - peak) / peak
+    check(peak_err <= DRY_PEAK_RTOL,
+          f"dry-run peak {predicted} B against the card's eager step's "
+          f"{peak} B: {peak_err:.3f} > {DRY_PEAK_RTOL}")
+    k5 = rec["kernel_launches"].get("flash_attention", 0)
+    check(k5 == mesh_out["launches"].get("flash_attention") == eager_launches
+          .get("flash_attention") and rec["kernel_launches"] == eager_launches,
+          f"dry-run launches {rec['kernel_launches']}, the eager step's "
+          f"{eager_launches}, phase mesh's {mesh_out['launches']}")
+    p50 = mesh_out["step_ms_p50"]
+    rate = rec["flops_per_device"] / (p50 / 1e3)
+    out = {"arch": LM_ARCH, "layers": MESH_LAYERS, "batch": TR_BATCH,
+           "seq": TR_SEQ, "microbatches": rec["microbatches"],
+           "fake_world": rec["mesh"], "trace_s": rec["trace_s"],
+           "n_ops": rec["n_ops"],
+           "predicted": {"peak_bytes": predicted,
+                         "flops_per_step": rec["flops_per_device"],
+                         "kernel_launches": rec["kernel_launches"],
+                         "argument_bytes": rec["memory"]["argument_bytes"]},
+           "card": {"eager_peak_bytes": peak, "eager_s": eager_s,
+                    "eager_loss": float(m["loss"]),
+                    "eager_launches": eager_launches,
+                    "mesh_launches_per_step": mesh_out["launches"],
+                    "mesh_step_ms_p50": p50},
+           "peak_rel_err": peak_err, "peak_rtol": DRY_PEAK_RTOL,
+           "implied_tflops_at_p50": rate / 1e12,
+           "implied_share_of_bf16_peak": rate / PEAK_BF16,
+           "tiny_cell": {k: tiny[k] for k in (
+               "arch", "mesh", "status", "trace_s", "flops_per_device",
+               "params_bytes_per_device", "collectives_by_kind",
+               "n_collective_ops", "kernel_launches", "memory")},
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "dryrun", **out})
+    return out
 
 
 KERNEL_META = {
@@ -4779,6 +5080,8 @@ def main() -> int:
         vlm = phase_vlm(torch)
         trl = phase_train_lm(torch)
         msh = phase_mesh(torch)
+        mmsh = phase_moe_mesh(torch)
+        phase_dryrun(torch, msh)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4801,6 +5104,7 @@ def main() -> int:
     by_path["whisper_train_step"] = trl["whisper_launches"]
     by_path["xlstm_train_step"] = trl["xlstm"]["launches"]
     by_path["mesh_train_step"] = msh["launches"]
+    by_path["moe_mesh_train_step"] = mmsh["launches"]
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         rec = kern[name]

@@ -8,14 +8,24 @@ the reference ``flash_attention``'s contract, any S and any D up to
 and heads apart as (B, H, S, D).  For training the kernel also writes
 each query row's log-sum-exp into a given ``lse`` buffer, which the
 backward reads.  ``flash_attention.launches`` counts the launches.
+
+The launch is the custom op ``torch.ops.repro_torch.flash_attention``
+(``out`` and ``lse`` mutated): its CUDA implementation is the ctypes
+launch; its fake implementation, for tensors without data (the dry-run's
+``FakeTensorMode``), launches and counts nothing; its FLOP formula, for
+``FlopCounterMode``, counts the full S_q x S_kv products, 4·B·H·S_q·S_kv·D,
+causal or not, as torch's own ``sdpa_flop_count`` does, so the count
+compares with a dot count of the reference's attention.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels._checks import require, same_device
@@ -49,9 +59,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         require(t, name, ndim=q.dim(), contiguous=False)
     same_device(q, k, v, out, lse)
-    nb, nh, q_strides = _heads(q, "q")
+    nb, nh, _ = _heads(q, "q")
     sq, d = q.shape[-2:]
-    skv = k.shape[-2]
     if (k.shape != v.shape or k.shape[:-2] != q.shape[:-2]
             or k.shape[-1] != d):
         raise ValueError(f"attention shapes q {tuple(q.shape)}, k "
@@ -73,17 +82,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"{(nb * nh, sq)}")
     if q.numel() == 0:
         return out
+    torch.ops.repro_torch.flash_attention(q, k, v, out, lse, bool(causal),
+                                          int(window or 0), float(logit_cap))
+    return out
+
+
+@torch.library.custom_op("repro_torch::flash_attention",
+                         mutates_args=("out", "lse"), device_types="cuda")
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, lse: Optional[torch.Tensor], causal: bool,
+            window: int, logit_cap: float) -> None:
+    """One launch of the kernel on views :func:`flash_attention` checked."""
+    nb, nh, q_strides = _heads(q, "q")
+    sq, d = q.shape[-2:]
     strides = q_strides + _heads(k, "k")[2] + _heads(v, "v")[2] \
         + _heads(out, "out")[2]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = build.library().flash_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        (ctypes.c_longlong * 16)(*strides), nb, nh, sq, skv, d,
-        int(causal), int(window or 0), float(logit_cap), stream)
+        (ctypes.c_longlong * 16)(*strides), nb, nh, sq, k.shape[-2], d,
+        int(causal), window, logit_cap, stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+
+
+@_launch.register_fake
+def _(q, k, v, out, lse, causal, window, logit_cap) -> None:
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, *args, **kwargs) -> int:
+    """4·(B·H)·S_q·S_kv·D: the scores and the weighted sum, every pair."""
+    *lead, sq, d = q_shape
+    return 4 * math.prod(lead) * sq * k_shape[-2] * d
 
 
 def launch_shape(bh: int, sq: int, skv: int, d: int) -> dict:

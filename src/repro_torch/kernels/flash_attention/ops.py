@@ -12,7 +12,8 @@ from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-#: keys per block of the backward's recomputed scores
+#: keys per block of the backward's recomputed scores (fewer keys: one
+#: block of them all, not one padded to this width)
 BACKWARD_BLOCK = 512
 
 
@@ -68,7 +69,7 @@ class _Attention(torch.autograd.Function):
                                with_lse=True)
         ctx.save_for_backward(q, k, v, o32, lse)
         ctx.opts = dict(causal=causal, window=window, logit_cap=logit_cap,
-                        block_size=BACKWARD_BLOCK)
+                        block_size=min(BACKWARD_BLOCK, k.shape[1]))
         return o
 
     @staticmethod

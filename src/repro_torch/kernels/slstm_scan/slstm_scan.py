@@ -16,6 +16,15 @@ For training the forward may also fill :data:`SAVES`, per step, and
 steps in reverse from them: the gradients of the four preactivations, one
 launch per layer call, the same cluster layout reading R's rows.
 ``slstm_scan_backward.launches`` counts its launches.
+
+Each launch is a custom op, ``torch.ops.repro_torch.slstm_scan`` and
+``torch.ops.repro_torch.slstm_scan_backward``, whose outputs and state are
+mutated arguments: the CUDA implementation is the ctypes launch, the fake
+implementation (the dry-run's tensors without data) launches and counts
+nothing, and the FLOP formula counts the recurrent products, 8·B·S·H·W²
+for each of the two (the four gates' ``h @ R_g`` a step forward, the four
+``dpre_g @ R_gᵀ`` back); the gating's elementwise work is not counted, as
+``FlopCounterMode`` counts no elementwise op.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import ctypes
 from typing import Optional, Sequence
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels._checks import require, same_device
@@ -63,10 +73,15 @@ def _check(name: str, seqs: dict, rec: Sequence[torch.Tensor],
     if not (1 <= w <= MAX_WIDTH and w % 4 == 0):
         raise ValueError(f"head width {w}: the kernel takes a multiple of "
                          f"4 up to {MAX_WIDTH}")
+    return b, s, nh, w
+
+
+def _aligned(rec: Sequence[torch.Tensor]) -> None:
+    """Raise unless every R starts on 16 bytes (the kernels read it as
+    float4); called in the launch, where the tensors have data."""
     if any(r.data_ptr() % 16 for r in rec):
         raise ValueError("rec: the kernel reads R as float4, so each must "
                          "start on a 16-byte boundary")
-    return b, s, nh, w
 
 
 def slstm_scan(x_pre: Sequence[torch.Tensor], rec: Sequence[torch.Tensor],
@@ -91,6 +106,22 @@ def slstm_scan(x_pre: Sequence[torch.Tensor], rec: Sequence[torch.Tensor],
     out = torch.empty_like(x_pre[0])
     if b * s * nh == 0:
         return out
+    torch.ops.repro_torch.slstm_scan(x_pre, rec, h, c, n, m, out,
+                                     saves or [])
+    return out
+
+
+@torch.library.custom_op("repro_torch::slstm_scan",
+                         mutates_args=("h", "c", "n", "m", "out", "saves"),
+                         device_types="cuda")
+def _launch(x_pre: Sequence[torch.Tensor], rec: Sequence[torch.Tensor],
+            h: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
+            m: torch.Tensor, out: torch.Tensor,
+            saves: Sequence[torch.Tensor]) -> None:
+    """One launch of the forward on tensors :func:`slstm_scan` checked
+    (``saves`` empty: none)."""
+    _aligned(rec)
+    b, s, nh, w = out.shape
     ptrs = ctypes.c_void_p * 4
     stream = torch.cuda.current_stream(h.device).cuda_stream
     err = build.library().slstm_scan_f32(
@@ -98,10 +129,25 @@ def slstm_scan(x_pre: Sequence[torch.Tensor], rec: Sequence[torch.Tensor],
         ptrs(*(t.data_ptr() for t in rec)), h.data_ptr(), c.data_ptr(),
         n.data_ptr(), m.data_ptr(), out.data_ptr(),
         (ctypes.c_void_p * 7)(*(t.data_ptr() for t in saves))
-        if saves is not None else None, b, s, nh, w, stream)
+        if saves else None, b, s, nh, w, stream)
     build.check(err, "slstm_scan")
     slstm_scan.launches += 1
-    return out
+
+
+@_launch.register_fake
+def _(x_pre, rec, h, c, n, m, out, saves) -> None:
+    return None
+
+
+def _recurrent_flops(seq_shape) -> int:
+    """The four gates' W x W products per (batch row, step, head)."""
+    b, s, nh, w = seq_shape
+    return 2 * 4 * b * s * nh * w * w
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan)
+def _flops(x_pre_shapes, *args, **kwargs) -> int:
+    return _recurrent_flops(x_pre_shapes[0])
 
 
 slstm_scan.launches = 0
@@ -125,6 +171,21 @@ def slstm_scan_backward(dhs: torch.Tensor, rec: Sequence[torch.Tensor],
     dx = [torch.empty_like(dhs) for _ in range(4)]
     if b * s * nh == 0:
         return dx
+    torch.ops.repro_torch.slstm_scan_backward(dhs, rec, saves, c0, n0, m0,
+                                              dx)
+    return dx
+
+
+@torch.library.custom_op("repro_torch::slstm_scan_backward",
+                         mutates_args=("dx",), device_types="cuda")
+def _launch_backward(dhs: torch.Tensor, rec: Sequence[torch.Tensor],
+                     saves: Sequence[torch.Tensor], c0: torch.Tensor,
+                     n0: torch.Tensor, m0: torch.Tensor,
+                     dx: Sequence[torch.Tensor]) -> None:
+    """One launch of the backward on tensors :func:`slstm_scan_backward`
+    checked."""
+    _aligned(rec)
+    b, s, nh, w = dhs.shape
     ptrs = ctypes.c_void_p * 4
     stream = torch.cuda.current_stream(dhs.device).cuda_stream
     err = build.library().slstm_scan_backward_f32(
@@ -134,7 +195,16 @@ def slstm_scan_backward(dhs: torch.Tensor, rec: Sequence[torch.Tensor],
         ptrs(*(t.data_ptr() for t in dx)), b, s, nh, w, stream)
     build.check(err, "slstm_scan_backward")
     slstm_scan_backward.launches += 1
-    return dx
+
+
+@_launch_backward.register_fake
+def _(dhs, rec, saves, c0, n0, m0, dx) -> None:
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan_backward)
+def _flops_backward(dhs_shape, *args, **kwargs) -> int:
+    return _recurrent_flops(dhs_shape)
 
 
 slstm_scan_backward.launches = 0

@@ -19,8 +19,9 @@ imported.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -122,7 +123,8 @@ def make_test_mesh(shape: Sequence[int] = (2, 2),
     One process makes its own one-rank group; more need the caller's
     process group, of ``prod(shape)`` ranks and this device's backend.
     Every axis's communicator is made and used once here, so a graph
-    captured later holds the collectives without creating one."""
+    captured later holds the collectives without creating one.  Over a
+    :func:`fake_world` the mesh takes the fake group of any device."""
     shape, axes = tuple(shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"shape {shape} and axes {axes} differ in length")
@@ -149,7 +151,7 @@ def make_test_mesh(shape: Sequence[int] = (2, 2),
             f"a {' x '.join(map(str, shape))} mesh needs {n} processes; the "
             f"process group has {dist.get_world_size()}")
     have = dist.get_backend()
-    if backend not in have:
+    if backend not in have and have != "fake":
         raise RuntimeError(f"a mesh on {device_type} runs over {backend}; "
                            f"the process group's backend is {have}")
     from torch.distributed.device_mesh import DeviceMesh
@@ -167,12 +169,46 @@ def make_production_mesh(*, multi_pod: bool = False,
     The "pod" axis is outermost: only data-parallel gradient reduction
     crosses the slow links between pods.  Without ``device`` the mesh is
     its shape alone, for the rules and ``bytes_per_device``; with one it
-    needs a process group of 256 (512) ranks and raises without it."""
+    needs a process group of 256 (512) ranks, a :func:`fake_world`'s for
+    a dry-run, and raises without it."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     if device is None:
         return Mesh(dict(zip(axes, shape)))
     return make_test_mesh(shape, axes, device)
+
+
+def _fake_store():
+    """The store a ``"fake"`` process group is made with.  It lives in
+    torch's testing package, a private API: checked on torch 2.13.0."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    return FakeStore()
+
+
+@contextlib.contextmanager
+def fake_world(shape: Sequence[int], axes: Sequence[str],
+               device=None) -> Iterator[Mesh]:
+    """Within ``with``: this process as rank 0 of a ``"fake"`` process
+    group of ``prod(shape)`` ranks, and the :class:`Mesh` over it, on the
+    card unless ``device`` is the CPU.  A collective over the fake group
+    returns at once and moves nothing; each rank's share of the work is
+    rank 0's.  Refuses to start while a process group is up, and where the
+    card is asked for and missing (no fallback to the CPU); the group is
+    destroyed on the way out."""
+    device_type = torch.device(device if device is not None
+                               else "cuda").type
+    if dist.is_initialized():
+        raise RuntimeError("a fake world needs this process without a "
+                           "process group; one is up")
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a fake world on the card needs a CUDA device; "
+                           "pass device='cpu' for one on the CPU")
+    dist.init_process_group("fake", store=_fake_store(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield make_test_mesh(shape, axes, device_type)
+    finally:
+        dist.destroy_process_group()
 
 
 def single_device_mesh(device=None) -> Mesh:
@@ -183,4 +219,4 @@ def single_device_mesh(device=None) -> Mesh:
 def mesh_of(device_mesh: Optional[object]) -> Mesh:
     """The :class:`Mesh` of a DTensor's ``DeviceMesh``."""
     names = device_mesh.mesh_dim_names
-    return Mesh(dict(zip(names, device_mesh.mesh.shape)), device_mesh)
+    return Mesh(dict(zip(names, device_mesh.shape)), device_mesh)

@@ -40,9 +40,14 @@ here, and the compute runs on gathered parameters, where GSPMD may split
 the matmuls over ``model`` instead (tensor parallelism): the same values,
 other memory and traffic.  The data reduction is an all-reduce of each
 whole fp32 gradient (each rank keeps it while it updates its blocks),
-where GSPMD reduce-scatters into the gradient's shardings.  Routing an
-MoE layer's tokens needs the whole microbatch (its capacity counts it):
-under a data axis larger than one the step raises (ROADMAP.md item 8.6b).
+where GSPMD reduce-scatters into the gradient's shardings.
+
+An MoE layer's capacity counts the whole microbatch.  Each rank routes its
+rows as the whole microbatch would, exchanging the per-(chunk, expert)
+counts over the data axes (``nn.moe.batch_shard``, entered around each
+microbatch's forward and backward), and weighs the aux loss, the whole
+microbatch's on every rank, by 1/ways.
+
 On the card the sharded step is captured and replayed like the unsharded
 one, its NCCL collectives inside the graph; on the CPU (gloo) it runs
 eagerly.
@@ -50,7 +55,6 @@ eagerly.
 
 from __future__ import annotations
 
-import math
 from typing import Any, Callable, Optional
 
 import torch
@@ -64,6 +68,7 @@ from repro_torch.core.graphs import GraphRunner, copy_all
 from repro_torch.launch import shardings as sh
 from repro_torch.launch.mesh import mesh_of
 from repro_torch.models import encdec, lm
+from repro_torch.nn import moe as moe_lib
 from repro_torch.nn.module import tree_flatten, tree_unflatten
 from repro_torch.optim import adamw, compress
 
@@ -153,7 +158,10 @@ class _MeshPlan:
         self.microbatch_shardings = microbatch_shardings
         self.rules = sh.rules_for(cfg)
         self.data_axes: tuple = ()
+        self.ways = 1
         self.moe = cfg.n_experts > 0
+        #: this rank's block of each microbatch, for the MoE routing
+        self.shard: Optional[moe_lib.BatchShard] = None
 
     @staticmethod
     def _axes(s: NamedSharding) -> tuple:
@@ -177,14 +185,13 @@ class _MeshPlan:
                 ("batch",), self.mesh), self.mesh)[0]
         split = NamedSharding(self.mesh, PartitionSpec(entry))
         self.data_axes = entry_axes(entry)
-        if self.moe and math.prod(self.mesh.shape[a]
-                                  for a in self.data_axes) > 1:
-            raise NotImplementedError(
-                "routing an MoE layer's tokens under a data axis larger than "
-                "one needs the whole microbatch (its capacity counts it): "
-                "expert routing over a sharded batch is ROADMAP.md queue 1 "
-                "item 8.6b")
         rows = self.mesh.block(split, (per,))[0]
+        size = rows.stop - rows.start
+        self.ways = per // size
+        if self.moe:
+            self.shard = moe_lib.BatchShard(
+                index=rows.start // size, ways=self.ways,
+                reduce=lambda t: self.mesh.reduce(t, self.data_axes))
         out = {}
         for k, v in batch.items():
             v = torch.as_tensor(v)
@@ -205,15 +212,15 @@ class _MeshPlan:
     def weigh(self, m: dict, targets: torch.Tensor) -> torch.Tensor:
         """This rank's part of the microbatch's loss, also written as
         ``m["loss"]``: its mean over its counted targets times their
-        share of the microbatch's; plus the MoE aux loss as it is (a
-        whole microbatch's, see :meth:`rows`)."""
+        share of the microbatch's; plus the MoE aux loss, the whole
+        microbatch's on every rank, over the number of data ranks."""
         count = torch.sum((targets >= 0).to(torch.float32))
         total = self.mesh.reduce(count.clone(), self.data_axes)
         w = count / torch.clamp(total, min=1.0)
         m["loss"] = m["loss"] * w
         out = m["loss"]
         if "aux_loss" in m:
-            out = out + lm.AUX_WEIGHT * m["aux_loss"]
+            out = out + lm.AUX_WEIGHT * m["aux_loss"] / self.ways
         return out
 
     def reduce_metrics(self, metrics: dict) -> dict:
@@ -323,10 +330,11 @@ def make_train_step(cfg: ModelConfig,
         for i in range(n_micro):
             mb = {k: v.reshape(n_micro, n // n_micro, *v.shape[1:])[i]
                   for k, v in batch.items()}
-            total, m = loss_fn(cfg, live, mb)
-            if plan is not None:
-                total = plan.weigh(m, mb["targets"])
-            total.backward()
+            with moe_lib.batch_shard(plan.shard if plan else None):
+                total, m = loss_fn(cfg, live, mb)
+                if plan is not None:
+                    total = plan.weigh(m, mb["targets"])
+                total.backward()
             for k, v in m.items():
                 metrics[k] = metrics[k] + v.detach() if k in metrics \
                     else v.detach()

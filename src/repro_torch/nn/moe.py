@@ -10,7 +10,10 @@ expert (stable), each expert's first ``capacity`` of them copied into an
 together, each with its own capacity (:func:`route`).  The capacity comes from
 shapes only, and nothing here reads a value back to the host (counts by
 ``scatter_add_``, no ``one_hot``, ``bincount`` or boolean mask), so a decode
-step is static and captures into a CUDA graph.
+step is static and captures into a CUDA graph.  A data rank of the
+sharded train step routes its rows as the whole microbatch would
+(:func:`batch_shard`): it exchanges the per-(chunk, expert) counts, not
+the tokens.
 
 The three expert products take their operands in the activation dtype and
 sum in fp32 (:func:`~repro_torch.nn.layers.matmul_f32`); the reference
@@ -28,10 +31,12 @@ replayed step would then not equal the eager one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.nn.layers import activation, matmul_f32, maybe_quantize
 from repro_torch.nn.module import ParamSpec
@@ -68,18 +73,139 @@ def moe_specs(d: int, n_experts: int, expert_d_ff: int, *,
 @dataclasses.dataclass
 class Routing:
     """The routing and dispatch plan of T token chunks, each with its own
-    capacity; the assignments (T·N_c·top_k of them) in sorted order, by
-    chunk, then by expert, then by token."""
+    capacity; the assignments (top_k per token) in sorted order, by chunk,
+    then by expert, then by token."""
 
     probs: torch.Tensor        #: (..., N_c, E) router probabilities, fp32
     counts: torch.Tensor       #: (..., E) assignments per chunk and expert
-    order: torch.Tensor        #: (TNK,) flat assignment of each sorted one
-    token: torch.Tensor        #: (TNK,) its token, over all chunks
-    gate: torch.Tensor         #: (TNK,) its renormalised gate, fp32
-    keep: torch.Tensor         #: (TNK,) 1.0 within the capacity, else 0.0
-    slot: torch.Tensor         #: (TNK,) its row of the (E·T·C, d) buffer
-    capacity: int              #: C, rows per chunk and expert
+    order: torch.Tensor        #: (NK,) flat assignment of each sorted one
+    token: torch.Tensor        #: (NK,) its token, over all chunks
+    gate: torch.Tensor         #: (NK,) its renormalised gate, fp32
+    keep: torch.Tensor         #: (NK,) 1.0 within the capacity, else 0.0
+    slot: torch.Tensor         #: (NK,) its row of the (E·T·rows, d) buffer
+    capacity: int              #: C, the assignments kept per chunk, expert
     chunks: int                #: T
+    rows: int                  #: buffer rows per chunk and expert (≤ C)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShard:
+    """One data rank's block of a microbatch: the rows ``index`` of ``ways``
+    equal, contiguous blocks in row order, so its tokens are one range of
+    the microbatch's flattened token order; ``reduce`` sums a tensor over
+    the data ranks in place."""
+
+    index: int
+    ways: int
+    reduce: Callable[[torch.Tensor], torch.Tensor]
+
+
+#: the block of the microbatch the :func:`moe` calls route (None: all of it)
+_shard: Optional[BatchShard] = None
+
+
+@contextlib.contextmanager
+def batch_shard(shard: Optional[BatchShard]):
+    """Within ``with``, every :func:`moe` call takes its tokens as
+    ``shard``'s block of a microbatch ``shard.ways`` times larger and routes
+    them as the whole microbatch would (:func:`_plan`).  The sharded train
+    step enters it around each microbatch's forward and backward (under
+    remat the backward runs the forward again).  A module global, not a
+    context variable: autograd runs the backward on threads of its own."""
+    global _shard
+    saved, _shard = _shard, shard
+    try:
+        yield
+    finally:
+        _shard = saved
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """A tensor summed over the data ranks; its gradient summed the same
+    way, so each rank's inputs get the gradient of every rank's use."""
+
+    @staticmethod
+    def forward(ctx, x, reduce):
+        ctx.reduce = reduce
+        return reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.reduce(g.clone()), None
+
+
+def _plan(xt: torch.Tensor, w_router: torch.Tensor, *, n_experts: int,
+          top_k: int, capacity_factor: float, chunks: int, offset: int = 0,
+          chunk_size: int = 0, shard: Optional[BatchShard] = None
+          ) -> tuple[Routing, torch.Tensor, torch.Tensor]:
+    """The routing of tokens ``xt`` (N, d), the range from ``offset`` of a
+    microbatch cut into ``chunks`` chunks of ``chunk_size`` tokens (0: N
+    tokens, the whole microbatch in ``chunks`` chunks).  Returns (the plan
+    over the chunks the tokens touch, the assignments per chunk and expert
+    of every chunk (T, E), the router probabilities summed per chunk over
+    every chunk (T, E)).
+
+    One stable sort over the key ``chunk·E + expert`` ranks each assignment
+    among this call's tokens of its (chunk, expert).  With a ``shard`` each
+    rank's counts go into its own slot of a (ways, T, E) tensor summed over
+    the ranks (one small collective): an assignment's rank over the whole
+    microbatch is its rank here plus the counts of the lower blocks, and it
+    is kept if that is below the capacity, as the reference's sort over the
+    whole microbatch keeps it.  Its slot is ``(expert·T_l + chunk)·rows +
+    min(rank here, rows-1)``, T_l the chunks the tokens touch: a kept
+    assignment's rank here is below both C and the tokens this call holds
+    of its chunk, so ``rows`` is the least of C, the chunk and N, and the
+    buffer holds no other rank's rows."""
+    n_l = xt.shape[0]
+    nc = chunk_size or n_l // chunks
+    dev = xt.device
+    first = offset // nc                       # the first chunk touched
+    t_l = (offset + n_l - 1) // nc + 1 - first
+    logits = xt.to(ACCUM) @ w_router.to(ACCUM)            # (N, E)
+    e_pad = logits.shape[-1]
+    if e_pad > n_experts:                       # mask padding experts
+        pad = torch.arange(e_pad, device=dev) >= n_experts
+        logits = torch.where(pad, -1e30, logits)
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx = torch.topk(probs, top_k, dim=-1)         # (N, K)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    nk = n_l * top_k
+    capacity = max(1, int(nc * top_k / n_experts * capacity_factor))
+    rows = min(capacity, nc, n_l)
+    chunk = (torch.arange(n_l, device=dev) + offset) // nc - first
+    key = (chunk[:, None] * e_pad + eidx).reshape(nk)
+    order = torch.argsort(key, stable=True)
+    skey = key[order]
+    counts = torch.zeros(t_l * e_pad, dtype=torch.int64, device=dev
+                         ).scatter_add_(0, key, torch.ones_like(key))
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(nk, device=dev) - starts[skey]    # in (chunk, e)
+    # the router's probabilities summed per chunk (zeros pad the tokens
+    # of the touched chunks that other ranks hold)
+    lead = offset - first * nc
+    psum = F.pad(probs, (0, 0, lead, t_l * nc - lead - n_l)).reshape(
+        t_l, nc, e_pad).sum(1)
+    counts = counts.reshape(t_l, e_pad)
+    if shard is None:
+        every, kept_rank = counts, rank
+    else:
+        slots = counts.new_zeros(shard.ways, chunks, e_pad)
+        slots[shard.index, first:first + t_l] = counts
+        slots = shard.reduce(slots)
+        below = slots[:shard.index, first:first + t_l].sum(0)
+        kept_rank = rank + below.reshape(-1)[skey]
+        every = slots.sum(0)
+        counts = every[first:first + t_l]
+        psum = _SumOverRanks.apply(F.pad(
+            psum, (0, 0, first, chunks - first - t_l)), shard.reduce)
+    row = (skey % e_pad) * t_l + skey // e_pad            # expert·T_l + chunk
+    plan = Routing(probs=probs, counts=counts, order=order,
+                   token=order // top_k, gate=gate.reshape(nk)[order],
+                   keep=(kept_rank < capacity).to(ACCUM),
+                   slot=row * rows + torch.clamp(rank, max=rows - 1),
+                   capacity=capacity, chunks=t_l, rows=rows)
+    return plan, every, psum
 
 
 def route(xt: torch.Tensor, w_router: torch.Tensor, *, n_experts: int,
@@ -88,41 +214,18 @@ def route(xt: torch.Tensor, w_router: torch.Tensor, *, n_experts: int,
     (N, d) as one chunk or (T, N_c, d) as T chunks; ``w_router`` (d, E),
     E ≥ ``n_experts`` (the rest padding).
 
-    All chunks in one pass: one stable sort over the key
-    ``chunk·E + expert`` ranks each assignment within its (chunk, expert),
-    and its slot is ``expert·(T·C) + chunk·C + min(rank, C-1)``, so the
-    rows of one expert lie together over every chunk.
+    All chunks in one pass (:func:`_plan`): the slot of an assignment is
+    ``expert·(T·C) + chunk·C + min(rank, C-1)``, so the rows of one expert
+    lie together over every chunk.
     """
     lead = xt.shape[:-2]
     t = xt.shape[0] if lead else 1
-    nc = xt.shape[-2]
-    dev = xt.device
-    logits = xt.to(ACCUM) @ w_router.to(ACCUM)            # (..., N_c, E)
-    e_pad = logits.shape[-1]
-    if e_pad > n_experts:                       # mask padding experts
-        pad = torch.arange(e_pad, device=dev) >= n_experts
-        logits = torch.where(pad, -1e30, logits)
-    probs = torch.softmax(logits, dim=-1)
-    gate, eidx = torch.topk(probs, top_k, dim=-1)         # (..., N_c, K)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-
-    nk = nc * top_k                                       # per chunk
-    capacity = max(1, int(nc * top_k / n_experts * capacity_factor))
-    chunk = torch.arange(t, device=dev)[:, None]
-    key = (chunk * e_pad + eidx.reshape(t, nk)).reshape(t * nk)
-    order = torch.argsort(key, stable=True)
-    skey = key[order]
-    counts = torch.zeros(t * e_pad, dtype=torch.int64, device=dev
-                         ).scatter_add_(0, key, torch.ones_like(key))
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(t * nk, device=dev) - starts[skey]  # in (chunk, e)
-    row = (skey % e_pad) * t + skey // e_pad              # expert·T + chunk
-    return Routing(probs=probs, counts=counts.reshape(*lead, e_pad),
-                   order=order, token=order // top_k,
-                   gate=gate.reshape(t * nk)[order],
-                   keep=(rank < capacity).to(ACCUM),
-                   slot=row * capacity + torch.clamp(rank, max=capacity - 1),
-                   capacity=capacity, chunks=t)
+    r, _, _ = _plan(xt.reshape(-1, xt.shape[-1]), w_router,
+                    n_experts=n_experts, top_k=top_k,
+                    capacity_factor=capacity_factor, chunks=t)
+    r.probs = r.probs.reshape(*xt.shape[:-1], -1)
+    r.counts = r.counts.reshape(*lead, -1)
+    return r
 
 
 def _operand(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -154,21 +257,36 @@ def moe(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     1,408, T 32) that is 84 MB for the buffer in bf16 and 115 MB for each
     of ``h`` and ``g`` at 4 x 1,024 tokens (C 10, 20,480 rows), and
     0.71 GB and 0.98 GB each at 32,768 tokens (C 85, 174,080 rows).
+
+    Under :func:`batch_shard` ``x`` is one data rank's rows of the
+    microbatch: T, the capacity and the aux loss count the whole
+    microbatch, the kept assignments are the ones the whole microbatch's
+    routing keeps (the counts exchanged, not the tokens), and the expert
+    products run over the rows of this rank's kept assignments only, in a
+    buffer sized by the chunks its tokens touch.  ``aux`` is then the whole
+    microbatch's, on every rank, and its gradient reaches each rank's
+    router through the summed probabilities: a caller that sums the ranks'
+    gradients weighs it by 1/ways.
     """
     if not 0 < top_k <= n_experts:
         raise ValueError(f"top_k {top_k} of {n_experts} real experts")
     b, s, d = x.shape
-    n = b * s
+    shard = _shard
+    ways, index = (shard.ways, shard.index) if shard is not None else (1, 0)
+    n_l = b * s
+    n = n_l * ways                      # the whole microbatch's tokens
     t = token_chunks if token_chunks > 1 and n % token_chunks == 0 else 1
     dt = x.dtype
     f = activation(act)
     q = lambda w: _operand(maybe_quantize(w, quant), dt)  # noqa: E731
     router = maybe_quantize(p["router"]["kernel"], quant).to(ACCUM)
-    xt = x.reshape(n, d)
-    r = route(xt.reshape(t, n // t, d), router, n_experts=n_experts,
-              top_k=top_k, capacity_factor=capacity_factor)
+    xt = x.reshape(n_l, d)
+    r, counts, psum = _plan(xt, router, n_experts=n_experts, top_k=top_k,
+                            capacity_factor=capacity_factor, chunks=t,
+                            offset=index * n_l, chunk_size=n // t,
+                            shard=shard)
     e_pad = router.shape[-1]
-    rows = t * r.capacity
+    rows = r.chunks * r.rows
 
     # dispatch: a dropped assignment adds an exact 0 to a clamped slot, so
     # the (atomic) index_add_ gives the same buffer in any order
@@ -179,17 +297,18 @@ def moe(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     h = matmul_f32(buf, q(ex["wi"]))
     g = matmul_f32(buf, q(ex["wg"]))
     h = (f(g) * h).to(dt)
-    out = matmul_f32(h, q(ex["wo"])).to(dt)                  # (E, T·C, d)
+    out = matmul_f32(h, q(ex["wo"])).to(dt)               # (E, T_l·rows, d)
 
-    tok_out = out.reshape(e_pad * rows, d)[r.slot]           # (TNK, d)
+    tok_out = out.reshape(e_pad * rows, d)[r.slot]           # (NK, d)
     tok_out = tok_out * (r.gate * r.keep)[:, None].to(dt)
     # combine: each token's contributions at their sorted positions, which
     # ascend with the expert id, added in that order
     nk = r.order.numel()
     sorted_at = torch.empty_like(r.order)
     sorted_at[r.order] = torch.arange(nk, device=x.device)
-    contrib = tok_out[torch.sort(sorted_at.reshape(n, top_k), dim=1).values]
-    y = torch.zeros((n, d), dtype=dt, device=x.device)
+    contrib = tok_out[torch.sort(sorted_at.reshape(n_l, top_k),
+                                 dim=1).values]
+    y = torch.zeros((n_l, d), dtype=dt, device=x.device)
     for j in range(top_k):
         y = y + contrib[:, j]
 
@@ -202,8 +321,9 @@ def moe(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
         sh_gate = torch.sigmoid(xt.to(ACCUM) @ sh["gate"].to(ACCUM))
         y = y + (sh_out * sh_gate).to(dt)
 
-    # Switch-style load-balancing loss of each chunk, then their mean
-    frac_tokens = r.counts.reshape(t, e_pad).to(ACCUM) / max(nk // t, 1)
-    mean_prob = torch.mean(r.probs.reshape(t, n // t, e_pad), dim=1)
+    # Switch-style load-balancing loss of each chunk of the whole
+    # microbatch, then their mean (the same value on every data rank)
+    frac_tokens = counts.to(ACCUM) / (n // t * top_k)
+    mean_prob = psum / (n // t)
     aux = n_experts * torch.sum(frac_tokens * mean_prob, dim=-1)
     return y.reshape(b, s, d), torch.mean(aux)

@@ -194,6 +194,9 @@ def test_runtime_imports_neither_jax_nor_repro():
             "import repro_torch.core.binding, repro_torch.launch.mesh\n"
             "import repro_torch.launch.shardings\n"
             "import repro_torch.runtime.elastic\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
+            "import repro_torch.launch.op_inventory\n"
+            "import repro_torch.launch.hillclimb\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

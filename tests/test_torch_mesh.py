@@ -25,8 +25,12 @@ Checks:
 * (d) ``reshard_checkpoint`` of that run's checkpoint onto a 4 x 1 mesh
   (in the spawn) and onto a 1 x 1 CPU mesh (here) equals the saved leaves
   bit for bit;
-* (e) the MoE tiny config under data = 2 raises ``NotImplementedError``
-  naming ROADMAP.md item 8.6b;
+* (e) the MoE tiny config under data = 2: its sharded step against the
+  reference's at the bar of (c), and one MoE layer whose token chunks
+  overflow across the two data ranks' boundary, each rank routing its
+  rows: the assignments it keeps (read off the outputs of probe weights,
+  see :func:`_probe_layer`) exactly the reference's on the whole
+  microbatch, its outputs and aux loss at the bar of (c);
 * (f) ``bf16_reduce`` against the reference at the LM tests' bf16 bar.
 
 On the card (``gpu``): the sharded step on a 1 x 1 NCCL mesh, replayed
@@ -57,6 +61,10 @@ RTOL, ATOL = 1e-5, 1e-6
 BF16_SCALE_TOL = 0.02                 # tests/test_torch_lm.py's bf16 bar
 ARCH, MOE_ARCH = "qwen2.5-3b", "qwen2-moe-a2.7b"
 BATCH, SEQ, MICRO, STEPS = 8, 24, 2, 2
+#: the overflow layer: 96 tokens in 3 chunks of 32, so the middle chunk
+#: straddles the data ranks' boundary at token 48; capacity 5 of its ~10.7
+#: assignments per expert
+OVERFLOW = dict(n_experts=6, top_k=2, capacity_factor=0.5, token_chunks=3)
 OPT = dict(peak_lr=1e-3, warmup_steps=2)
 #: (mesh, tensor shape, spec) whose blocks are held to the reference's
 BLOCK_CASES = [
@@ -148,8 +156,38 @@ def _inputs(path: pathlib.Path) -> dict:
     x = rng.standard_normal((4, 6)).astype(np.float32)
     x[2:] *= 100.0                   # data rank 1's scale 100x rank 0's
     arrays["psum_x"] = x
+    probe, px = _probe_layer(moe, 4)
+    arrays.update({f"probe/{k}": v for k, v in _flat(probe).items()})
+    arrays["probe_x"] = px
     np.savez(path, **arrays)
     return arrays
+
+
+def _probe_layer(cfg, seed):
+    """An MoE layer of ``cfg``'s widths whose outputs name the kept
+    assignments, and its input (4, 24, d): each token's feature 0 is 1, every
+    expert maps it to ``silu(1)`` times its own unit vector e (``wi``, ``wg``
+    read feature 0 only, ``wo`` writes feature e only), the shared experts
+    are zero, the router is drawn.  So ``y[token, e]`` is its gate times
+    silu(1) where its assignment to expert e is kept and exactly 0
+    where it is dropped or absent."""
+    rng = np.random.default_rng(seed)
+    d, e, ff = cfg.d_model, cfg.n_experts_padded, cfg.expert_d_ff
+    wi = np.zeros((e, d, ff), np.float32)
+    wi[:, 0, :] = 1.0
+    wo = np.zeros((e, ff, d), np.float32)
+    for i in range(e):
+        wo[i, :, i] = 1.0 / ff
+    sf = cfg.shared_d_ff
+    p = {"router": {"kernel": rng.standard_normal((d, e)).astype(np.float32)},
+         "experts": {"wi": wi, "wg": wi.copy(), "wo": wo},
+         "shared": {"wi": np.zeros((d, sf), np.float32),
+                    "wg": np.zeros((d, sf), np.float32),
+                    "wo": np.zeros((sf, d), np.float32),
+                    "gate": np.zeros((d, 1), np.float32)}}
+    x = rng.standard_normal((4, SEQ, d)).astype(np.float32)
+    x[..., 0] = 1.0
+    return p, x
 
 
 def _group(arrays: dict, prefix: str) -> dict:
@@ -269,14 +307,52 @@ for comp in (False, True):
         for k, v in flat(tree).items():
             out[f"{tag}/{name}/{k}"] = v
     out[f"{tag}/step"] = np.asarray(state["step"])
+
+# (e) the MoE step under data = 2, and the overflow layer on the whole batch
+mcfg = registry.get_tiny(meta["moe_arch"]).replace(
+    activation_dtype="float32", microbatches=meta["micro"])
+mab, mp_sh = sh.model_param_shardings(mcfg, m22)
+mo_sh = sh.tree_shardings(adamw.abstract_state(mab), adamw.state_axes(
+    module.axes_tree(transformer.model_specs(mcfg))), m22, sh.rules_for(mcfg))
+params = jax.device_put(nest("moe", mcfg), mp_sh)
+state = jax.device_put(adamw.init_state(params), mo_sh)
+step = jax.jit(steps.make_train_step(
+    mcfg, adamw.AdamWConfig(**meta["opt"]), microbatch_shardings=micro_sh,
+    grad_shardings=mo_sh["mu"]), in_shardings=(mp_sh, mo_sh, in_sh),
+    out_shardings=(mp_sh, mo_sh, sh.replicated(m22)))
+for i in range(meta["steps"]):
+    batch = {k: jnp.asarray(arrays[f"b{i}/{k}"])
+             for k in ("tokens", "targets")}
+    params, state, m = step(params, state, batch)
+    for k, v in m.items():
+        out[f"moe/m{i}/{k}"] = np.asarray(v)
+    for k, v in flat(state["mu"]).items():
+        out[f"moe/mu{i}/{k}"] = v
+for name, tree in (("params", params), ("mu", state["mu"]),
+                   ("nu", state["nu"])):
+    for k, v in flat(tree).items():
+        out[f"moe/{name}/{k}"] = v
+out["moe/step"] = np.asarray(state["step"])
+from repro.nn import moe as ref_moe
+probe = {}
+for k, v in arrays.items():
+    if k.startswith("probe/"):
+        node = probe
+        *path, leaf = k[len("probe/"):].split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = jnp.asarray(v)
+y, aux = ref_moe.moe(probe, jnp.asarray(arrays["probe_x"]), **meta["overflow"])
+out["overflow/y"], out["overflow/aux"] = np.asarray(y), np.asarray(aux)
 np.savez(out_path, **out)
 print("REFERENCE DONE")
 """
 
 
 def _reference(inputs: pathlib.Path, out: pathlib.Path) -> subprocess.Popen:
-    meta = {"meshes": MESH_SHAPES, "arch": ARCH, "micro": MICRO,
-            "batch": BATCH, "seq": SEQ, "opt": OPT, "steps": STEPS}
+    meta = {"meshes": MESH_SHAPES, "arch": ARCH, "moe_arch": MOE_ARCH,
+            "micro": MICRO, "batch": BATCH, "seq": SEQ, "opt": OPT,
+            "steps": STEPS, "overflow": OVERFLOW}
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu")
@@ -401,21 +477,73 @@ def _rank_checks(rank, arrays, out_dir: pathlib.Path) -> dict:
     res["reshard41_step"] = np.array(got_step)
     res["reshard41_leaves"] = np.array(len(saved))
 
-    # (e) MoE under data = 2
+    # (e) MoE under data = 2: the sharded step, then the overflow layer
     moe = registry.get_tiny(MOE_ARCH).replace(activation_dtype="float32",
                                               microbatches=MICRO)
+    mrules = sh.rules_for(moe)
     mab, m_sh = sh.model_param_shardings(moe, mesh)
+    mo_sh = sh.state_shardings(
+        mab, module.axes_tree(transformer.model_specs(moe)), mesh, mrules)
+    mmicro = {k: sh.sharding_for((MICRO, BATCH // MICRO, SEQ),
+                                 (None, "batch", None), mesh, mrules)
+              for k in ("tokens", "targets")}
     mw = module.params_from_numpy(_nest(_group(arrays, "moe"), moe))
     mparams = sh.shard_tree(mw, m_sh)
-    mstate = sh.shard_tree(adamw.init_state(mw), sh.state_shardings(
-        mab, module.axes_tree(transformer.model_specs(moe)), mesh,
-        sh.rules_for(moe)))
+    mstate = sh.shard_tree(adamw.init_state(mw), mo_sh)
+    res["moe_error"] = np.array("")
     try:
-        steps.make_train_step(moe)(mparams, mstate, batches[0])
-        res["moe_error"] = np.array("")
+        step = steps.make_train_step(
+            moe, adamw.AdamWConfig(**OPT), microbatch_shardings=mmicro,
+            grad_shardings=mo_sh["mu"])
+        for i, b in enumerate(batches):
+            mparams, mstate, m = step(mparams, mstate, b)
+            for k, v in m.items():
+                res[f"moe/m{i}/{k}"] = v.numpy()
+            mu = module.map_tree(lambda t: t.full_tensor(), mstate["mu"])
+            if rank == 0:
+                for k, v in _flat(mu).items():
+                    res[f"moe/mu{i}/{k}"] = v.numpy()
     except NotImplementedError as e:
         res["moe_error"] = np.array(str(e))
+    else:
+        whole = {"params": mparams, "mu": mstate["mu"], "nu": mstate["nu"]}
+        whole = {k: module.map_tree(lambda t: t.full_tensor(), v)
+                 for k, v in whole.items()}
+        if rank == 0:
+            for name, tree in whole.items():
+                for k, v in _flat(tree).items():
+                    res[f"moe/{name}/{k}"] = v.numpy()
+            res["moe/step"] = mstate["step"].full_tensor().numpy()
+    res.update(_overflow_layer(mesh, arrays))
     return res
+
+
+def _overflow_layer(mesh, arrays) -> dict:
+    """This rank's rows of the probe layer's input through ``moe`` as its
+    data rank's block of the microbatch."""
+    from repro_torch.nn import moe as moe_lib
+    probe = module.params_from_numpy(_nest_flat(_group(arrays, "probe")))
+    x = torch.from_numpy(arrays["probe_x"])
+    index, ways = mesh.coordinate()[0], mesh.shape["data"]
+    rows = x.shape[0] // ways
+    shard = moe_lib.BatchShard(
+        index=index, ways=ways, reduce=lambda t: mesh.reduce(t, ("data",)))
+    with moe_lib.batch_shard(shard):
+        y, aux = moe_lib.moe(probe, x[index * rows:(index + 1) * rows],
+                             **OVERFLOW)
+    return {"overflow/y": y.numpy(), "overflow/aux": aux.numpy()}
+
+
+def _nest_flat(flat: dict) -> dict:
+    """{"a/b": v} as {"a": {"b": v}}."""
+    out: dict = {}
+    for k, v in flat.items():
+        node = out
+        *path, leaf = k.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return out
 
 
 def _saved_leaves(path: pathlib.Path) -> list:
@@ -496,7 +624,7 @@ def _bar(got, want):
     return np.abs(got - want) > ATOL + RTOL * np.abs(want)
 
 
-@pytest.mark.parametrize("tag", ["plain", "comp"])
+@pytest.mark.parametrize("tag", ["plain", "comp", "moe"])
 def test_sharded_step_matches_reference(runs, tag):
     """Metrics after each step, and the state after two, against the
     reference's at rtol 1e-5 / atol 1e-6, every element but two kinds,
@@ -517,7 +645,9 @@ def test_sharded_step_matches_reference(runs, tag):
     Every other element of the parameters, both moments and the error
     feedback is held at the bar; those are over 90% of the parameters
     (94% without compression, 99.8% with it: the tiny model has many
-    gradients near zero)."""
+    gradients near zero).  ``moe`` is the MoE tiny config under data = 2,
+    without compression: each rank routes its rows as the whole microbatch
+    would (the aux loss among the metrics)."""
     from repro_torch.optim.adamw import AdamWConfig
     ref, got = runs.ref, runs.ranks[0]
     for i in range(STEPS):
@@ -532,7 +662,8 @@ def test_sharded_step_matches_reference(runs, tag):
     lr_sum = sum(float(ref[f"{tag}/m{i}/lr"]) for i in range(STEPS))
     leaves = [k[len(f"{tag}/params/"):] for k in ref
               if k.startswith(f"{tag}/params/")]
-    assert len(leaves) == len(_weights(registry.get_tiny(ARCH), 0))
+    arch, seed = (MOE_ARCH, 1) if tag == "moe" else (ARCH, 0)
+    assert len(leaves) == len(_weights(registry.get_tiny(arch), seed))
     held = total = 0
     for leaf in leaves:
         def pair(name):
@@ -603,9 +734,54 @@ def test_reshard_onto_1x1_cpu_mesh_is_bitwise(runs, one_rank_group):
 
 
 def test_moe_under_a_data_axis_raises_naming_the_item(runs):
+    """The refusal of item 8.6b is gone: under data = 2 every rank ran the
+    MoE tiny config's sharded step to its end (its values are
+    ``test_sharded_step_matches_reference[moe]``'s)."""
     for r in runs.ranks:
-        msg = str(r["moe_error"])
-        assert "8.6b" in msg and "MoE" in msg
+        assert str(r["moe_error"]) == ""
+        assert f"moe/m{STEPS - 1}/aux_loss" in r
+
+
+def _kept(y: np.ndarray) -> np.ndarray:
+    """(tokens, real experts): True where the probe layer kept the
+    token's assignment to the expert."""
+    return y.reshape(-1, y.shape[-1])[:, :OVERFLOW["n_experts"]] != 0
+
+
+def test_overflow_across_the_rank_boundary_keeps_the_reference_set(runs):
+    """The probe layer (capacity 5 per chunk and expert, 3 chunks of 32
+    tokens, the middle one split 16/16 between the data ranks): the ranks'
+    kept assignments, together, are exactly the reference's on the whole
+    microbatch; the outputs at rtol 1e-5 / atol 1e-6 and the aux loss,
+    the whole microbatch's on every rank, too.  And the exchange of counts
+    decides it: in the middle chunk data rank 1 drops assignments it would
+    keep counting its own tokens alone (rank 0 holds the expert's first
+    ones)."""
+    want = runs.ref["overflow/y"]
+    by_data = {int(r["coord"][0]): r for r in runs.ranks}
+    got = np.concatenate([by_data[i]["overflow/y"] for i in range(2)])
+    assert got.shape == want.shape
+    kept = _kept(want)
+    np.testing.assert_array_equal(_kept(got), kept)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    for r in runs.ranks:
+        np.testing.assert_allclose(r["overflow/aux"], runs.ref["overflow/aux"],
+                                   rtol=RTOL, atol=ATOL)
+    # each token's two experts, from the router (x·W, top 2; the softmax
+    # keeps the order)
+    arrays = np.load(runs.work / "inputs.npz")
+    logits = arrays["probe_x"].reshape(-1, arrays["probe_x"].shape[-1]) \
+        @ arrays["probe/router/kernel"]
+    logits[:, OVERFLOW["n_experts"]:] = -np.inf
+    top = np.argsort(-logits, axis=1, kind="stable")[:, :OVERFLOW["top_k"]]
+    chosen = np.zeros_like(kept)
+    np.put_along_axis(chosen, top, True, axis=1)
+    assert (kept <= chosen).all() and kept.sum() < chosen.sum()
+    mid = slice(32, 64)                      # rank 0: 32-47, rank 1: 48-63
+    alone = np.cumsum(chosen[48:64], axis=0) <= 5     # rank 1's own count
+    dropped = chosen[48:64] & alone & ~kept[48:64]
+    assert dropped.any() and chosen[32:48][:, dropped.any(0)].any()
+    assert (kept[mid].sum(0) <= 5).all()
 
 
 # ---------------------------------------------------------------------------
