@@ -243,14 +243,35 @@ Phases, each printing one JSON line (``"phase": ...``):
              unsharded step from the same seed, 3 calls each, metrics and
              every parameter and moment value for value; 16 K5 launches
              per replayed sharded step; p50 and peak memory side by side.
-24. dryrun — phase mesh's step traced by ``launch.dryrun`` on fake CUDA
+24. serve_mesh — data-parallel prefill and decode on a 1 x 1 NCCL mesh,
+             under deterministic algorithms, the sharded parameters the
+             unsharded tensors (``shard_tree`` copies nothing): Qwen2.5-3B
+             at full width and depth, the sharded prefill at 4 x 1,024
+             (first call, then 5 replays of its captured graph) against
+             ``lm.prefill`` on the same tensors value for value, 36 K5
+             launches per replay and nothing else; 16 ticks of the sharded
+             8-lane serve step (replayed) against 16 unsharded ticks from
+             the same zero cache, tokens, logits and every cache leaf value
+             for value; p50 of each beside the other; one eager call of
+             each, its peak memory and launches for phase dryrun.
+             qwen2-moe-a2.7b cut to 2 layers: its tick, the counts
+             exchange inside the graph, held the same way, its kept share
+             the unsharded tick's.  recurrentgemma-9b cut to one
+             superblock: its tick (the ``h``, ``conv``, ``k``, ``v`` and
+             ``kpos`` leaves).  whisper-tiny: the prefill (encode and
+             decode, 8 K5 launches) and its tick.
+25. dryrun — phase mesh's step traced by ``launch.dryrun`` on fake CUDA
              tensors over a 1 x 1 fake world: its predicted peak within
              15% of the card's eager step's (run once after
              ``reset_peak_memory_stats``), its K5 launches equal to the
              eager step's and phase mesh's 32, the launch counters
              untouched by the fake kernels, the rate its FLOPs imply at
              phase mesh's p50; the reference test's tiny cell (gemma2-27b
-             on a 2 x 2 x 2 fake world) traced "ok".
+             on a 2 x 2 x 2 fake world) traced "ok"; Qwen2.5-3B's sharded
+             prefill and serve step (phase serve_mesh's shapes, full
+             depth) traced on the 1 x 1 fake world, each predicted peak
+             within 15% of phase serve_mesh's eager call's and its
+             launches equal to that call's.
 
 Then the script's seconds, the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and
@@ -4692,59 +4713,6 @@ def phase_mesh(torch) -> dict:
         torch.distributed.destroy_process_group()
 
 
-def mesh_states(torch, cfg, mesh, sharded_only: bool = False) -> list:
-    """[(sharded params, state), (params, state)]: ``cfg``'s parameters
-    drawn on the card from seed 0 twice, and each one's AdamW state; the
-    first pair sharded by ``model_param_shardings`` and ``state_axes``
-    (no leaf copied on the 1 x 1 mesh).  ``sharded_only``: that pair
-    alone."""
-    from repro_torch.launch import shardings as sh
-    from repro_torch.nn import module, transformer
-    from repro_torch.optim import adamw
-
-    specs = transformer.model_specs(cfg)
-    abstract, p_sh = sh.model_param_shardings(cfg, mesh)
-    o_sh = sh.state_shardings(abstract, module.axes_tree(specs), mesh,
-                              sh.rules_for(cfg))
-    trees = []
-    for sharded in (True,) if sharded_only else (True, False):
-        p = module.init_tree(specs, torch.Generator(
-            device="cuda").manual_seed(0), device="cuda")
-        st = adamw.init_state(p)
-        if sharded:
-            ptrs = [t.data_ptr() for t in module.tree_leaves(p)]
-            p, st = sh.shard_tree(p, p_sh), sh.shard_tree(st, o_sh)
-            copied = sum(sh.local(t).data_ptr() != q for t, q in zip(
-                module.tree_leaves(p), ptrs))
-            check(copied == 0, f"shard_tree copied {copied} parameters "
-                               f"on the 1 x 1 mesh")
-        trees.append((p, st))
-    return trees
-
-
-def phase_mesh(torch) -> dict:
-    """The sharded pieces on the card: a 1 x 1 (data, model) NCCL mesh;
-    Qwen2.5-3B at full width, 4 layers, its parameters and AdamW state
-    sharded by ``model_param_shardings`` and ``state_axes``
-    (``shard_tree``: no copy on this mesh), the batch by ``input_axes``;
-    the sharded step replayed against the unsharded one from the same
-    seed, value for value, without and then with ``grad_compression``;
-    K5 launches per sharded step; step times and peak memory side by
-    side; ``compressed_psum`` over ``data``; ``reshard_checkpoint`` onto
-    the mesh."""
-    import torch.distributed
-
-    from repro_torch.launch.mesh import single_device_mesh
-
-    t_phase = time.perf_counter()
-    free_card(torch)
-    mesh = single_device_mesh()
-    try:
-        return _mesh_phase(torch, mesh, t_phase)
-    finally:
-        torch.distributed.destroy_process_group()
-
-
 def _mesh_phase(torch, mesh, t_phase: float) -> dict:
     """:func:`phase_mesh` on its mesh."""
     from repro_torch.configs import registry as configs
@@ -4893,6 +4861,306 @@ def phase_moe_mesh(torch) -> dict:
                          pair["launches_per_step"].items()}}
 
 
+#: phase serve_mesh: the sharded prefill's first call, then SERVE_RUNS
+#: replays beside as many unsharded calls; SERVE_TICKS replayed ticks of
+#: each path from one zero cache; whisper-tiny's tick cache length
+SERVE_RUNS, SERVE_TICKS, SERVE_ED_LEN = 5, 16, 64
+
+
+def _shard_params(torch, cfg, params, mesh):
+    """``params`` as DTensors under ``model_param_shardings``, each local
+    block the tensor itself on the 1 x 1 mesh (checked)."""
+    from repro_torch.launch import shardings as sh
+    from repro_torch.nn import module
+    _, p_sh = sh.model_param_shardings(cfg, mesh)
+    out = sh.shard_tree(params, p_sh)
+    copied = sum(sh.local(a).data_ptr() != b.data_ptr() for a, b in zip(
+        module.tree_leaves(out), module.tree_leaves(params)))
+    check(copied == 0, f"shard_tree copied {copied} of {cfg.name}'s "
+                       f"parameters on the 1 x 1 mesh")
+    return out
+
+
+def serve_prefill_pair(torch, cfg, params, sharded, batch: dict) -> dict:
+    """The sharded prefill (``make_prefill`` on DTensor parameters: its
+    first call, then SERVE_RUNS replays of its captured graph) against the
+    unsharded one on the same tensors, logits value for value each call;
+    the port's launches per replayed sharded call; p50 of each."""
+    from repro_torch.kernels import registry
+    from repro_torch.launch import steps
+    from repro_torch.launch.shardings import local
+
+    pre = steps.make_prefill(cfg)
+    differ, ms = 0, {"sharded": [], "unsharded": []}
+    for i in range(1 + SERVE_RUNS):
+        if i == 1:
+            registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = pre(sharded, batch)
+        torch.cuda.synchronize()
+        if i:
+            ms["sharded"].append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            launches = {k: v for k, v in registry.launch_counts().items()
+                        if v}
+        t0 = time.perf_counter()
+        want = pre(params, batch)
+        torch.cuda.synchronize()
+        if i:
+            ms["unsharded"].append((time.perf_counter() - t0) * 1e3)
+        differ += value_diff(torch, local(got), want)
+        check(tuple(got.shape) == tuple(want.shape)
+              and bool(torch.isfinite(want).all()),
+              f"{cfg.name} sharded prefill: {tuple(got.shape)} against "
+              f"{tuple(want.shape)}, or not finite")
+    check(differ == 0, f"{cfg.name} sharded prefill differs from the "
+                       f"unsharded one in {differ} logits")
+    graphs = len(pre.runner().replay_launches())
+    check(graphs == 1, f"{cfg.name} sharded prefill: {graphs} graphs")
+    pre.runner().release()
+    return {"batch": list(batch["tokens"].shape), "calls_compared":
+            1 + SERVE_RUNS, "values_differing": differ,
+            "launches_per_replay": launches,
+            "ms_p50": {k: statistics.median(v) for k, v in ms.items()},
+            "ms": ms, "unsharded_route": "eager (make_prefill unsharded)"}
+
+
+def serve_tick_pair(torch, cfg, params, sharded, mesh, lanes: int,
+                    max_len: int, seed: int, enc=None, kept=False) -> dict:
+    """SERVE_TICKS ticks of the sharded serve step (DTensor parameters,
+    its cache under ``cache_shardings``; the first call captures, the
+    rest replay) and of the unsharded tick (``decode_step`` and the
+    greedy token, replayed from a ``GraphRunner``) from two zero caches
+    (``enc``, whisper's encoder output, in both): tokens and logits value
+    for value each tick, then every cache leaf; the port's launches per
+    replayed sharded tick; p50 of each.  ``kept``: the MoE's kept share of
+    one eager tick of each on scratch caches, which must be equal."""
+    from repro_torch.core.graphs import GraphRunner
+    from repro_torch.kernels import registry
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec
+    from repro_torch.nn import module, transformer
+
+    mod = encdec if cfg.is_encoder_decoder else transformer
+
+    def zero_cache():
+        if enc is None:
+            return mod.init_cache(cfg, lanes, max_len, device="cuda")
+        return mod.init_cache(cfg, lanes, max_len, enc=enc.clone())
+    c_sh = sh.cache_shardings(cfg, lanes, max_len, mesh)
+    caches = [sh.shard_tree(zero_cache(), c_sh), zero_cache()]
+    step = steps.make_serve_step(cfg)
+
+    def tick_of(cache):
+        def tick(f):
+            logits, _ = mod.decode_step(cfg, params, f["tokens"], cache,
+                                        f["pos"])
+            return {"tokens": torch.argmax(logits, dim=-1).to(torch.int32),
+                    "logits": logits}
+        return tick
+    run = GraphRunner(tick_of(caches[1]), torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    differ = {"tokens": 0, "logits": 0}
+    ms: dict = {"sharded": [], "unsharded": []}
+    stride = (max_len - SERVE_TICKS) // lanes
+    for t in range(SERVE_TICKS):
+        feeds = {"tokens": torch.randint(1, cfg.vocab_size, (lanes, 1),
+                                         generator=gen, device="cuda"),
+                 "pos": torch.arange(lanes, device="cuda") * stride + t}
+        if t == SERVE_TICKS - 1:
+            registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        tok, _ = step(sharded, caches[0], feeds)
+        torch.cuda.synchronize()
+        ms["sharded"].append((time.perf_counter() - t0) * 1e3)
+        if t == SERVE_TICKS - 1:
+            launches = {k: v for k, v in registry.launch_counts().items()
+                        if v}
+        t0 = time.perf_counter()
+        want = run(feeds)
+        torch.cuda.synchronize()
+        ms["unsharded"].append((time.perf_counter() - t0) * 1e3)
+        differ["tokens"] += value_diff(torch, sh.local(tok), want["tokens"])
+        differ["logits"] += value_diff(torch, sh.local(step.logits()),
+                                       want["logits"])
+    names = [n for n, _ in _named_leaves(caches[1])]
+    cache_differ = {n: value_diff(torch, sh.local(a), b) for (n, a), (_, b)
+                    in zip(_named_leaves(caches[0]), _named_leaves(caches[1]))}
+    check(differ == {"tokens": 0, "logits": 0}
+          and not any(cache_differ.values()),
+          f"{cfg.name} sharded ticks differ from the unsharded ones in "
+          f"{differ} values and the cache leaves in {cache_differ}")
+    graphs = len(step.runner().replay_launches())
+    check(graphs == 1, f"{cfg.name} sharded tick: {graphs} graphs")
+    step.runner().release()
+    run.release()
+    out = {"lanes": lanes, "max_len": max_len, "ticks": SERVE_TICKS,
+           "values_differing": differ, "cache_leaves": names,
+           "cache_values_differing": sum(cache_differ.values()),
+           "launches_per_replay": launches,
+           "ms_p50": {k: statistics.median(v[1:]) for k, v in ms.items()},
+           "unsharded_route": "decode_step replayed from a GraphRunner"}
+    if kept:
+        shares = {}
+        for label, p in (("sharded", sharded), ("unsharded", params)):
+            scratch = zero_cache()
+            if label == "sharded":
+                scratch = sh.shard_tree(scratch, c_sh)
+            with KeptShare() as share:
+                step.eager(p, scratch, feeds)
+            shares[label] = share.share()
+        check(shares["sharded"] == shares["unsharded"],
+              f"{cfg.name} tick kept {shares} of its assignments")
+        out["routed_kept_share"] = shares
+    del caches
+    return out
+
+
+def serve_eager_peaks(torch, cfg, sharded, mesh, lanes: int,
+                      max_len: int, batch: dict) -> dict:
+    """One eager call each of the sharded prefill and serve step (a fresh
+    zero cache), the peak device memory of each after
+    ``reset_peak_memory_stats`` with nothing else of this phase live, and
+    the port's launches: what phase dryrun's trace predicts."""
+    from repro_torch.kernels import registry
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import steps
+    from repro_torch.nn import transformer
+
+    out = {}
+    for kind in ("prefill", "decode"):
+        free_card(torch)
+        if kind == "prefill":
+            args = (sharded, batch)
+            call = steps.make_prefill(cfg).eager
+        else:
+            cache = sh.shard_tree(transformer.init_cache(
+                cfg, lanes, max_len, device="cuda"), sh.cache_shardings(
+                cfg, lanes, max_len, mesh))
+            args = (sharded, cache, {
+                "tokens": torch.ones(lanes, 1, dtype=torch.int64,
+                                     device="cuda"),
+                "pos": torch.arange(lanes, device="cuda")})
+            call = steps.make_serve_step(cfg).eager
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        registry.reset_launch_counts()
+        call(*args)
+        torch.cuda.synchronize()
+        out[kind] = {"peak_bytes": torch.cuda.max_memory_allocated(),
+                     "launches": {k: v for k, v in
+                                  registry.launch_counts().items() if v}}
+        del args
+    return out
+
+
+def phase_serve_mesh(torch) -> dict:
+    """Data-parallel prefill and decode on a mesh (ROADMAP.md item 8.8) on
+    the card: a 1 x 1 (data, model) NCCL mesh, under deterministic
+    algorithms, the sharded tensors the unsharded ones (``shard_tree``
+    copies nothing).  Qwen2.5-3B at full width and depth: the sharded
+    prefill at LM_PREFILL_B x LM_PREFILL_S against ``lm.prefill``, 36 K5
+    launches per replay and nothing else; LM_LANES-lane ticks of the
+    sharded serve step against the unsharded tick; then one eager call of
+    each, their peaks for phase dryrun.  qwen2-moe-a2.7b cut to
+    MOE_MESH_LAYERS layers: its tick, the counts exchange inside the
+    graph, its kept share the unsharded tick's.  recurrentgemma-9b cut to
+    one superblock: its tick (the ``h``, ``conv``, ``k``, ``v`` and
+    ``kpos`` leaves).  whisper-tiny: the prefill (encode and decode) and
+    its tick."""
+    import torch.distributed
+
+    from repro_torch.configs import registry as configs
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.models import encdec
+    from repro_torch.nn import module, transformer
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    mesh = single_device_mesh()
+    saved = torch.are_deterministic_algorithms_enabled()
+    out: dict = {"mesh": dict(mesh.shape), "backend": "nccl",
+                 "deterministic": True}
+    try:
+        torch.use_deterministic_algorithms(True)
+        cfg = configs.get_config(LM_ARCH)
+        params, line = draw(torch, cfg, LM_ARCH, LM_PARAMS)
+        sharded = _shard_params(torch, cfg, params, mesh)
+        gen = torch.Generator(device="cuda").manual_seed(41)
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (LM_PREFILL_B, LM_PREFILL_S), generator=gen,
+            device="cuda")}
+        pre = serve_prefill_pair(torch, cfg, params, sharded, batch)
+        want = {"flash_attention": cfg.n_layers}
+        check(pre["launches_per_replay"] == want,
+              f"sharded Qwen2.5-3B prefill launched "
+              f"{pre['launches_per_replay']} per replay, want {want} and "
+              f"nothing else")
+        tick = serve_tick_pair(torch, cfg, params, sharded, mesh, LM_LANES,
+                               LM_MAX_LEN, 42)
+        peaks = serve_eager_peaks(torch, cfg, sharded, mesh, LM_LANES,
+                                  LM_MAX_LEN, batch)
+        out["lm"] = {**line, "prefill": pre, "tick": tick,
+                     "eager": peaks}
+        del params, sharded, batch
+        free_card(torch)
+
+        cfg = configs.get_config(MOE_ARCH).replace(n_layers=MOE_MESH_LAYERS)
+        params, line = draw(torch, cfg, MOE_ARCH, module.param_count(
+            transformer.model_specs(cfg)))
+        sharded = _shard_params(torch, cfg, params, mesh)
+        out["moe"] = {**line, "tick": serve_tick_pair(
+            torch, cfg, params, sharded, mesh, LM_LANES, LM_MAX_LEN, 43,
+            kept=True)}
+        del params, sharded
+        free_card(torch)
+
+        full = configs.get_config(RG_ARCH)
+        cfg = full.replace(n_layers=len(full.attn_pattern))
+        params, line = draw(torch, cfg, RG_ARCH, module.param_count(
+            transformer.model_specs(cfg)))
+        sharded = _shard_params(torch, cfg, params, mesh)
+        out["recurrent"] = {**line, "tick": serve_tick_pair(
+            torch, cfg, params, sharded, mesh, LM_LANES, LM_MAX_LEN, 44)}
+        del params, sharded
+        free_card(torch)
+
+        cfg = configs.get_config(ED_ARCH)
+        params = module.init_tree(encdec.model_specs(cfg), torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        sharded = _shard_params(torch, cfg, params, mesh)
+        gen = torch.Generator(device="cuda").manual_seed(45)
+        frames = torch.randn(ED_B, cfg.encoder_len, cfg.d_model,
+                             generator=gen, device="cuda")
+        batch = {"frames": frames, "tokens": torch.randint(
+            0, cfg.vocab_size, (ED_B, ED_PROMPT), generator=gen,
+            device="cuda")}
+        pre = serve_prefill_pair(torch, cfg, params, sharded, batch)
+        want = {"flash_attention": cfg.n_encoder_layers + cfg.n_layers}
+        check(pre["launches_per_replay"] == want,
+              f"sharded whisper-tiny prefill launched "
+              f"{pre['launches_per_replay']} per replay, want {want}")
+        enc = encdec.encode(cfg, params, frames)
+        out["encdec"] = {"arch": ED_ARCH, "prefill": pre,
+                         "tick": serve_tick_pair(
+                             torch, cfg, params, sharded, mesh, ED_B,
+                             SERVE_ED_LEN, 46, enc=enc)}
+        del params, sharded, batch, frames, enc
+    finally:
+        torch.use_deterministic_algorithms(saved)
+        torch.distributed.destroy_process_group()
+    free_card(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "serve_mesh", **out})
+    return {"lm_prefill_launches": out["lm"]["prefill"]["launches_per_replay"],
+            "lm_tick_launches": out["lm"]["tick"]["launches_per_replay"],
+            "whisper_prefill_launches":
+                out["encdec"]["prefill"]["launches_per_replay"],
+            "lm_prefill_ms_p50": out["lm"]["prefill"]["ms_p50"],
+            "eager": out["lm"]["eager"]}
+
+
 #: phase dryrun: the predicted peak's bar against the card's eager step
 DRY_PEAK_RTOL = 0.15
 #: the reference test's tiny cell: tiny gemma2-27b in 2 microbatches,
@@ -4900,7 +5168,7 @@ DRY_PEAK_RTOL = 0.15
 DRY_TINY = ("gemma2-27b", {"pod": 2, "data": 2, "model": 2}, 8, 32)
 
 
-def phase_dryrun(torch, mesh_out: dict) -> dict:
+def phase_dryrun(torch, mesh_out: dict, serve_out: dict) -> dict:
     """The dry-run (ROADMAP.md item 8.7) on the card's machine: phase
     mesh's own step (Qwen2.5-3B at full width, MESH_LAYERS layers, TR_BATCH
     x TR_SEQ in 4 microbatches) traced on fake CUDA tensors over a 1 x 1
@@ -4909,7 +5177,10 @@ def phase_dryrun(torch, mesh_out: dict) -> dict:
     card's eager step run once on a 1 x 1 NCCL mesh (peak memory after
     ``reset_peak_memory_stats``, launches) and phase mesh's launches per
     step; the rate the predicted FLOPs imply at phase mesh's p50; the
-    reference test's tiny 2 x 2 x 2 cell."""
+    reference test's tiny 2 x 2 x 2 cell; Qwen2.5-3B's sharded prefill and
+    serve step at full depth (phase serve_mesh's shapes) traced on the
+    1 x 1 fake world, their predicted peaks and launches beside phase
+    serve_mesh's eager calls."""
     import shutil
     import tempfile
 
@@ -4936,6 +5207,12 @@ def phase_dryrun(torch, mesh_out: dict) -> dict:
             LM_ARCH, "smoke_train", {"data": 1, "model": 1}, out_dir,
             cfg=cfg, shape=ShapeConfig("smoke_train", TR_SEQ, TR_BATCH,
                                        "train"))
+        serve = {kind: dryrun.run_cell(
+            LM_ARCH, f"smoke_{kind}", {"data": 1, "model": 1}, out_dir,
+            cfg=configs.get_config(LM_ARCH), shape=ShapeConfig(
+                f"smoke_{kind}", s, b, kind))
+            for kind, b, s in (("prefill", LM_PREFILL_B, LM_PREFILL_S),
+                               ("decode", LM_LANES, LM_MAX_LEN))}
         arch, world, b, s = DRY_TINY
         tiny = dryrun.run_cell(
             arch, "tiny_train", world, out_dir,
@@ -4944,7 +5221,7 @@ def phase_dryrun(torch, mesh_out: dict) -> dict:
         fake_launched = registry.launch_counts() != launches0
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    for r in (rec, tiny):
+    for r in (rec, tiny, *serve.values()):
         check(r.get("status") == "ok",
               f"dry-run of {r['arch']} on {r['mesh']}: "
               f"{r.get('error')}\n{r.get('traceback', '')[-3000:]}")
@@ -4991,6 +5268,27 @@ def phase_dryrun(torch, mesh_out: dict) -> dict:
           .get("flash_attention") and rec["kernel_launches"] == eager_launches,
           f"dry-run launches {rec['kernel_launches']}, the eager step's "
           f"{eager_launches}, phase mesh's {mesh_out['launches']}")
+    served = {}
+    for kind, r in serve.items():
+        eager = serve_out["eager"][kind]
+        err = abs(r["memory"]["peak_bytes"] - eager["peak_bytes"]) / \
+            eager["peak_bytes"]
+        check(err <= DRY_PEAK_RTOL,
+              f"dry-run {kind} peak {r['memory']['peak_bytes']} B against "
+              f"the card's eager call's {eager['peak_bytes']} B: {err:.3f} "
+              f"> {DRY_PEAK_RTOL}")
+        check(r["kernel_launches"] == eager["launches"],
+              f"dry-run {kind} launches {r['kernel_launches']}, the eager "
+              f"call's {eager['launches']}")
+        served[kind] = {
+            "trace_s": r["trace_s"], "n_ops": r["n_ops"],
+            "predicted_peak_bytes": r["memory"]["peak_bytes"],
+            "eager_peak_bytes": eager["peak_bytes"], "peak_rel_err": err,
+            "flops": r["flops_per_device"],
+            "kernel_launches": r["kernel_launches"],
+            "eager_launches": eager["launches"],
+            "cache_bytes_per_device": r["cache_bytes_per_device"],
+            "gather_bytes_per_device": r["gather_bytes_per_device"]}
     p50 = mesh_out["step_ms_p50"]
     rate = rec["flops_per_device"] / (p50 / 1e3)
     out = {"arch": LM_ARCH, "layers": MESH_LAYERS, "batch": TR_BATCH,
@@ -5013,6 +5311,8 @@ def phase_dryrun(torch, mesh_out: dict) -> dict:
                "arch", "mesh", "status", "trace_s", "flops_per_device",
                "params_bytes_per_device", "collectives_by_kind",
                "n_collective_ops", "kernel_launches", "memory")},
+           "serve": {"arch": LM_ARCH, "layers": configs.get_config(
+               LM_ARCH).n_layers, **served},
            "seconds": time.perf_counter() - t_phase}
     emit({"phase": "dryrun", **out})
     return out
@@ -5081,7 +5381,8 @@ def main() -> int:
         trl = phase_train_lm(torch)
         msh = phase_mesh(torch)
         mmsh = phase_moe_mesh(torch)
-        phase_dryrun(torch, msh)
+        smsh = phase_serve_mesh(torch)
+        phase_dryrun(torch, msh, smsh)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -5105,6 +5406,9 @@ def main() -> int:
     by_path["xlstm_train_step"] = trl["xlstm"]["launches"]
     by_path["mesh_train_step"] = msh["launches"]
     by_path["moe_mesh_train_step"] = mmsh["launches"]
+    by_path["serve_mesh_prefill"] = smsh["lm_prefill_launches"]
+    by_path["serve_mesh_tick"] = smsh["lm_tick_launches"]
+    by_path["serve_mesh_whisper_prefill"] = smsh["whisper_prefill_launches"]
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         rec = kern[name]
@@ -5201,6 +5505,15 @@ def main() -> int:
                     "k5_forward_plus_torch_backward_ms",
                     "grad_max_abs_err", "lse_max_abs_err",
                     "k5_lm_prefill_shape_ms")}}
+            # and on a mesh: the sharded Qwen2.5-3B prefill (its calls have
+            # the lm row's first shape)
+            rows[-1]["serve_mesh"] = {
+                "per": "launches_by_path['serve_mesh_prefill'] counts one "
+                       "replayed sharded Qwen2.5-3B prefill at 4 x 1,024 "
+                       "on a 1 x 1 NCCL mesh, ['serve_mesh_whisper_"
+                       "prefill'] one whisper-tiny prefill (encode and "
+                       "decode)",
+                "prefill_ms_p50": smsh["lm_prefill_ms_p50"]}
         if name in NO_LIBRARY:
             rows[-1]["library_ms_null_because"] = NO_LIBRARY[name]
     # the sLSTM's time loop, which replaces no TPU kernel: its main path

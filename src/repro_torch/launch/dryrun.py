@@ -8,7 +8,9 @@ For every supported cell this module:
    (``FakeTensorMode``: shapes and dtypes, no storage), laid out as DTensor
    blocks by the binding rules, on a fake world of 256 (512) ranks
    (``launch.mesh.fake_world``), this process rank 0 of it;
-2. runs the port's train step (``make_train_step(...).eager``) once, under
+2. runs one call of the port's sharded step once (the train step's, the
+   prefill's or the serve step's ``.eager``; a decode cell's cache as fake
+   DTensor blocks under ``launch.shardings.cache_shardings``), under
    ``FlopCounterMode``, ``MemTracker`` and the op inventory
    (``launch.op_inventory``): rank 0's share of the work, collectives that
    return at once, kernels that launch nothing;
@@ -31,8 +33,16 @@ gives temp bytes.  What it shows of the port: the port's sharded step is data
 parallel (``launch.steps``), gathering every split parameter into a whole
 buffer, so a large model's peak can exceed 80 GB where the reference's
 tensor-parallel program fits: that is the finding, not a fault of the
-dry-run.  Prefill and decode cells are not run: the port shards only the
-train step (ROADMAP.md queue 1 item 8.8).
+dry-run.  A prefill or decode cell casts the floating parameters to
+``cfg.serve_dtype`` where the config sets it, as the reference does, and
+its record adds the cache's bytes per device, the port's
+(``cache_bytes_per_device``: each rank holds its rows' whole cache) and
+what the rules' shardings would store (``cache_bytes_per_device_rules``,
+the reference's), and the bytes of the one-time parameter gather
+(``gather_bytes_per_device``: the whole buffers of the split parameters)
+with its collectives (``gather_collectives``), traced apart from the
+call's (``step.prepare``): the peak counts both, the call's collectives
+and FLOPs only the call's.
 
 Usage::
 
@@ -58,14 +68,12 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import shardings as sh
 from repro_torch.launch.op_inventory import OpInventory
 from repro_torch.launch.roofline import HBM_BYTES
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import make_prefill, make_serve_step, \
+    make_train_step
 from repro_torch.nn import module as module_lib
 from repro_torch.optim import adamw
 
 OUT_DIR = "experiments/dryrun_torch"
-#: why a prefill or decode cell is not run
-NOT_SHARDED = ("the port shards only the train step: data-parallel "
-               "prefill and decode on a mesh are ROADMAP.md queue 1 item 8.8")
 #: the production meshes' shapes
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
@@ -87,18 +95,24 @@ def _specs(cfg):
         transformer.model_specs(cfg)
 
 
+def _fake(a, device, dtype=None) -> torch.Tensor:
+    return torch.zeros(a.shape, dtype=dtype or a.dtype, device=device)
+
+
 def build_cell(arch: str, shape_name: str, mesh, *, cfg=None,
                shape: Optional[ShapeConfig] = None, device="cuda"):
-    """(step, (params, opt_state, batch), (param, state, input shardings),
-    the config with its mesh-aware microbatches) of a train cell: the fake
-    tensors made in the caller's ``FakeTensorMode`` on ``device``, the
-    parameters and state as DTensor blocks on ``mesh``.  ``shape``
-    overrides the registry's shape (a tiny cell)."""
+    """(step, args, their shardings, the cell's config) of a cell: the
+    fake tensors made in the caller's ``FakeTensorMode`` on ``device``, the
+    parameters (and a train cell's state, a decode cell's cache) as
+    DTensor blocks on ``mesh``.  A train cell's args are (params,
+    opt_state, batch) and its config has the mesh-aware microbatches; a
+    prefill cell's (params, batch), a decode cell's (params, cache,
+    batch).  ``shape`` overrides the registry's shape (a tiny cell)."""
     cfg = cfg or registry.get_config(arch)
     shape = shape or registry.get_shape(shape_name)
-    if shape.kind != "train":
-        raise NotImplementedError(NOT_SHARDED)
     rules = sh.rules_for(cfg)
+    if shape.kind != "train":
+        return _serve_cell(cfg, shape, mesh, device)
     # mesh-aware: the per-microbatch batch must stay divisible by the
     # data-parallel ways, else the batch is not split over them
     n_micro = max(1, cfg.microbatches)
@@ -111,27 +125,57 @@ def build_cell(arch: str, shape_name: str, mesh, *, cfg=None,
     axes = module_lib.axes_tree(_specs(cfg))
     opt_sh = sh.state_shardings(abstract, axes, mesh, rules)
     inputs = registry.input_specs(cfg, shape)
-    in_axes = registry.input_axes(cfg, shape)
-    input_sh = {k: sh.sharding_for(tuple(v.shape), in_axes[k], mesh, rules)
-                for k, v in inputs.items()}
+    input_sh = _input_shardings(cfg, shape, mesh)
     micro_sh = None
     if n_micro > 1:
+        in_axes = registry.input_axes(cfg, shape)
         micro_sh = {
             k: sh.sharding_for(
                 (n_micro, v.shape[0] // n_micro) + tuple(v.shape[1:]),
                 (None,) + tuple(in_axes[k]), mesh, rules)
             for k, v in inputs.items()}
 
-    def fake(a):
-        return torch.zeros(a.shape, dtype=a.dtype, device=device)
-    whole = module_lib.map_tree(fake, abstract)
+    whole = module_lib.map_tree(lambda a: _fake(a, device), abstract)
     params = sh.shard_tree(whole, param_sh)
     opt_state = sh.shard_tree(adamw.init_state(whole), opt_sh)
-    batch = {k: fake(v) for k, v in inputs.items()}
+    batch = {k: _fake(v, device) for k, v in inputs.items()}
     step = make_train_step(cfg, microbatch_shardings=micro_sh,
                            grad_shardings=opt_sh["mu"])
     return step, (params, opt_state, batch), (param_sh, opt_sh, input_sh), \
         cfg
+
+
+def _input_shardings(cfg, shape: ShapeConfig, mesh) -> dict:
+    rules = sh.rules_for(cfg)
+    inputs = registry.input_specs(cfg, shape)
+    in_axes = registry.input_axes(cfg, shape)
+    return {k: sh.sharding_for(tuple(v.shape), in_axes[k], mesh, rules)
+            for k, v in inputs.items()}
+
+
+def _serve_cell(cfg, shape: ShapeConfig, mesh, device):
+    """:func:`build_cell` of a prefill or decode cell: the reference's
+    ``build_cell`` other two kinds, the floating parameters in
+    ``cfg.serve_dtype`` where it is set."""
+    cfg = cfg.replace(microbatches=1)
+    abstract, param_sh = sh.model_param_shardings(cfg, mesh)
+    sd = getattr(torch, cfg.serve_dtype) if cfg.serve_dtype else None
+    whole = module_lib.map_tree(lambda a: _fake(
+        a, device, sd if a.dtype.is_floating_point else None), abstract)
+    params = sh.shard_tree(whole, param_sh)
+    batch = {k: _fake(v, device)
+             for k, v in registry.input_specs(cfg, shape).items()}
+    input_sh = _input_shardings(cfg, shape, mesh)
+    if shape.kind == "prefill":
+        return make_prefill(cfg), (params, batch), (param_sh, input_sh), cfg
+    cache_abs, _ = sh.cache_abstract_and_axes(cfg, shape.global_batch,
+                                              shape.seq_len)
+    cache_sh = sh.cache_shardings(cfg, shape.global_batch, shape.seq_len,
+                                  mesh)
+    cache = sh.shard_tree(module_lib.map_tree(
+        lambda a: _fake(a, device), cache_abs), cache_sh)
+    return make_serve_step(cfg), (params, cache, batch), \
+        (param_sh, cache_sh, input_sh), cfg
 
 
 def _batch_split(cfg, shape: ShapeConfig, mesh) -> bool:
@@ -169,8 +213,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: Union[str, dict],
     base_cfg = cfg or registry.get_config(arch)
     sizes, axes, mesh_name = _mesh_shape(mesh_kind)
     ok, why = supports_shape(base_cfg, shape)
-    if ok and shape.kind != "train":
-        ok, why = False, NOT_SHARDED
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
            "supported": ok, "skip_reason": why, "tag": tag,
            "device": torch.device(device).type}
@@ -183,20 +225,50 @@ def run_cell(arch: str, shape_name: str, mesh_kind: Union[str, dict],
             step, args, shardings, cell_cfg = build_cell(
                 arch, shape_name, mesh, cfg=base_cfg, shape=shape,
                 device=device)
-            params, opt_state, batch = args
+            params, state, batch = args[0], args[1:-1], args[-1]
             tracker = MemTracker()
             tracker.track_external(*(sh.local(t) for t in
                                       module_lib.tree_leaves(
-                                          (params, opt_state))),
+                                          (params, state))),
                                    *batch.values())
-            inventory = OpInventory()
+            inventory, gathering = OpInventory(), OpInventory()
             flops = FlopCounterMode(display=False, custom_mapping={
                 torch.ops.aten.bmm: _bmm_flops})
-            with tracker, flops, inventory:
-                _, _, metrics = step.eager(params, opt_state, batch)
+            with tracker:
+                if shape.kind != "train":
+                    with gathering:       # the serving plan's one gather
+                        step.prepare(params)
+                with flops, inventory:
+                    out = step.eager(*args)
             peak = tracker.get_tracker_snapshot("peak")
+            outputs = out[2].values() if shape.kind == "train" else [
+                sh.local(out if shape.kind == "prefill" else out[0])]
+            output_bytes = sum(t.numel() * t.element_size() for t in outputs)
         report = inventory.report()
         peak_bytes = max(v["Total"] for v in peak.values())
+        if shape.kind == "decode":
+            # what the rules' shardings of the cache store: the reference's
+            cache_abs, cache_axes = sh.cache_abstract_and_axes(
+                cell_cfg, shape.global_batch, shape.seq_len)
+            rec.update({
+                "cache_bytes_per_device": _local_bytes(state),
+                "cache_bytes_per_device_rules": sh.bytes_per_device(
+                    cache_abs, sh.tree_shardings(
+                        cache_abs, cache_axes, mesh_lib.Mesh(
+                            dict(zip(axes, sizes))), sh.rules_for(cell_cfg)))})
+        elif shape.kind == "prefill":
+            rec.update({"cache_bytes_per_device": 0,
+                        "cache_bytes_per_device_rules": 0})
+        if shape.kind != "train":
+            gather = gathering.report()
+            rec["gather_bytes_per_device"] = sum(
+                math.prod(t.shape) * t.element_size()
+                for t in module_lib.tree_leaves(params)
+                if tuple(sh.local(t).shape) != tuple(t.shape))
+            rec["gather_collectives"] = {
+                "collective_bytes_per_device": gather.collective_bytes,
+                "collectives_by_kind": gather.by_kind(),
+                "collective_bytes_by_link": gather.by_link()}
         rec.update({
             "status": "ok",
             "trace_s": round(time.perf_counter() - t0, 2),
@@ -204,10 +276,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: Union[str, dict],
             "data_ways": mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
             if _batch_split(cell_cfg, shape, mesh) else 1,
             "memory": {
-                "argument_bytes": _local_bytes((params, opt_state))
+                "argument_bytes": _local_bytes((params, state))
                 + sum(t.numel() * t.element_size() for t in batch.values()),
-                "output_bytes": sum(t.numel() * t.element_size()
-                                    for t in metrics.values()),
+                "output_bytes": output_bytes,
                 "peak_bytes": peak_bytes,
             },
             "params_bytes_per_device": sh.bytes_per_device(params,
@@ -286,7 +357,10 @@ def main(argv=None) -> None:
                           f"collMB/dev "
                           f"{rec['collective_bytes_per_device'] / 1e6:.1f}, "
                           f"peak {rec['memory']['peak_bytes'] / 1e9:.2f} GB"
-                          f"{'' if rec['fits'] else ' (does not fit)'}",
+                          + (f", cache {rec['cache_bytes_per_device'] / 1e9:.2f}"
+                             f" GB" if rec.get('cache_bytes_per_device')
+                             else "")
+                          + f"{'' if rec['fits'] else ' (does not fit)'}",
                           flush=True)
                 else:
                     n_err += 1

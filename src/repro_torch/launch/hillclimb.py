@@ -8,12 +8,12 @@ a JSON record beside its baseline.  The reference's
 
 The sweep loop (ordered tagged variants, skip where a record exists) is
 ``repro_torch.tune.strategies.sweep_variants``.  ``rg_long`` is a decode
-cell, which the port's dry-run does not trace yet (ROADMAP.md queue 1 item
-8.8): its variants print the reason.  Of the variants' fields the port's
-step reads ``bf16_reduce``, ``remat``, ``microbatches``,
-``capacity_factor`` and ``moe_token_chunks``; ``seq_shard_train`` binds
-no sequence axis in the port's data-parallel step, so its variants trace
-as their base.
+cell (batch 1, so every data rank serves the whole batch): its variants
+cast the parameters to bf16 (``serve_dtype``) and quantise the products
+(``quant_format``).  Of the train variants' fields the port's step reads
+``bf16_reduce``, ``remat``, ``microbatches``, ``capacity_factor`` and
+``moe_token_chunks``; ``seq_shard_train`` binds no sequence axis in the
+port's data-parallel step, so its variants trace as their base.
 """
 
 from __future__ import annotations
@@ -80,10 +80,11 @@ CELLS = {
 }
 
 
-def summarize(out_dir: pathlib.Path, arch: str, shape: str) -> None:
+def summarize(out_dir: pathlib.Path, arch: str, shape: str,
+              mesh: str = "single") -> None:
     from repro_torch.launch import roofline as rl
     rows = []
-    for p in sorted(out_dir.glob(f"{arch}__{shape}__single*.json")):
+    for p in sorted(out_dir.glob(f"{arch}__{shape}__{mesh}*.json")):
         d = json.loads(p.read_text())
         tag = d.get("tag") or "baseline"
         if not d.get("supported", True):

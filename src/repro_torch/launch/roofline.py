@@ -125,8 +125,10 @@ def model_flops_cell(arch: str, shape_name: str, cfg=None) -> float:
 
 def memory_bytes_cell(arch: str, shape_name: str, rec: dict,
                       cfg=None) -> float:
-    """Per-device HBM traffic of one train step of the port's sharded
-    step (``launch.steps``), in bytes:
+    """Per-device HBM traffic of one call of the port's sharded step
+    (``launch.steps``), in bytes.
+
+    A train step:
 
     * weights, fp32 (P whole elements, P_l of them in this rank's blocks):
       the gather writes the whole buffer and the scatter writes and reads
@@ -137,17 +139,30 @@ def memory_bytes_cell(arch: str, shape_name: str, rec: dict,
       moments of its blocks and writes three (7·P_l); 4 bytes each;
     * activations: the reference's model, 8 bf16 passes over each layer's
       (tokens, d) per step, the tokens this data rank holds.
+
+    A prefill or a decode step, the reference's terms: the compute reads
+    the whole (gathered, once per parameter set) weights once,
+    ``params_whole_bytes`` in their serving dtype; a prefill adds 4 bf16
+    passes over each layer's (tokens, d), a decode step reads this rank's
+    cache (``cache_bytes_per_device``, where the reference reads XLA's
+    alias bytes) and writes each lane's new slot and reads its token's
+    (lanes, d) in bf16.
     """
     from repro_torch.configs import registry
     cfg = _config(arch, cfg)
     shape = registry.get_shape(shape_name)
-    if shape.kind != "train":
-        raise ValueError("the port's dry-run traces the train step only")
+    dp = int(rec.get("data_ways", 16 if shape.global_batch % 16 == 0 else 1))
+    tokens_local = shape.global_batch * shape.seq_len / dp
+    if shape.kind == "prefill":
+        return float(rec.get("params_whole_bytes", 0.0)) + \
+            4.0 * cfg.n_layers * tokens_local * cfg.d_model * 2.0
+    if shape.kind == "decode":
+        return float(rec.get("params_whole_bytes", 0.0)) + \
+            float(rec.get("cache_bytes_per_device", 0.0)) + \
+            2.0 * tokens_local / shape.seq_len * cfg.d_model * 2.0
     p_local = float(rec.get("params_bytes_per_device", 0.0)) / 4.0
     p_whole = float(rec.get("params_whole_bytes", 0.0)) / 4.0 or p_local
     n_micro = max(1, int(rec.get("microbatches", cfg.microbatches)))
-    dp = int(rec.get("data_ways", 16 if shape.global_batch % 16 == 0 else 1))
-    tokens_local = shape.global_batch * shape.seq_len / dp
     w_traffic = 4.0 * (p_whole * (3 + 3 * n_micro + 2) + 7 * p_local)
     act_traffic = 8.0 * cfg.n_layers * tokens_local * cfg.d_model * 2.0
     return w_traffic + act_traffic
@@ -208,12 +223,45 @@ def to_markdown(rows: list[RooflineRow]) -> str:
     return "\n".join(lines)
 
 
+def serving_table(dryrun_dir: str = "experiments/dryrun_torch",
+                  mesh: str = "single") -> str:
+    """The prefill and decode records of ``mesh`` (tagged variants too) as
+    a markdown table: per device, the peak, whether it fits, the FLOPs,
+    the cache (the port's; the rules') and the one-time gather, the
+    kernels' launches and the trace's seconds."""
+    hdr = ("| arch | shape | tag | peak GB | fits | TFLOP | cache GB "
+           "(rules') | gather GB | launches | trace s |\n|" + "---|" * 10)
+    lines = [hdr]
+    for path in sorted(pathlib.Path(dryrun_dir).glob(f"*__{mesh}*.json")):
+        rec = json.loads(path.read_text())
+        if rec.get("status") != "ok" or "gather_bytes_per_device" not in rec:
+            continue
+        launches = ", ".join(f"{k} {v}" for k, v in
+                             sorted(rec["kernel_launches"].items())) or "-"
+        lines.append(
+            f"| {rec['arch']} | {rec['shape']} | {rec.get('tag') or '-'} | "
+            f"{rec['memory']['peak_bytes'] / 1e9:.2f} | "
+            f"{'yes' if rec['fits'] else 'no'} | "
+            f"{rec['flops_per_device'] / 1e12:.2f} | "
+            f"{rec['cache_bytes_per_device'] / 1e9:.2f} "
+            f"({rec['cache_bytes_per_device_rules'] / 1e9:.2f}) | "
+            f"{rec['gather_bytes_per_device'] / 1e9:.2f} | {launches} | "
+            f"{rec['trace_s']} |")
+    return "\n".join(lines)
+
+
 def main(argv=None) -> None:
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default="experiments/dryrun_torch")
+    ap.add_argument("--serving", action="store_true",
+                    help="the prefill and decode cells' table instead")
+    ap.add_argument("--mesh", default="single")
     args = ap.parse_args(argv)
-    print(to_markdown(load_cells(args.dir)))
+    if args.serving:
+        print(serving_table(args.dir, args.mesh))
+    else:
+        print(to_markdown(load_cells(args.dir, args.mesh)))
 
 
 if __name__ == "__main__":

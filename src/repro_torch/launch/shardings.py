@@ -114,6 +114,34 @@ def model_param_shardings(cfg: ModelConfig, mesh):
     return abstract, tree_shardings(abstract, axes, mesh, rules)
 
 
+def cache_abstract_and_axes(cfg: ModelConfig, batch: int, max_len: int
+                            ) -> tuple[Any, Any]:
+    """(the decode cache's ``meta`` stand-ins, its logical-axes tree) for
+    an LM config or an encoder-decoder."""
+    from repro_torch.models import encdec
+    from repro_torch.nn import transformer
+    mod = encdec if cfg.is_encoder_decoder else transformer
+    return mod.cache_specs(cfg, batch, max_len), mod.cache_axes(cfg)
+
+
+def cache_shardings(cfg: ModelConfig, batch: int, max_len: int, mesh
+                    ) -> Any:
+    """The decode cache's shardings: the binding rules over its axes, with
+    every mesh axis dropped that is not bound to ``batch``, so each rank
+    holds the whole cache of its rows.
+
+    The port's serving compute is data parallel (``launch.steps``): each
+    rank runs its rows on whole, gathered parameters.  The reference binds
+    ``kv_heads``/``heads``/``mlp`` to ``model`` and GSPMD splits the heads
+    over it; a port that split the cache so would gather and scatter it on
+    every tick.  So the values are the reference's, the memory per rank is
+    not (ROADMAP.md item 8.8's known differences)."""
+    abstract, axes = cache_abstract_and_axes(cfg, batch, max_len)
+    axes = module_lib.map_tree(
+        lambda ax: tuple(a if a == "batch" else None for a in ax), axes)
+    return tree_shardings(abstract, axes, mesh, rules_for(cfg))
+
+
 def state_shardings(abstract_params: Any, param_axes: Any, mesh,
                     rules: BindingRules) -> dict:
     """The AdamW state's shardings (ZeRO: ``optim.adamw.state_axes``)."""

@@ -51,6 +51,18 @@ microbatch's on every rank, by 1/ways.
 On the card the sharded step is captured and replayed like the unsharded
 one, its NCCL collectives inside the graph; on the CPU (gloo) it runs
 eagerly.
+
+**Serving on a mesh.**  The prefill and the serve step shard the same
+way: each rank runs its rows of the global batch through the unchanged
+model code on whole parameters and returns its rows of the result as a
+DTensor split over the data axes.  The two pieces the train step has
+besides are shared with it, not copied (:class:`_Placement`): the row
+selection and the parameter gather.  Serving's weights do not change
+between calls, so a serving plan gathers them once per parameter set.
+The decode cache is split over the data axes only
+(``launch.shardings.cache_shardings``), so each rank writes its rows'
+whole cache in place; the reference's GSPMD program splits its heads over
+``model`` as well: the same values, other memory.
 """
 
 from __future__ import annotations
@@ -69,6 +81,7 @@ from repro_torch.launch import shardings as sh
 from repro_torch.launch.mesh import mesh_of
 from repro_torch.models import encdec, lm
 from repro_torch.nn import moe as moe_lib
+from repro_torch.nn import transformer
 from repro_torch.nn.module import tree_flatten, tree_unflatten
 from repro_torch.optim import adamw, compress
 
@@ -109,14 +122,12 @@ def _is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
-class _MeshPlan:
-    """One rank's layout of the sharded step: its parameter blocks and
-    the whole buffers they gather into, the blocks its optimizer state
-    holds, its rows of each microbatch, and the collectives over them."""
+class _Placement:
+    """What the train plan and the serving plan share: the mesh of a tree
+    of DTensor parameters, each parameter's local block and the whole
+    buffer it gathers into, and this rank's rows of a global batch."""
 
-    def __init__(self, cfg: ModelConfig, params: Any, opt_state: dict,
-                 microbatch_shardings: Optional[dict],
-                 grad_shardings: Optional[Any]):
+    def __init__(self, cfg: ModelConfig, params: Any):
         p_leaves, self.treedef = tree_flatten(params)
         first = next(p for p in p_leaves if _is_dtensor(p))
         self.mesh = mesh = mesh_of(first.device_mesh)
@@ -124,68 +135,42 @@ class _MeshPlan:
             raise ValueError(f"the mesh {mesh.shape} does not span the "
                              f"process group's {dist.get_world_size()} "
                              f"ranks")
-
-        def sharding(t) -> NamedSharding:
-            return sh.sharding_of(t, mesh) if _is_dtensor(t) else \
-                NamedSharding(mesh, PartitionSpec())
+        self.leaves = p_leaves
         self.p_local = [sh.local(p) for p in p_leaves]
-        self.p_sh = [sharding(p) for p in p_leaves]
+        self.p_sh = [self._sharding(p) for p in p_leaves]
         self.full = [loc if tuple(loc.shape) == tuple(p.shape) else
                      torch.empty(p.shape, dtype=loc.dtype, device=loc.device)
                      for loc, p in zip(self.p_local, p_leaves)]
-        s_leaves = tree_flatten(opt_state["mu"])[0]
-        self.s_sh = [sharding(m) for m in s_leaves]
-        if grad_shardings is not None:
-            g_sh = tree_flatten(grad_shardings)[0]
-            bad = [i for i, (g, s_) in enumerate(zip(g_sh, self.s_sh))
-                   if tuple(g.spec) != tuple(s_.spec)]
-            if len(g_sh) != len(s_leaves) or bad:
-                raise ValueError(
-                    "the port reduces each gradient into the blocks its "
-                    "optimizer state holds: grad_shardings must be the "
-                    "state's shardings (leaves "
-                    f"{bad[:5]} differ)")
-        self.s_block = [mesh.block(s_, p.shape)
-                        for s_, p in zip(self.s_sh, p_leaves)]
-        coord = dict(zip(mesh.axis_names, mesh.coordinate()))
-        # a block is counted in the global norm by the one of its holders
-        # at index 0 along every axis the state's spec does not split
-        self.owned = [all(coord[a] == 0 for a in mesh.axis_names
-                          if a not in self._axes(s_))
-                      for s_ in self.s_sh]
-        leaves, treedef = tree_flatten(opt_state)
-        self.state = tree_unflatten(treedef, [sh.local(x) for x in leaves])
-        self.microbatch_shardings = microbatch_shardings
         self.rules = sh.rules_for(cfg)
         self.data_axes: tuple = ()
         self.ways = 1
         self.moe = cfg.n_experts > 0
-        #: this rank's block of each microbatch, for the MoE routing
+        #: this rank's block of the (micro)batch, for the MoE routing
         self.shard: Optional[moe_lib.BatchShard] = None
 
-    @staticmethod
-    def _axes(s: NamedSharding) -> tuple:
-        return tuple(a for e in s.spec for a in entry_axes(e))
+    def _sharding(self, t) -> NamedSharding:
+        return sh.sharding_of(t, self.mesh) if _is_dtensor(t) else \
+            NamedSharding(self.mesh, PartitionSpec())
 
-    def rows(self, batch: dict, n_micro: int) -> dict:
+    def _entry(self, key: str, per: int):
+        """The mesh axes that split a (micro)batch of ``per`` rows: the
+        rules' ``batch`` axes, pruned to those ``per`` divides."""
+        return sh.prune_spec((per,), self.rules.spec(("batch",), self.mesh),
+                             self.mesh)[0]
+
+    def rows(self, batch: dict, n_micro: int = 1) -> dict:
         """This rank's rows of each microbatch, microbatch after
-        microbatch (the split the microbatch shardings give dim 1 of the
-        split batch; else the rules' ``batch`` axes, pruned)."""
+        microbatch (all of them where no data axis divides the rows)."""
         key = "tokens" if "tokens" in batch else next(iter(batch))
         n = batch[key].shape[0]
         if n % n_micro:
             raise ValueError(f"batch {n} does not split into {n_micro} "
                              f"microbatches")
         per = n // n_micro
-        if self.microbatch_shardings is not None:
-            spec = self.microbatch_shardings[key].spec
-            entry = spec[1] if len(spec) > 1 else None
-        else:
-            entry = sh.prune_spec((per,), self.rules.spec(
-                ("batch",), self.mesh), self.mesh)[0]
-        split = NamedSharding(self.mesh, PartitionSpec(entry))
+        entry = self._entry(key, per)
+        self.split = NamedSharding(self.mesh, PartitionSpec(entry))
         self.data_axes = entry_axes(entry)
-        rows = self.mesh.block(split, (per,))[0]
+        rows = self.mesh.block(self.split, (per,))[0]
         size = rows.stop - rows.start
         self.ways = per // size
         if self.moe:
@@ -208,6 +193,53 @@ class _MeshPlan:
             if full is not loc:
                 full[self.mesh.block(s_, full.shape)].copy_(loc)
                 self.mesh.gather_into(full, s_)
+
+
+class _MeshPlan(_Placement):
+    """One rank's layout of the sharded train step: beside the parameters
+    and the rows, the blocks its optimizer state holds and the collectives
+    over them."""
+
+    def __init__(self, cfg: ModelConfig, params: Any, opt_state: dict,
+                 microbatch_shardings: Optional[dict],
+                 grad_shardings: Optional[Any]):
+        super().__init__(cfg, params)
+        mesh = self.mesh
+        s_leaves = tree_flatten(opt_state["mu"])[0]
+        self.s_sh = [self._sharding(m) for m in s_leaves]
+        if grad_shardings is not None:
+            g_sh = tree_flatten(grad_shardings)[0]
+            bad = [i for i, (g, s_) in enumerate(zip(g_sh, self.s_sh))
+                   if tuple(g.spec) != tuple(s_.spec)]
+            if len(g_sh) != len(s_leaves) or bad:
+                raise ValueError(
+                    "the port reduces each gradient into the blocks its "
+                    "optimizer state holds: grad_shardings must be the "
+                    "state's shardings (leaves "
+                    f"{bad[:5]} differ)")
+        self.s_block = [mesh.block(s_, p.shape)
+                        for s_, p in zip(self.s_sh, self.leaves)]
+        coord = dict(zip(mesh.axis_names, mesh.coordinate()))
+        # a block is counted in the global norm by the one of its holders
+        # at index 0 along every axis the state's spec does not split
+        self.owned = [all(coord[a] == 0 for a in mesh.axis_names
+                          if a not in self._axes(s_))
+                      for s_ in self.s_sh]
+        leaves, treedef = tree_flatten(opt_state)
+        self.state = tree_unflatten(treedef, [sh.local(x) for x in leaves])
+        self.microbatch_shardings = microbatch_shardings
+
+    @staticmethod
+    def _axes(s: NamedSharding) -> tuple:
+        return tuple(a for e in s.spec for a in entry_axes(e))
+
+    def _entry(self, key: str, per: int):
+        """The split the microbatch shardings give dim 1 of the split
+        batch; else the rules' ``batch`` axes, pruned."""
+        if self.microbatch_shardings is None:
+            return super()._entry(key, per)
+        spec = self.microbatch_shardings[key].spec
+        return spec[1] if len(spec) > 1 else None
 
     def weigh(self, m: dict, targets: torch.Tensor) -> torch.Tensor:
         """This rank's part of the microbatch's loss, also written as
@@ -422,32 +454,199 @@ def make_train_step(cfg: ModelConfig,
     return step
 
 
+class _ServePlan(_Placement):
+    """One rank's layout of a sharded prefill or serve step: the split
+    parameters gathered into whole buffers once, when the plan is made
+    (serving's weights do not change between calls), this rank's rows of
+    each batch, and the runner that replays the step on the card."""
+
+    def __init__(self, cfg: ModelConfig, params: Any):
+        super().__init__(cfg, params)
+        self.cfg = cfg
+        self.gather_params()
+        self.runner: Optional[GraphRunner] = None
+        self.bound: list = []        #: the cache blocks the graphs write
+
+    def holds(self, params: Any) -> bool:
+        """Whether ``params`` are the tensors this plan gathered."""
+        leaves = tree_flatten(params)[0]
+        return len(leaves) == len(self.leaves) and all(
+            a is b for a, b in zip(leaves, self.leaves))
+
+    def release(self) -> None:
+        if self.runner is not None:
+            self.runner.release()
+            self.runner = None
+
+    def run(self, call: Callable, feeds: dict, graph: bool,
+            bound: Optional[list] = None):
+        """``call(feeds)`` on this rank's rows: replayed from one captured
+        graph per batch shape on the card where ``graph`` (a new runner
+        for cache blocks other than the last call's), else eagerly."""
+        dev = next(iter(feeds.values())).device
+        if not graph or dev.type != "cuda":
+            return call(feeds)
+        bound = bound or []
+        if self.runner is None or len(bound) != len(self.bound) or any(
+                a is not b for a, b in zip(bound, self.bound)):
+            self.release()
+            self.runner, self.bound = GraphRunner(call, dev), bound
+        return self.runner(feeds)
+
+    def output(self, local: torch.Tensor, n: int):
+        """``local``, this rank's rows of a result of ``n`` rows, as a
+        DTensor split over the data axes."""
+        from torch.distributed.tensor import DTensor
+        shape = (n, *local.shape[1:])
+        return DTensor.from_local(
+            local, self.mesh.device_mesh, self.split.placements,
+            run_check=False, shape=shape,
+            stride=torch.empty(shape, device="meta").stride())
+
+    def check_cache(self, cache: dict) -> None:
+        """Each cache leaf must be split over the rows' data axes along
+        its ``batch`` dimension and nowhere else
+        (``launch.shardings.cache_shardings``)."""
+        mod = encdec if self.cfg.is_encoder_decoder else transformer
+        want = entry_axes(self.split.spec[0])
+
+        def one(t, axes):
+            if not _is_dtensor(t):
+                raise ValueError("a sharded serve step takes the cache as "
+                                 "DTensors: shard it with "
+                                 "launch.shardings.cache_shardings")
+            spec = tuple(sh.sharding_of(t, self.mesh).spec)
+            got = [entry_axes(spec[d]) if d < len(spec) else ()
+                   for d in range(len(axes))]
+            need = [want if a == "batch" else () for a in axes]
+            if got != need:
+                raise ValueError(
+                    f"a cache leaf split {spec} where this rank's rows "
+                    f"want {need}: use launch.shardings.cache_shardings")
+        sh._zip_map(one, cache, mod.cache_axes(self.cfg))
+
+
+def _sharded(params: Any) -> bool:
+    return any(_is_dtensor(p) for p in tree_flatten(params)[0])
+
+
+def _serve_plan(held: dict, cfg: ModelConfig, params: Any) -> _ServePlan:
+    """The plan of ``params``: the held one, or a new one (gathering them)
+    for other parameter tensors."""
+    plan = held.get("plan")
+    if plan is None or not plan.holds(params):
+        if plan is not None:
+            plan.release()
+        plan = held["plan"] = _ServePlan(cfg, params)
+    return plan
+
+
 def make_prefill(cfg: ModelConfig) -> Callable:
     """``prefill(params, batch) -> (B, vocab)`` fp32 logits at the last
     position: ``lm.prefill`` (patches in front where the batch has them),
-    or the encoder-decoder's encode and teacher-forced decode."""
+    or the encoder-decoder's encode and teacher-forced decode.
+
+    **Sharded** when the parameters are DTensors (``shard_tree``):
+    ``batch`` is the global batch, the same on every rank; each rank runs
+    its rows (the rules' ``batch`` axes, pruned; all of them where the
+    batch does not divide the data ways) through the unchanged model code
+    on whole parameters, gathered once per parameter set, its MoE layers
+    routing its rows as the whole batch would (``nn.moe.batch_shard``).
+    Returns the logits as a DTensor split over the data axes.  On the card
+    it replays one captured graph per batch shape, the collectives inside;
+    on the CPU it runs eagerly.  ``prefill.eager`` runs without a graph
+    anywhere; ``prefill.prepare(params)`` makes the plan of DTensor
+    ``params`` and gathers them, which the first call does otherwise."""
     if cfg.is_encoder_decoder:
-        def prefill_step(params: Any, batch: dict):
+        def run(params: Any, batch: dict):
             enc = encdec.encode(cfg, params, batch["frames"])
             logits = encdec.decode_forward(cfg, params, batch["tokens"], enc,
                                            last_logit_only=True)
             return logits[:, -1, :]
-        return prefill_step
+    else:
+        def run(params: Any, batch: dict):
+            return lm.prefill(cfg, params, batch["tokens"],
+                              patches=batch.get("patches"))
+
+    held: dict = {}
+
+    def step(params: Any, batch: dict, graph: bool):
+        if not _sharded(params):
+            return run(params, batch)
+        plan = _serve_plan(held, cfg, params)
+        n = batch["tokens"].shape[0]
+        rows = _as_batch(plan.rows(batch), plan.p_local[0].device)
+
+        def call(feeds):
+            with moe_lib.batch_shard(plan.shard):
+                return run(plan.full_tree(), feeds)
+        return plan.output(plan.run(call, rows, graph).clone(), n)
 
     def prefill_step(params: Any, batch: dict):
-        return lm.prefill(cfg, params, batch["tokens"],
-                          patches=batch.get("patches"))
+        return step(params, batch, True)
+
+    prefill_step.eager = lambda params, batch: step(params, batch, False)
+    prefill_step.prepare = lambda params: _serve_plan(held, cfg, params)
+    prefill_step.runner = lambda: held["plan"].runner if held else None
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
     """``serve_step(params, cache, batch) -> (next tokens (B,), cache)``:
     one greedy decode step at ``batch["pos"]``, the cache written in
-    place."""
+    place.
+
+    **Sharded** when the parameters and the cache are DTensors (the cache
+    under ``launch.shardings.cache_shardings``): as :func:`make_prefill`,
+    each rank runs its rows on the whole parameters, gathered once per
+    parameter set, and writes its local cache blocks, which hold its rows'
+    whole cache, in place.  An MoE layer's capacity counts every lane of
+    the whole batch (ROADMAP.md R7), its counts exchanged over the data
+    axes.  Returns the tokens as a DTensor split over the data axes, and
+    the cache.  On the card each call replays one captured graph per
+    batch shape and cache; on the CPU it runs eagerly.
+    ``serve_step.eager`` runs without a graph anywhere;
+    ``serve_step.prepare`` is ``make_prefill``'s; ``serve_step.logits()``
+    gives the last sharded call's (B, vocab) fp32 logits as a DTensor."""
     step = encdec.serve_step if cfg.is_encoder_decoder else lm.serve_step
+    decode = encdec.decode_step if cfg.is_encoder_decoder else \
+        transformer.decode_step
+    held: dict = {}
+
+    def run_step(params: Any, cache: dict, batch: dict, graph: bool):
+        if not _sharded(params) and not _sharded(cache):
+            return step(cfg, params, batch["tokens"], cache, batch["pos"])
+        if not (_sharded(params) and _sharded(cache)):
+            raise ValueError("a sharded serve step takes DTensor parameters "
+                             "and a DTensor cache (launch.shardings."
+                             "shard_tree, cache_shardings); one of them is "
+                             "not")
+        plan = _serve_plan(held, cfg, params)
+        n = batch["tokens"].shape[0]
+        rows = _as_batch(plan.rows(batch), plan.p_local[0].device)
+        blocks, treedef = tree_flatten(cache)
+        bound = [sh.local(t) for t in blocks]
+        plan.check_cache(cache)
+        local = tree_unflatten(treedef, bound)
+
+        def call(feeds):
+            with moe_lib.batch_shard(plan.shard):
+                logits, _ = decode(cfg, plan.full_tree(), feeds["tokens"],
+                                   local, feeds["pos"])
+            return {"tokens": torch.argmax(logits, dim=-1).to(torch.int32),
+                    "logits": logits}
+        out = plan.run(call, rows, graph, bound)
+        held["logits"] = plan.output(out["logits"].clone(), n)
+        return plan.output(out["tokens"].clone(), n), cache
 
     def serve_step(params: Any, cache: dict, batch: dict):
-        return step(cfg, params, batch["tokens"], cache, batch["pos"])
+        return run_step(params, cache, batch, True)
+
+    serve_step.eager = lambda params, cache, batch: run_step(
+        params, cache, batch, False)
+    serve_step.prepare = lambda params: _serve_plan(held, cfg, params)
+    serve_step.logits = lambda: held.get("logits")
+    serve_step.runner = lambda: held["plan"].runner if held else None
     return serve_step
 
 

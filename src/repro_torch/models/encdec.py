@@ -178,6 +178,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         "enc": enc}
 
 
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """:func:`init_cache`'s stand-ins on the ``meta`` device, for the
+    dry-run."""
+    return init_cache(cfg, batch, max_len, device="meta")
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The logical-axes tree of :func:`cache_specs`."""
+    kv = ("layers", "batch", None, "kv_heads", "head_dim")
+    return {"self": {"k": kv, "v": kv}, "enc": ("batch", None, None)}
+
+
 def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache: dict,
                 pos: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """One decode step against the encoder output held in the cache.

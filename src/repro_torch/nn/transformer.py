@@ -232,6 +232,50 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return out
 
 
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The cache's stand-ins on the ``meta`` device (the reference's
+    ``ShapeDtypeStruct``s), for the dry-run: :func:`init_cache` itself,
+    so the shapes have one source.  Its dtypes are the ones the
+    reference's cache holds after its first step (ROADMAP.md R8), where
+    the reference's specs give a remainder layer's conv state in bf16."""
+    return init_cache(cfg, batch, max_len, device="meta")
+
+
+def _kind_cache_axes(cfg: ModelConfig, kind: str) -> dict:
+    """Logical axes of one layer's cache leaves."""
+    if kind in ("global", "local"):
+        kv = ("batch", None, "kv_heads", "head_dim")
+        out = {"k": kv, "v": kv}
+        if kind == "local" and cfg.window:
+            out["kpos"] = ("batch", None)
+        return out
+    if kind == "rglru":
+        return {"h": ("batch", "mlp"), "conv": ("batch", None, "mlp")}
+    if kind == "mlstm":
+        return {"C": ("batch", "heads", "head_dim", None),
+                "n": ("batch", "heads", "head_dim"),
+                "m": ("batch", "heads"),
+                "conv": ("batch", None, "mlp")}
+    if kind == "slstm":
+        ax = ("batch", "heads", "head_dim")
+        return {"h": ax, "c": ax, "n": ax, "m": ax,
+                "conv": ("batch", None, "embed")}
+    raise NotImplementedError(f"layer kind {kind!r} not ported yet "
+                              f"({_LATER})")
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The logical-axes tree of :func:`init_cache`'s: ``"layers"`` in front
+    of every stacked leaf."""
+    out: dict = {"blocks": {}, "extra": {}}
+    for i, kind in enumerate(cfg.attn_pattern):
+        out["blocks"][str(i)] = map_tree(lambda a: ("layers",) + a,
+                                         _kind_cache_axes(cfg, kind))
+    for j in range(cfg.n_remainder_layers):
+        out["extra"][str(j)] = _kind_cache_axes(cfg, cfg.attn_pattern[j])
+    return out
+
+
 # -- model specs -------------------------------------------------------------
 
 def model_specs(cfg: ModelConfig) -> dict:

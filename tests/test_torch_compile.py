@@ -197,6 +197,7 @@ def test_runtime_imports_neither_jax_nor_repro():
             "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
             "import repro_torch.launch.op_inventory\n"
             "import repro_torch.launch.hillclimb\n"
+            "import repro_torch.nn.transformer\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

@@ -20,8 +20,13 @@ version there.  Checks:
 * the kernels' fake implementations (fake CUDA tensors, which a CPU
   build of torch makes though it cannot slice them) launch and count nothing,
   while the op inventory and ``FlopCounterMode`` see each op;
-* prefill and decode cells report ROADMAP.md item 8.8, through the CLI;
-* the roofline's terms from a record.
+* item 8.8's cells: tiny prefill and decode cells on data 4 x model 1
+  trace "ok", their parameter and cache bytes per device the reference's,
+  their FLOPs the reference's (the MoE's as the reference's single-device
+  count over 4, a decode step's plus its buffer's expert rows);
+* the hill-climb over a tiny cell of ``rg_long``'s kind;
+* the roofline's terms from a record, a train, a prefill and a decode
+  one.
 
 On the card (``gpu``): ``torch.library.opcheck`` on the three custom ops.
 """
@@ -58,6 +63,14 @@ if world in ("4x1", "1x1"):
             arch, "tiny_train", {"data": data, "model": 1}, out_dir,
             cfg=registry.get_tiny(arch).replace(microbatches=1), shape=shape,
             device="cpu")
+elif world == "serve":      # prefill and decode cells on data 4 x model 1
+    for arch in ("qwen2.5-3b", "qwen2-moe-a2.7b"):
+        for kind, s in (("prefill", seq), ("decode", 2 * seq)):
+            res[f"{arch}/{kind}"] = dryrun.run_cell(
+                arch, f"tiny_{kind}", {"data": 4, "model": 1}, out_dir,
+                cfg=registry.get_tiny(arch),
+                shape=ShapeConfig(f"tiny_{kind}", s, batch, kind),
+                device="cpu")
 elif world == "2x2x2":
     res["gemma2-27b"] = dryrun.run_cell(
         "gemma2-27b", "tiny_train", {"pod": 2, "data": 2, "model": 2},
@@ -130,10 +143,58 @@ for data in (4, 1):
             "dot_flops_per_device": hlo.dot_flops,
             "params_bytes_per_device": sh.bytes_per_device(args[0],
                                                            in_sh[0])}
+
+# the prefill and decode cells on data 4 x model 1, as the reference's
+# build_cell lays them out at the tiny shapes
+from repro.configs.base import ShapeConfig
+from repro.launch.steps import make_prefill, make_serve_step
+for data, arch, kind, s in [
+        (d, a, k, s) for d in (4, 1) for a in ("qwen2.5-3b", "qwen2-moe-a2.7b")
+        for k, s in (("prefill", seq), ("decode", 2 * seq))]:
+    mesh = jax.make_mesh((data, 1), ("data", "model"),
+                         devices=jax.devices()[:data],
+                         axis_types=(AxisType.Auto,) * 2)
+    if True:
+        cfg = registry.get_tiny(arch)
+        shape = ShapeConfig(f"tiny_{kind}", s, batch, kind)
+        rules = sh.rules_for(cfg)
+        entry = sh.prune_spec((batch,), rules.spec(("batch",), mesh),
+                              mesh)[0]
+        if entry is not None:
+            cfg = cfg.replace(batch_mesh_axes=(entry,))
+        abstract, p_sh = sh.model_param_shardings(cfg, mesh)
+        inputs = registry.input_specs(cfg, shape)
+        in_axes = registry.input_axes(cfg, shape)
+        input_sh = {k: sh.sharding_for(tuple(v.shape), in_axes[k], mesh,
+                                       rules) for k, v in inputs.items()}
+        rec = {"params_bytes_per_device": sh.bytes_per_device(abstract,
+                                                              p_sh)}
+        with jax.set_mesh(mesh):
+            if kind == "prefill":
+                out_sh = sh.sharding_for((batch, cfg.vocab_size),
+                                         ("batch", "vocab"), mesh, rules)
+                lowered = jax.jit(make_prefill(cfg),
+                                  in_shardings=(p_sh, input_sh),
+                                  out_shardings=out_sh).lower(abstract,
+                                                              inputs)
+            else:
+                cache_abs, c_sh = dr._cache_abstract_and_shardings(
+                    cfg, shape, mesh, rules)
+                rec["cache_bytes_per_device"] = sh.bytes_per_device(
+                    cache_abs, c_sh)
+                tok_sh = sh.sharding_for((batch,), ("batch",), mesh, rules)
+                lowered = jax.jit(make_serve_step(cfg),
+                                  in_shardings=(p_sh, c_sh, input_sh),
+                                  out_shardings=(tok_sh, c_sh),
+                                  donate_argnums=(1,)).lower(
+                                      abstract, cache_abs, inputs)
+            text = lowered.compile().as_text()
+        rec["dot_flops_per_device"] = hlo_parse.analyze(text).dot_flops
+        out[f"{arch}/{kind}/{data}x1"] = rec
 json.dump(out, open(out_path, "w"))
 """
 
-WORLDS = ("4x1", "1x1", "2x2x2", "collectives")
+WORLDS = ("4x1", "1x1", "2x2x2", "collectives", "serve")
 
 
 @pytest.fixture(scope="module")
@@ -296,27 +357,68 @@ def test_fake_kernels_launch_nothing_and_are_counted():
                       "slstm_scan_backward": 8 * 1 * 5 * nh * w * w}
 
 
-def test_prefill_and_decode_cells_report_item_8_8(tmp_path, capsys):
-    """The CLI over one arch's prefill and decode shapes on both meshes:
-    one record per (arch x shape x mesh), each unsupported with the 8.8
-    reason, and no process group made."""
+def test_prefill_and_decode_cells_report_item_8_8(runs):
+    """Item 8.8's cells: tiny qwen2.5-3b's and qwen2-moe-a2.7b's prefill
+    (8 x 32) and decode (8 lanes, a cache of 64) on data 4 x model 1
+    trace "ok", their parameter bytes per device equal to the
+    reference's, a decode cell's cache bytes equal to the reference's
+    cache argument (on model 1 the port's cache shardings are the
+    rules'), a prefill's zero; no process group is left behind."""
     import torch.distributed as dist
-
-    from repro_torch.launch import dryrun
-    dryrun.main(["--arch", "qwen2.5-3b", "--shape", "prefill_32k",
-                 "--mesh", "both", "--out", str(tmp_path)])
-    dryrun.main(["--arch", "qwen2.5-3b", "--shape", "decode_32k",
-                 "--mesh", "single", "--out", str(tmp_path)])
-    files = sorted(p.name for p in tmp_path.glob("*.json"))
-    assert files == ["qwen2.5-3b__decode_32k__single.json",
-                     "qwen2.5-3b__prefill_32k__multi.json",
-                     "qwen2.5-3b__prefill_32k__single.json"]
-    for name in files:
-        rec = json.loads((tmp_path / name).read_text())
-        assert rec["supported"] is False and "8.8" in rec["skip_reason"]
-        assert "status" not in rec
-    assert "0 ok, 0 failed, 2 skipped" in capsys.readouterr().out
+    port, ref = runs
+    for arch in ARCHS:
+        for kind in ("prefill", "decode"):
+            rec = port["serve"][f"{arch}/{kind}"]
+            want = ref[f"{arch}/{kind}/4x1"]
+            assert rec["status"] == "ok", rec.get("traceback", "")[-3000:]
+            assert rec["supported"] and rec["data_ways"] == 4 and rec["fits"]
+            assert rec["params_bytes_per_device"] == \
+                want["params_bytes_per_device"]
+            assert rec["cache_bytes_per_device"] == \
+                rec["cache_bytes_per_device_rules"] == \
+                want.get("cache_bytes_per_device", 0)
+            assert rec["gather_bytes_per_device"] == 0    # model 1
+            assert rec["memory"]["output_bytes"] == (
+                2 * cfg_vocab(arch) * 4 if kind == "prefill" else 2 * 4)
     assert not dist.is_initialized()
+
+
+def cfg_vocab(arch) -> int:
+    from repro_torch.configs import registry
+    return registry.get_tiny(arch).vocab_size
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_flops_hold_to_the_reference(runs, arch):
+    """FLOPs per device of the prefill and decode cells on data 4 against
+    the reference's HLO dot FLOPs.  The dense model's equal them.  The
+    MoE's prefill equals the reference's single-device count over 4 (its
+    GSPMD program repeats expert products on every data rank, as in
+    :func:`test_flops_per_device_hold_to_the_reference`); its decode is
+    that plus the expert rows each rank's buffer holds beyond a quarter
+    of the whole batch's: ``min(C, lanes)`` rows per expert on each of 4
+    ranks against C on one device (C = 3 at 8 lanes), three products of
+    d x ffn per row; at most the reference's data-4 count."""
+    from repro_torch.configs import registry
+    port, ref = runs
+    for kind in ("prefill", "decode"):
+        got = port["serve"][f"{arch}/{kind}"]["flops_per_device"]
+        want = ref[f"{arch}/{kind}/4x1"]["dot_flops_per_device"]
+        single = ref[f"{arch}/{kind}/1x1"]["dot_flops_per_device"]
+        if arch == "qwen2.5-3b":
+            assert abs(got - want) <= 0.1 * want, (kind, got, want)
+            continue
+        assert got <= want, (kind, got, want)
+        if kind == "prefill":
+            assert got == single / 4, (got, single)
+            continue
+        cfg = registry.get_tiny(arch)
+        cap = max(1, int(BATCH * cfg.experts_per_token / cfg.n_experts
+                         * cfg.capacity_factor))
+        rows = min(cap, BATCH // 4)
+        extra = 3 * 2 * cfg.n_experts_padded * cfg.d_model * \
+            cfg.expert_d_ff * cfg.n_layers * (rows - cap / 4)
+        assert got == single / 4 + extra, (got, single / 4, extra)
 
 
 def test_a_fake_world_refuses_a_live_group_and_a_missing_card():
@@ -415,12 +517,18 @@ def test_opcheck_slstm_scan_backward(card):
 def test_hillclimb_summarizes_variants_and_the_decode_skip(tmp_path,
                                                            capsys):
     """The hill-climb's three cells carry the reference's variants; its
-    summary reads a baseline and a variant's records, and prints a decode
-    cell's 8.8 reason in place of its terms."""
+    summary reads a baseline and a variant's records, and traces and
+    summarises a decode cell of ``rg_long``'s kind: tiny
+    recurrentgemma-9b at batch 1 (no data axis divides it: each rank
+    serves the whole batch), its ``bf16serve`` variant's parameters half
+    the baseline's bytes."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun, hillclimb
     names = {k: [t for t, _ in f()[2]] for k, f in hillclimb.CELLS.items()}
     assert names["moe_train"][:3] == ["bf16reduce", "cap10", "chunk8"]
-    assert len(names["stablelm_train"]) == 8 and len(names["rg_long"]) == 2
+    assert names["rg_long"] == ["bf16serve", "bf16serve_q54"]
+    assert len(names["stablelm_train"]) == 8
     rec = {"arch": "qwen2-moe-a2.7b", "shape": "train_4k", "status": "ok",
            "supported": True, "flops_per_device": 9.89e14,
            "collective_bytes_by_link": {"infiniband": 5e10},
@@ -430,11 +538,55 @@ def test_hillclimb_summarizes_variants_and_the_decode_skip(tmp_path,
                     f"{'__' + tag if tag else ''}.json").write_text(
             json.dumps(dict(rec, tag=tag)))
     hillclimb.summarize(tmp_path, "qwen2-moe-a2.7b", "train_4k")
-    skip = dryrun.run_cell("recurrentgemma-9b", "long_500k", "single",
-                           tmp_path, tag="bf16serve")
-    hillclimb.summarize(tmp_path, "recurrentgemma-9b", "long_500k")
+    base = registry.get_tiny("recurrentgemma-9b")
+    shape = ShapeConfig("tiny_long", 64, 1, "decode")
+    recs = {tag: dryrun.run_cell(
+        "recurrentgemma-9b", "tiny_long", {"data": 4, "model": 1}, tmp_path,
+        cfg=cfg, tag=tag, shape=shape, device="cpu")
+        for tag, cfg in (("", base),
+                         ("bf16serve", base.replace(serve_dtype="bfloat16")))}
+    hillclimb.summarize(tmp_path, "recurrentgemma-9b", "tiny_long",
+                        mesh="4x1")
     out = capsys.readouterr().out
     assert "baseline                     1.0000     1.0000   120.00" in out
     assert "cap10                        1.0000     1.0000   120.00" in out
-    assert not skip["supported"] and "8.8" in skip["skip_reason"]
-    assert f"bf16serve                 {skip['skip_reason']}" in out
+    for r in recs.values():
+        assert r["status"] == "ok", r.get("traceback", "")[-3000:]
+        assert r["data_ways"] == 1 and r["cache_bytes_per_device"] > 0
+    assert 2 * recs["bf16serve"]["params_bytes_per_device"] == \
+        recs[""]["params_bytes_per_device"]
+    assert "== recurrentgemma-9b x tiny_long ==" in out
+    for tag in ("baseline", "bf16serve"):
+        assert any(line.startswith(f"{tag} ") and "FAILED" not in line
+                   for line in out.splitlines()), tag
+
+
+def test_roofline_serving_terms(tmp_path):
+    """The memory term of a prefill and a decode record, by hand: the
+    whole parameters read once; a prefill's 4 bf16 passes over each
+    layer's tokens on this data rank, a decode step's cache and its
+    lanes' slots; and the serving table's row of a record."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import roofline as rl
+    cfg = registry.get_config("qwen2.5-3b")
+    pre = {"params_whole_bytes": 1.2e10, "data_ways": 16}
+    assert rl.memory_bytes_cell("qwen2.5-3b", "prefill_32k", pre) == \
+        pytest.approx(1.2e10 + 4 * cfg.n_layers * 32 * 32768 / 16
+                      * cfg.d_model * 2)
+    dec = {"params_whole_bytes": 1.2e10, "data_ways": 16,
+           "cache_bytes_per_device": 9.7e9}
+    assert rl.memory_bytes_cell("qwen2.5-3b", "decode_32k", dec) == \
+        pytest.approx(1.2e10 + 9.7e9 + 2 * 128 / 16 * cfg.d_model * 2)
+    assert rl.model_flops_cell("qwen2.5-3b", "decode_32k") == \
+        pytest.approx(rl.model_flops_cell("qwen2.5-3b", "train_4k")
+                      / 3 / (256 * 4096) * 128)
+    rec = dict(dec, arch="qwen2.5-3b", shape="decode_32k", status="ok",
+               tag="", fits=True, flops_per_device=1.3e11,
+               cache_bytes_per_device_rules=6e8,
+               gather_bytes_per_device=1.23e10, trace_s=5.1,
+               kernel_launches={}, memory={"peak_bytes": 3.06e10})
+    (tmp_path / "qwen2.5-3b__decode_32k__single.json").write_text(
+        json.dumps(rec))
+    assert rl.serving_table(str(tmp_path)).splitlines()[2] == (
+        "| qwen2.5-3b | decode_32k | - | 30.60 | yes | 0.13 | 9.70 (0.60) "
+        "| 12.30 | - | 5.1 |")
