@@ -200,10 +200,10 @@ Phases, each printing one JSON line (``"phase": ...``):
              ragged one (W 36), timed beside the plain loop and the
              bound, the forward timed with and without its saves;
              xlstm-1.3b trained at full width (3,503,016,272 parameters
-             checked) cut to 24 of 48 layers (3 of 6 superblocks), batch
+             checked) cut to 16 of 48 layers (2 of 6 superblocks), batch
              8 x 1,024 in 8 microbatches, full remat:
              the first call with its loss held to the no-grad forward's,
-             3 replayed steps timed (48 forward and 24 backward sLSTM
+             3 replayed steps timed (32 forward and 16 backward sLSTM
              launches a step and nothing else of the port's), one
              profiled; 2 replayed steps against 2 eager ones at one
              superblock (8 layers, 2 microbatches) under deterministic
@@ -260,7 +260,23 @@ Phases, each printing one JSON line (``"phase": ...``):
              superblock: its tick (the ``h``, ``conv``, ``k``, ``v`` and
              ``kpos`` leaves).  whisper-tiny: the prefill (encode and
              decode, 8 K5 launches) and its tick.
-25. dryrun — phase mesh's step traced by ``launch.dryrun`` on fake CUDA
+25. tp     — tensor parallelism over ``model`` (the split plan,
+             ``nn.tensor_parallel``) on a 1 x 1 NCCL mesh, under
+             deterministic algorithms: gemma2-27b at full width, whose
+             default rules split its attention, MLP and vocabulary over
+             ``model`` (kept at extent 1 here).  The train step cut to 2
+             layers (one local, one global; 2,312,151,552 parameters),
+             4 x 1,024 in 4 microbatches: the sharded step (first call,
+             then replays of its captured graph, the model-group
+             all-reduces inside) against the unsharded one from the same
+             seed, run one after the other (two states do not fit), 3
+             calls, metrics and every parameter and moment value for
+             value; 16 K5 launches per replayed step; peaks within 5%;
+             p50 of each.  The prefill cut to 4 layers at 4 x 1,024
+             (replayed, 4 K5 launches) against the unsharded one, and 16
+             replayed 8-lane ticks against 16 unsharded ones: tokens,
+             logits and every cache leaf value for value.
+26. dryrun — phase mesh's step traced by ``launch.dryrun`` on fake CUDA
              tensors over a 1 x 1 fake world: its predicted peak within
              15% of the card's eager step's (run once after
              ``reset_peak_memory_stats``), its K5 launches equal to the
@@ -271,7 +287,11 @@ Phases, each printing one JSON line (``"phase": ...``):
              prefill and serve step (phase serve_mesh's shapes, full
              depth) traced on the 1 x 1 fake world, each predicted peak
              within 15% of phase serve_mesh's eager call's and its
-             launches equal to that call's.
+             launches equal to that call's; the split plan's serving
+             cells on the 16 x 16 fake world (gemma2-27b ``prefill_32k``
+             and ``decode_32k``, stablelm-3b ``decode_32k``): each fits
+             in 80 GB with nothing gathered, gemma2-27b's prefill FLOPs
+             per device within 10% of a sixteenth of the gather plan's.
 
 Then the script's seconds, the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and
@@ -3784,10 +3804,11 @@ TR_XL_BATCH, TR_XL_STEPS = 8, 3
 #: 1 x 1,024, a quarter of the step's eager host time) and the card
 #: against the CPU
 TR_XL_LAYERS, TR_XL_EAGER_MICRO = 8, 2
-#: xlstm-1.3b's trained depth: 3 of its 6 superblocks (24 of 48 layers),
-#: so the script keeps its time with phases moe_mesh and dryrun (the step's
-#: first call at full depth took 75.4 s of host time)
-TR_XL_TRAIN_LAYERS = 24
+#: xlstm-1.3b's trained depth: 2 of its 6 superblocks (16 of 48 layers),
+#: so the script keeps its time with phases moe_mesh, tp and dryrun (the
+#: step's first call at full depth took 75.4 s of host time, at 24 layers
+#: 41.5 s)
+TR_XL_TRAIN_LAYERS = 16
 #: the sLSTM's backward kernel against its plain reverse loop: (B, S, H,
 #: W) of xlstm-1.3b's training call, and a ragged one (W 36: the
 #: cluster's last block part-filled); the forward kernel with and without
@@ -4450,7 +4471,7 @@ def slstm_backward_kernel(torch) -> dict:
 def train_xlstm(torch) -> dict:
     """xLSTM's training on the card: the sLSTM's backward kernel against
     its plain reverse loop; xlstm-1.3b trained at full width, cut to
-    TR_XL_TRAIN_LAYERS layers (48 forward and 24 backward sLSTM launches
+    TR_XL_TRAIN_LAYERS layers (32 forward and 16 backward sLSTM launches
     a replayed step, nothing else of the port's); replay against eager and the card against the
     CPU at one superblock, in fp32 and in bf16 activations."""
     t0 = time.perf_counter()
@@ -4489,7 +4510,7 @@ def phase_train_lm(torch) -> dict:
     full remat, each step a replayed graph); replay against eager at four
     layers; the card against the CPU at two layers; whisper-tiny's
     training steps; xlstm-1.3b's: the sLSTM's backward kernel, the model
-    trained at full width, 24 of 48 layers (batch 8 x 1,024 in 8
+    trained at full width, 16 of 48 layers (batch 8 x 1,024 in 8
     microbatches),
     replay against eager and the card against the CPU at one
     superblock."""
@@ -5161,11 +5182,194 @@ def phase_serve_mesh(torch) -> dict:
             "eager": out["lm"]["eager"]}
 
 
+#: phase tp: gemma2-27b at full width, whose default binding rules split
+#: its compute over model (the split plan); the train step cut to one
+#: superblock (a local and a global layer) in 4 microbatches, the prefill
+#: to two superblocks; calls of each train step (the first eager, then
+#: replays)
+TP_ARCH, TP_TRAIN_LAYERS, TP_PREFILL_LAYERS, TP_CALLS = "gemma2-27b", 2, 4, 3
+TP_MICRO = 4
+
+
+def _tp_train(torch, cfg, mesh, batches, sharded: bool) -> dict:
+    """TP_CALLS steps of ``cfg`` from seed 0, its parameters and state
+    sharded on ``mesh`` where ``sharded`` (``shard_tree`` copies nothing
+    on the 1 x 1 mesh): the metrics, the replays' times, the K5 launches
+    of the first replay, the peak device memory, and the final parameters
+    and moments leaf by leaf: copied to the host where ``sharded``, else
+    the live tensors on the card."""
+    from repro_torch.configs import registry as configs
+    from repro_torch.kernels import registry
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import steps
+    from repro_torch.nn import module, transformer
+    from repro_torch.optim import adamw
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p = module.init_tree(transformer.model_specs(cfg), torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    st = adamw.init_state(p)
+    if sharded:
+        rules = sh.rules_for(cfg)
+        per = TR_BATCH // cfg.microbatches
+        train = configs.input_axes(cfg, configs.get_shape("train_4k"))
+        micro_sh = {k: sh.sharding_for((cfg.microbatches, per, TR_SEQ),
+                                       (None,) + ax, mesh, rules)
+                    for k, ax in train.items()}
+        abstract, p_sh = sh.model_param_shardings(cfg, mesh)
+        o_sh = sh.state_shardings(
+            abstract, module.axes_tree(transformer.model_specs(cfg)), mesh,
+            rules)
+        p, st = sh.shard_tree(p, p_sh), sh.shard_tree(st, o_sh)
+        step = steps.make_train_step(cfg, microbatch_shardings=micro_sh,
+                                     grad_shardings=o_sh["mu"])
+    else:
+        step = steps.make_train_step(cfg)
+    out: dict = {"metrics": [], "step_ms": []}
+    for i, b in enumerate(batches):
+        if i == 1:
+            registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, _, m = step(p, st, b)
+        torch.cuda.synchronize()
+        if i:
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            out["launches"] = {k: v for k, v in
+                               registry.launch_counts().items() if v}
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["replayed"] = step.runner() is not None
+    leaves = [sh.local(t) for t in module.tree_leaves((p, st["mu"],
+                                                       st["nu"]))]
+    out["leaves"] = [t.cpu() for t in leaves] if sharded else leaves
+    step.runner().release()
+    del p, st, step, leaves
+    free_card(torch)
+    return out
+
+
+def phase_tp(torch) -> dict:
+    """Tensor parallelism over ``model`` (ROADMAP.md item 8.9a) on the
+    card: gemma2-27b at full width on a 1 x 1 (data, model) NCCL mesh,
+    where ``prune_spec`` keeps ``model`` at extent 1 and the config takes
+    the split plan, under deterministic algorithms.  The train step cut to
+    TP_TRAIN_LAYERS layers, TR_BATCH x TR_SEQ in TP_MICRO microbatches:
+    the sharded step (first call, then replays of its captured graph, the
+    model-group all-reduces inside) against the unsharded one from the
+    same seed, run one after the other (two states do not fit), metrics
+    and every parameter and moment value for value; K5 launches per
+    replayed step; peaks within MESH_PEAK_RATIO of each other; p50 of
+    each, printed.  Then the sharded prefill at TP_PREFILL_LAYERS layers,
+    LM_PREFILL_B x LM_PREFILL_S, against the unsharded one, and
+    SERVE_TICKS replayed LM_LANES-lane ticks against the unsharded ticks:
+    tokens, logits and every cache leaf value for value."""
+    import torch.distributed
+
+    from repro_torch.configs import registry as configs
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.nn import module, transformer
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    full = configs.get_config(TP_ARCH)
+    mesh = single_device_mesh()
+    saved = torch.are_deterministic_algorithms_enabled()
+    out: dict = {"arch": TP_ARCH, "mesh": dict(mesh.shape),
+                 "backend": "nccl", "deterministic": True}
+    try:
+        split = sh.model_split(full, mesh)
+        check(split is not None and sorted(split) == [
+            "heads", "kv_heads", "mlp", "vocab"],
+              f"{TP_ARCH} on the 1 x 1 mesh takes the plan {split}")
+        out["split_axes"] = sorted(split)
+        torch.use_deterministic_algorithms(True)
+        cfg = full.replace(n_layers=TP_TRAIN_LAYERS, microbatches=TP_MICRO)
+        pipe = SyntheticTokenPipeline(DataConfig(
+            seq_len=TR_SEQ, global_batch=TR_BATCH,
+            vocab_size=cfg.vocab_size))
+        batches = [pipe.batch_at(i) for i in range(TP_CALLS)]
+        runs = {label: _tp_train(torch, cfg, mesh, batches, label ==
+                                 "sharded")
+                for label in ("sharded", "unsharded")}
+        differ = 0
+        for a, b in zip(runs["sharded"].pop("leaves"),
+                        runs["unsharded"].pop("leaves")):
+            a = a.to(b.device)
+            differ += 0 if torch.equal(a, b) else value_diff(torch, a, b)
+        free_card(torch)
+        check(runs["sharded"]["metrics"] == runs["unsharded"]["metrics"],
+              f"tp: the sharded step's metrics {runs['sharded']['metrics']} "
+              f"against the unsharded step's "
+              f"{runs['unsharded']['metrics']}")
+        check(differ == 0, f"tp: the sharded step's parameters and moments "
+                           f"differ from the unsharded step's in {differ} "
+                           f"values")
+        want = {"flash_attention": 2 * cfg.n_layers * cfg.microbatches}
+        for label, r in runs.items():
+            check(r["replayed"] and r["launches"] == want,
+                  f"tp {label}: a replayed step launched {r['launches']}, "
+                  f"want {want} (per layer and microbatch, the forward "
+                  f"twice under remat)")
+        ratio = runs["sharded"]["peak_bytes"] / runs["unsharded"]["peak_bytes"]
+        check(ratio <= MESH_PEAK_RATIO,
+              f"tp: the sharded step's peak is {ratio:.4f} of the "
+              f"unsharded step's")
+        p50 = {k: statistics.median(v["step_ms"]) for k, v in runs.items()}
+        out["train"] = {
+            "layers": cfg.n_layers, "batch": TR_BATCH, "seq": TR_SEQ,
+            "microbatches": cfg.microbatches, "calls": TP_CALLS,
+            "parameters": module.param_count(transformer.model_specs(cfg)),
+            "reduced": f"n_layers {cfg.n_layers} of {full.n_layers}: one "
+                       f"state of 2 layers at full width is 37 GB",
+            "values_differing": differ, "runs": runs, "step_ms_p50": p50,
+            "p50_ratio": p50["sharded"] / p50["unsharded"],
+            "peak_ratio": ratio}
+
+        cfg = full.replace(n_layers=TP_PREFILL_LAYERS)
+        params, line = draw(torch, cfg, TP_ARCH, module.param_count(
+            transformer.model_specs(cfg)))
+        sharded = _shard_params(torch, cfg, params, mesh)
+        gen = torch.Generator(device="cuda").manual_seed(47)
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (LM_PREFILL_B, LM_PREFILL_S), generator=gen,
+            device="cuda")}
+        pre = serve_prefill_pair(torch, cfg, params, sharded, batch)
+        want = {"flash_attention": cfg.n_layers}
+        check(pre["launches_per_replay"] == want,
+              f"tp: the sharded prefill launched "
+              f"{pre['launches_per_replay']} per replay, want {want}")
+        tick = serve_tick_pair(torch, cfg, params, sharded, mesh, LM_LANES,
+                               LM_MAX_LEN, 48)
+        out["serve"] = {**line, "prefill": pre, "tick": tick}
+        del params, sharded, batch
+    finally:
+        torch.use_deterministic_algorithms(saved)
+        torch.distributed.destroy_process_group()
+    free_card(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "tp", **out})
+    return {"train_launches": runs["sharded"]["launches"],
+            "prefill_launches": pre["launches_per_replay"]}
+
+
 #: phase dryrun: the predicted peak's bar against the card's eager step
 DRY_PEAK_RTOL = 0.15
 #: the reference test's tiny cell: tiny gemma2-27b in 2 microbatches,
 #: batch 8 x 32, on a (pod 2, data 2, model 2) fake world
 DRY_TINY = ("gemma2-27b", {"pod": 2, "data": 2, "model": 2}, 8, 32)
+#: the split plan's serving cells on the 16 x 16 fake world, which must
+#: fit in 80 GB with nothing gathered
+DRY_TP_CELLS = (("gemma2-27b", "prefill_32k"), ("gemma2-27b", "decode_32k"),
+                ("stablelm-3b", "decode_32k"))
+#: gemma2-27b's prefill_32k FLOPs per device under the gather plan, where
+#: every rank of a model group of 16 repeated the group's compute (the
+#: dry-run's record on an H100 80GB HBM3 at 700 W, PERF.md section 6); the
+#: split plan's are held within 10% of a 16th
+DRY_GEMMA_PREFILL_GATHER_FLOPS = 5032.5e12
 
 
 def phase_dryrun(torch, mesh_out: dict, serve_out: dict) -> dict:
@@ -5218,15 +5422,28 @@ def phase_dryrun(torch, mesh_out: dict, serve_out: dict) -> dict:
             arch, "tiny_train", world, out_dir,
             cfg=configs.get_tiny(arch).replace(microbatches=2),
             shape=ShapeConfig("tiny_train", s, b, "train"))
+        tp_cells = [dryrun.run_cell(a, shp, "single", out_dir)
+                    for a, shp in DRY_TP_CELLS]
         fake_launched = registry.launch_counts() != launches0
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    for r in (rec, tiny, *serve.values()):
+    for r in (rec, tiny, *serve.values(), *tp_cells):
         check(r.get("status") == "ok",
               f"dry-run of {r['arch']} on {r['mesh']}: "
               f"{r.get('error')}\n{r.get('traceback', '')[-3000:]}")
     check(not fake_launched, "the dry-run's fake kernels moved the launch "
                              "counters")
+    for r in tp_cells:
+        check(r["model_split"] == "compute" and r["fits"]
+              and r["gather_bytes_per_device"] == 0,
+              f"dry-run of {r['arch']} {r['shape']} on 16 x 16: plan "
+              f"{r['model_split']}, peak {r['memory']['peak_bytes']} B, "
+              f"gather {r['gather_bytes_per_device']} B")
+    want_flops = DRY_GEMMA_PREFILL_GATHER_FLOPS / 16
+    got_flops = tp_cells[0]["flops_per_device"]
+    check(abs(got_flops - want_flops) <= 0.1 * want_flops,
+          f"gemma2-27b prefill_32k traced {got_flops} FLOP per device, want "
+          f"{want_flops} within 10%")
     # the card's eager step: the same step on the state it traced
     mesh = single_device_mesh()
     try:
@@ -5313,6 +5530,13 @@ def phase_dryrun(torch, mesh_out: dict, serve_out: dict) -> dict:
                "n_collective_ops", "kernel_launches", "memory")},
            "serve": {"arch": LM_ARCH, "layers": configs.get_config(
                LM_ARCH).n_layers, **served},
+           "split_plan_cells": [{k: r.get(k) for k in (
+               "arch", "shape", "mesh", "model_split", "trace_s", "fits",
+               "flops_per_device", "params_bytes_per_device",
+               "cache_bytes_per_device", "cache_bytes_per_device_rules",
+               "gather_bytes_per_device", "collectives_by_kind",
+               "collective_bytes_by_link", "kernel_launches", "memory")}
+               for r in tp_cells],
            "seconds": time.perf_counter() - t_phase}
     emit({"phase": "dryrun", **out})
     return out
@@ -5382,6 +5606,7 @@ def main() -> int:
         msh = phase_mesh(torch)
         mmsh = phase_moe_mesh(torch)
         smsh = phase_serve_mesh(torch)
+        tpr = phase_tp(torch)
         phase_dryrun(torch, msh, smsh)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -5409,6 +5634,8 @@ def main() -> int:
     by_path["serve_mesh_prefill"] = smsh["lm_prefill_launches"]
     by_path["serve_mesh_tick"] = smsh["lm_tick_launches"]
     by_path["serve_mesh_whisper_prefill"] = smsh["whisper_prefill_launches"]
+    by_path["tp_train_step"] = tpr["train_launches"]
+    by_path["tp_prefill"] = tpr["prefill_launches"]
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         rec = kern[name]

@@ -29,20 +29,24 @@ compile seconds, its generated code, alias and temp bytes, its loops and
 their trip counts (see ``op_inventory``).  The record has ``trace_s``, the
 seconds of the traced step, in their place, and ``peak_bytes``, the most
 bytes live on the device at once (the arguments included), where XLA
-gives temp bytes.  What it shows of the port: the port's sharded step is data
-parallel (``launch.steps``), gathering every split parameter into a whole
-buffer, so a large model's peak can exceed 80 GB where the reference's
-tensor-parallel program fits: that is the finding, not a fault of the
-dry-run.  A prefill or decode cell casts the floating parameters to
+gives temp bytes.  Each record names the plan the sharded step takes over
+``model`` (``model_split``, ``launch.shardings.model_split``): "compute"
+splits the compute over it as the reference's tensor-parallel program
+does, its model-axis all-reduces among the collectives; "gather" gathers
+every split parameter into a whole buffer and runs each data rank's rows
+on them, so a large model's peak can exceed 80 GB where the reference's
+program fits: that is the finding, not a fault of the dry-run.  A
+prefill or decode cell casts the floating parameters to
 ``cfg.serve_dtype`` where the config sets it, as the reference does, and
 its record adds the cache's bytes per device, the port's
-(``cache_bytes_per_device``: each rank holds its rows' whole cache) and
-what the rules' shardings would store (``cache_bytes_per_device_rules``,
-the reference's), and the bytes of the one-time parameter gather
-(``gather_bytes_per_device``: the whole buffers of the split parameters)
-with its collectives (``gather_collectives``), traced apart from the
-call's (``step.prepare``): the peak counts both, the call's collectives
-and FLOPs only the call's.
+(``cache_bytes_per_device``: under the gather plan each rank holds its
+rows' whole cache) and what the rules' shardings would store
+(``cache_bytes_per_device_rules``, the reference's), and the bytes of the
+one-time parameter gather (``gather_bytes_per_device``: the whole buffers
+of the split parameters, 0 under the split plan) with its collectives
+(``gather_collectives``), traced apart from the call's
+(``step.prepare``): the peak counts both, the call's collectives and
+FLOPs only the call's.
 
 Usage::
 
@@ -225,6 +229,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: Union[str, dict],
             step, args, shardings, cell_cfg = build_cell(
                 arch, shape_name, mesh, cfg=base_cfg, shape=shape,
                 device=device)
+            split = sh.model_split(cell_cfg, mesh) is not None
             params, state, batch = args[0], args[1:-1], args[-1]
             tracker = MemTracker()
             tracker.track_external(*(sh.local(t) for t in
@@ -261,7 +266,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: Union[str, dict],
                         "cache_bytes_per_device_rules": 0})
         if shape.kind != "train":
             gather = gathering.report()
-            rec["gather_bytes_per_device"] = sum(
+            rec["gather_bytes_per_device"] = 0 if split else sum(
                 math.prod(t.shape) * t.element_size()
                 for t in module_lib.tree_leaves(params)
                 if tuple(sh.local(t).shape) != tuple(t.shape))
@@ -271,6 +276,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: Union[str, dict],
                 "collective_bytes_by_link": gather.by_link()}
         rec.update({
             "status": "ok",
+            "model_split": "compute" if split else "gather",
             "trace_s": round(time.perf_counter() - t0, 2),
             "microbatches": cell_cfg.microbatches,
             "data_ways": mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
@@ -352,7 +358,7 @@ def main(argv=None) -> None:
                 elif rec["status"] == "ok":
                     n_ok += 1
                     print(f"[ ok ] {arch} x {shape_name} x {mesh_kind}: "
-                          f"trace {rec['trace_s']}s, "
+                          f"{rec['model_split']}, trace {rec['trace_s']}s, "
                           f"TF/dev {rec['flops_per_device'] / 1e12:.3f}, "
                           f"collMB/dev "
                           f"{rec['collective_bytes_per_device'] / 1e6:.1f}, "

@@ -29,7 +29,8 @@ Sources: the FLOPs are ``FlopCounterMode``'s count of one traced step
 (matmuls, convolutions, attention; no elementwise op), the wire bytes the
 op inventory's (``launch.op_inventory``), both from ``launch.dryrun``.  The
 HBM bytes come from an analytic traffic model of what the port's step
-moves (:func:`memory_bytes_cell`), gathered parameters included.
+moves (:func:`memory_bytes_cell`), gathered parameters included where the
+gather plan gathers them.
 MODEL_FLOPS = 6·N·D (dense) or 6·N_active·D (MoE); the ratio
 MODEL_FLOPS / traced FLOPs exposes remat, dispatch and attention overheads.
 """
@@ -130,19 +131,23 @@ def memory_bytes_cell(arch: str, shape_name: str, rec: dict,
 
     A train step:
 
-    * weights, fp32 (P whole elements, P_l of them in this rank's blocks):
-      the gather writes the whole buffer and the scatter writes and reads
-      it again (3·P), each microbatch reads it three times (the forward,
-      its recompute under remat, the backward) and adds into the whole
-      fp32 gradient (3·P per microbatch); the all-reduce reads and writes
-      the gradient (2·P); AdamW reads the parameter, gradient and both
-      moments of its blocks and writes three (7·P_l); 4 bytes each;
+    * weights, fp32 (P elements the compute reads, P_l of them in this
+      rank's blocks; P is the whole count under the gather plan, P_l
+      under the split plan, ``model_split`` "compute"): the gather writes
+      the whole buffer and the scatter writes and reads it again (3·P;
+      the split plan gathers nothing and its scatter writes the local
+      blocks, P_l), each microbatch reads it three times (the forward, its
+      recompute under remat, the backward) and adds into the fp32 gradient
+      (3·P per microbatch); the all-reduce reads and writes the gradient
+      (2·P); AdamW reads the parameter, gradient and both moments of its
+      blocks and writes three (7·P_l); 4 bytes each;
     * activations: the reference's model, 8 bf16 passes over each layer's
       (tokens, d) per step, the tokens this data rank holds.
 
     A prefill or a decode step, the reference's terms: the compute reads
-    the whole (gathered, once per parameter set) weights once,
-    ``params_whole_bytes`` in their serving dtype; a prefill adds 4 bf16
+    the weights once, in their serving dtype: the whole (gathered, once
+    per parameter set) ``params_whole_bytes`` under the gather plan, this
+    rank's ``params_bytes_per_device`` under the split plan; a prefill adds 4 bf16
     passes over each layer's (tokens, d), a decode step reads this rank's
     cache (``cache_bytes_per_device``, where the reference reads XLA's
     alias bytes) and writes each lane's new slot and reads its token's
@@ -153,17 +158,20 @@ def memory_bytes_cell(arch: str, shape_name: str, rec: dict,
     shape = registry.get_shape(shape_name)
     dp = int(rec.get("data_ways", 16 if shape.global_batch % 16 == 0 else 1))
     tokens_local = shape.global_batch * shape.seq_len / dp
+    split = rec.get("model_split") == "compute"
+    read = float(rec.get("params_bytes_per_device" if split
+                         else "params_whole_bytes", 0.0))
     if shape.kind == "prefill":
-        return float(rec.get("params_whole_bytes", 0.0)) + \
-            4.0 * cfg.n_layers * tokens_local * cfg.d_model * 2.0
+        return read + 4.0 * cfg.n_layers * tokens_local * cfg.d_model * 2.0
     if shape.kind == "decode":
-        return float(rec.get("params_whole_bytes", 0.0)) + \
-            float(rec.get("cache_bytes_per_device", 0.0)) + \
+        return read + float(rec.get("cache_bytes_per_device", 0.0)) + \
             2.0 * tokens_local / shape.seq_len * cfg.d_model * 2.0
     p_local = float(rec.get("params_bytes_per_device", 0.0)) / 4.0
-    p_whole = float(rec.get("params_whole_bytes", 0.0)) / 4.0 or p_local
+    p_whole = p_local if split else \
+        float(rec.get("params_whole_bytes", 0.0)) / 4.0 or p_local
     n_micro = max(1, int(rec.get("microbatches", cfg.microbatches)))
-    w_traffic = 4.0 * (p_whole * (3 + 3 * n_micro + 2) + 7 * p_local)
+    gather = p_local if split else 3 * p_whole
+    w_traffic = 4.0 * (gather + p_whole * (3 * n_micro + 2) + 7 * p_local)
     act_traffic = 8.0 * cfg.n_layers * tokens_local * cfg.d_model * 2.0
     return w_traffic + act_traffic
 

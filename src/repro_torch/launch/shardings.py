@@ -12,12 +12,18 @@ whole: the port never relies on DTensor's uneven shards, so
 ``shard_tree`` turns a tree of whole tensors into DTensors under a tree of
 shardings, each rank keeping its block; a tensor the sharding leaves
 whole is wrapped as it is, with no copy (every leaf on a 1 x 1 mesh).
+
+:func:`model_split` decides, from the pruned shardings alone, which plan
+the sharded steps (``launch.steps``) take over ``model``: the split plan,
+which computes on each rank's blocks (``nn.tensor_parallel``), where every
+leaf split over ``model`` is an attention, MLP or vocabulary leaf; else the
+gather plan, which gathers the split leaves whole for the compute.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -114,6 +120,76 @@ def model_param_shardings(cfg: ModelConfig, mesh):
     return abstract, tree_shardings(abstract, axes, mesh, rules)
 
 
+#: the leaves whose compute the split plan splits over ``model``: (the
+#: end of the leaf's path, its logical axis split); the vocabulary leaves'
+#: paths are whole
+_SPLIT_LEAVES = (
+    *((("mixer", n, leaf), ax) for n, ax in (
+        ("q", "heads"), ("k", "kv_heads"), ("v", "kv_heads"),
+        ("o", "heads")) for leaf in ("kernel", "bias")),
+    *((("mlp", n), "mlp") for n in ("wi", "wg", "wo")),
+    (("embed", "table"), "vocab"),
+    (("unembed", "kernel"), "vocab"),
+)
+
+
+def _split_leaf(path: tuple, axis: str) -> bool:
+    return any(axis == ax and (path == tail if ax == "vocab"
+                               else path[-len(tail):] == tail)
+               for tail, ax in _SPLIT_LEAVES)
+
+
+def spec_shardings(cfg: ModelConfig, mesh) -> Any:
+    """A decoder's parameter shardings (``model_param_shardings``'
+    second half) from its specs' shapes alone, with no stand-in tensor
+    made: a dry-run's memory tracker would count meta tensors."""
+    from repro_torch.nn import transformer
+    rules = rules_for(cfg)
+    return module_lib.map_specs(
+        lambda sp: sharding_for(tuple(sp.shape), tuple(sp.axes), mesh,
+                                rules), transformer.model_specs(cfg))
+
+
+def model_split(cfg: ModelConfig, mesh) -> Optional[frozenset]:
+    """The logical axes whose compute the sharded steps split over
+    ``model`` (``nn.tensor_parallel.ModelShard.split``) where ``cfg``
+    takes the split plan on ``mesh``; None where it takes the gather plan.
+
+    The split plan: the mesh has a ``model`` axis, no parameter is split
+    over any other, and every leaf the pruned rules split over ``model``
+    is an attention ``q``/``k``/``v``/``o`` kernel or bias over ``heads``
+    or ``kv_heads``, an MLP ``wi``/``wg``/``wo`` over ``mlp``, or
+    ``embed/table`` or ``unembed/kernel`` over ``vocab``; and each of
+    those axes is split in every leaf that has it.  A 1 x 1 mesh keeps
+    ``model`` at extent 1, so a config takes the same plan there as on
+    the production mesh.  An encoder-decoder takes the gather plan."""
+    if "model" not in mesh.shape or cfg.is_encoder_decoder:
+        return None
+    from repro_torch.nn import transformer
+    axes = module_lib.axes_tree(transformer.model_specs(cfg))
+    split: set = set()
+    carried: list = []
+
+    def walk(s, ax, path):
+        if isinstance(s, dict):
+            return all(walk(s[k], ax[k], path + (k,)) for k in s)
+        for entry, name in zip(tuple(s.spec) + (None,) * len(ax), ax):
+            names = entry_axes(entry)
+            if any(m != "model" for m in names):
+                return False
+            if names:
+                if not _split_leaf(path, name):
+                    return False
+                split.add(name)
+            carried.append((name, bool(names)))
+        return True
+    if not walk(spec_shardings(cfg, mesh), axes, ()):
+        return None
+    if any(name in split and not on for name, on in carried):
+        return None
+    return frozenset(split)
+
+
 def cache_abstract_and_axes(cfg: ModelConfig, batch: int, max_len: int
                             ) -> tuple[Any, Any]:
     """(the decode cache's ``meta`` stand-ins, its logical-axes tree) for
@@ -124,22 +200,70 @@ def cache_abstract_and_axes(cfg: ModelConfig, batch: int, max_len: int
     return mod.cache_specs(cfg, batch, max_len), mod.cache_axes(cfg)
 
 
+def cache_axes_for(cfg: ModelConfig, mesh) -> Any:
+    """The logical axes the decode cache's shardings bind: all of them
+    under the split plan, only ``batch`` under the gather plan (see
+    :func:`cache_shardings`)."""
+    from repro_torch.models import encdec
+    from repro_torch.nn import transformer
+    axes = (encdec if cfg.is_encoder_decoder else transformer).cache_axes(cfg)
+    if model_split(cfg, mesh) is not None:
+        return axes
+    return module_lib.map_tree(
+        lambda ax: tuple(a if a == "batch" else None for a in ax), axes)
+
+
 def cache_shardings(cfg: ModelConfig, batch: int, max_len: int, mesh
                     ) -> Any:
-    """The decode cache's shardings: the binding rules over its axes, with
-    every mesh axis dropped that is not bound to ``batch``, so each rank
-    holds the whole cache of its rows.
+    """The decode cache's shardings, by the plan the config takes
+    (:func:`model_split`).
 
-    The port's serving compute is data parallel (``launch.steps``): each
-    rank runs its rows on whole, gathered parameters.  The reference binds
-    ``kv_heads``/``heads``/``mlp`` to ``model`` and GSPMD splits the heads
-    over it; a port that split the cache so would gather and scatter it on
-    every tick.  So the values are the reference's, the memory per rank is
-    not (ROADMAP.md item 8.8's known differences)."""
-    abstract, axes = cache_abstract_and_axes(cfg, batch, max_len)
-    axes = module_lib.map_tree(
-        lambda ax: tuple(a if a == "batch" else None for a in ax), axes)
-    return tree_shardings(abstract, axes, mesh, rules_for(cfg))
+    * The split plan computes each rank's KV heads, so its cache takes the
+      binding rules' split, the reference's: ``batch`` over the data axes
+      and ``kv_heads`` over ``model`` (whole where ``prune_spec`` drops
+      it: every rank then projects and writes all the KV heads).
+    * The gather plan runs each rank's rows on whole, gathered parameters,
+      so its cache keeps only the ``batch`` split and each rank holds its
+      rows' whole cache; split over the heads it would be gathered and
+      scattered on every tick.  The values are the reference's, the
+      memory per rank is not (ROADMAP.md item 8.8's known
+      differences)."""
+    abstract, _ = cache_abstract_and_axes(cfg, batch, max_len)
+    return tree_shardings(abstract, cache_axes_for(cfg, mesh), mesh,
+                          rules_for(cfg))
+
+
+def init_sharded_cache(cfg: ModelConfig, batch: int, max_len: int, mesh,
+                       device=None) -> Any:
+    """A decoder's zero decode cache as DTensors under
+    :func:`cache_shardings`, each rank allocating only its own blocks: its
+    rows, and its KV heads where the split plan splits them."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.nn import transformer
+    abstract, _ = cache_abstract_and_axes(cfg, batch, max_len)
+    c_sh = cache_shardings(cfg, batch, max_len, mesh)
+    rows = mesh.block(sharding_for((batch,), ("batch",), mesh,
+                                   rules_for(cfg)), (batch,))[0]
+    local_cfg = cfg
+    split = model_split(cfg, mesh) or frozenset()
+    if "kv_heads" in split and cfg.n_kv_heads % mesh.shape["model"] == 0:
+        local_cfg = cfg.replace(n_kv_heads=cfg.n_kv_heads
+                                // mesh.shape["model"])
+    local = transformer.init_cache(
+        local_cfg, rows.stop - rows.start, max_len,
+        device=device if device is not None else mesh.device_type)
+
+    def wrap(t, a, s):
+        want = tuple(b.stop - b.start for b in mesh.block(s, a.shape))
+        if tuple(t.shape) != want:
+            raise ValueError(f"a local cache block {tuple(t.shape)} where "
+                             f"{s.spec} gives {want}")
+        return DTensor.from_local(
+            t, mesh.device_mesh, s.placements, run_check=False,
+            shape=a.shape, stride=torch.empty(a.shape, device="meta").stride())
+    return _zip_map(lambda t, pair: wrap(t, *pair), local, _zip_map(
+        lambda a, s: (a, s), abstract, c_sh))
 
 
 def state_shardings(abstract_params: Any, param_axes: Any, mesh,

@@ -19,28 +19,42 @@ fit beside the activations.
 values are the unsharded step's.  The port's is data parallel over the
 mesh axes the batch binds to, with the parameters and the AdamW state
 stored in the shardings the binding rules give (DTensors, ZeRO for the
-state).  Each rank:
+state).  Over ``model`` it takes one of two plans, decided once from the
+pruned shardings (``launch.shardings.model_split``; no flag chooses it):
 
-1. gathers every parameter that is split (over ``model``) into a whole
-   buffer, for the compute;
-2. runs its rows of every microbatch through the unchanged model code and
-   kernels on plain local tensors (a DTensor never reaches a kernel),
-   weighing its loss by its share of the microbatch's counted targets, so
-   that the sum over ranks is the reference's loss over the global
-   ``sum(mask)``;
+* **the split plan**, where every leaf the rules split over ``model`` is
+  an attention, MLP or vocabulary leaf (gemma2-27b and stablelm-3b, which
+  keep the default rules): each rank computes on its own blocks, as the
+  reference's tensor-parallel program does (``nn.tensor_parallel``:
+  column- and row-parallel projections, the vocabulary split over the
+  ranks, the decode cache split over its KV heads), entered around each
+  microbatch's forward and backward;
+* **the gather plan**, for every other config: each rank gathers every
+  parameter that is split over ``model`` into a whole buffer and runs its
+  data block's whole step on it; the same values, other memory and
+  traffic.
+
+Each rank:
+
+1. (gather plan) gathers every split parameter into a whole buffer;
+2. runs its rows of every microbatch through the model code and kernels
+   on plain local tensors (a DTensor never reaches a kernel), weighing its
+   loss by its share of the microbatch's counted targets, so that the sum
+   over ranks is the reference's loss over the global ``sum(mask)``;
 3. sums the fp32 gradients over the data axes (one all-reduce per leaf)
    and updates the block of each leaf its optimizer state holds: the
    int8 compression under one per-tensor scale (the blocks' maxima
    reduced), the global norm counting every element once (one rank of
    each block's holders counts it), AdamW in place;
-4. gathers the updated blocks and keeps its parameter blocks.
+4. gathers the updated blocks (over the data axes alone under the split
+   plan, into its parameter blocks) and keeps its parameter blocks.
 
-What the port does not copy: over ``model`` the rules bind the storage
-here, and the compute runs on gathered parameters, where GSPMD may split
-the matmuls over ``model`` instead (tensor parallelism): the same values,
-other memory and traffic.  The data reduction is an all-reduce of each
-whole fp32 gradient (each rank keeps it while it updates its blocks),
-where GSPMD reduce-scatters into the gradient's shardings.
+What the port does not copy: the data reduction is an all-reduce of each
+fp32 gradient (each rank keeps it while it updates its blocks), where
+GSPMD reduce-scatters into the gradient's shardings (ROADMAP.md item
+8.9e); and the split plan covers heads, KV heads, MLP and vocabulary
+leaves only, so a config whose rules split ``head_dim``, experts or the
+RG-LRU's leaves over ``model`` takes the gather plan (items 8.9b-8.9d).
 
 An MoE layer's capacity counts the whole microbatch.  Each rank routes its
 rows as the whole microbatch would, exchanging the per-(chunk, expert)
@@ -53,20 +67,22 @@ one, its NCCL collectives inside the graph; on the CPU (gloo) it runs
 eagerly.
 
 **Serving on a mesh.**  The prefill and the serve step shard the same
-way: each rank runs its rows of the global batch through the unchanged
-model code on whole parameters and returns its rows of the result as a
-DTensor split over the data axes.  The two pieces the train step has
-besides are shared with it, not copied (:class:`_Placement`): the row
-selection and the parameter gather.  Serving's weights do not change
-between calls, so a serving plan gathers them once per parameter set.
-The decode cache is split over the data axes only
-(``launch.shardings.cache_shardings``), so each rank writes its rows'
-whole cache in place; the reference's GSPMD program splits its heads over
+way: each rank runs its rows of the global batch through the model code
+and returns its rows of the result as a DTensor split over the data axes.
+The pieces the train step has besides are shared with it, not copied
+(:class:`_Placement`): the row selection, the plan over ``model`` and the
+parameter gather, which serving's plan makes once per parameter set (its
+weights do not change between calls).  The decode cache takes
+``launch.shardings.cache_shardings``: the rules' split under the split
+plan (rows over the data axes, KV heads over ``model``), the rows' alone
+under the gather plan, each rank then writing its rows' whole cache in
+place where the reference's GSPMD program splits its heads over
 ``model`` as well: the same values, other memory.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Optional
 
 import torch
@@ -81,6 +97,7 @@ from repro_torch.launch import shardings as sh
 from repro_torch.launch.mesh import mesh_of
 from repro_torch.models import encdec, lm
 from repro_torch.nn import moe as moe_lib
+from repro_torch.nn import tensor_parallel as tp
 from repro_torch.nn import transformer
 from repro_torch.nn.module import tree_flatten, tree_unflatten
 from repro_torch.optim import adamw, compress
@@ -111,6 +128,11 @@ def _as_batch(batch: dict, device: torch.device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def _entry_of(axes: tuple):
+    """A spec entry of ``axes``: None, one axis, or a tuple of them."""
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
 def _view(t: torch.Tensor, block: tuple) -> torch.Tensor:
     """``t[block]``, or ``t`` itself where the block is all of it."""
     whole = all(b.start == 0 and b.stop == n for b, n in zip(block, t.shape))
@@ -124,8 +146,10 @@ def _is_dtensor(t) -> bool:
 
 class _Placement:
     """What the train plan and the serving plan share: the mesh of a tree
-    of DTensor parameters, each parameter's local block and the whole
-    buffer it gathers into, and this rank's rows of a global batch."""
+    of DTensor parameters, each parameter's local block and the tensor
+    the compute reads for it (the block itself under the split plan, the
+    whole buffer it gathers into under the gather plan), and this rank's
+    rows of a global batch."""
 
     def __init__(self, cfg: ModelConfig, params: Any):
         p_leaves, self.treedef = tree_flatten(params)
@@ -138,15 +162,54 @@ class _Placement:
         self.leaves = p_leaves
         self.p_local = [sh.local(p) for p in p_leaves]
         self.p_sh = [self._sharding(p) for p in p_leaves]
-        self.full = [loc if tuple(loc.shape) == tuple(p.shape) else
-                     torch.empty(p.shape, dtype=loc.dtype, device=loc.device)
-                     for loc, p in zip(self.p_local, p_leaves)]
         self.rules = sh.rules_for(cfg)
+        split = sh.model_split(cfg, mesh)
+        #: the split plan's place along ``model`` (None: the gather plan)
+        self.model: Optional[tp.ModelShard] = None
+        if split is not None:
+            self._check_rules(cfg)
+            self.model = tp.ModelShard(
+                index=dict(zip(mesh.axis_names,
+                               mesh.coordinate()))["model"],
+                ways=mesh.shape["model"], split=split,
+                reduce=self._reduce_model, gather=self._gather_model)
+            self.full = self.p_local
+        else:
+            self.full = [loc if tuple(loc.shape) == tuple(p.shape) else
+                         torch.empty(p.shape, dtype=loc.dtype,
+                                     device=loc.device)
+                         for loc, p in zip(self.p_local, p_leaves)]
         self.data_axes: tuple = ()
         self.ways = 1
         self.moe = cfg.n_experts > 0
         #: this rank's block of the (micro)batch, for the MoE routing
         self.shard: Optional[moe_lib.BatchShard] = None
+
+    @property
+    def model_split(self) -> str:
+        """The plan over ``model``: "compute" or "gather"."""
+        return "gather" if self.model is None else "compute"
+
+    def _check_rules(self, cfg: ModelConfig) -> None:
+        """The split plan computes on the blocks the rules give: the
+        parameters must be sharded so."""
+        want = tree_flatten(sh.spec_shardings(cfg, self.mesh))[0]
+        bad = [i for i, (got, w) in enumerate(zip(self.p_sh, want))
+               if tuple(got.spec) != tuple(w.spec)]
+        if bad:
+            raise ValueError(
+                f"{cfg.name} splits its compute over model: its parameters "
+                f"must be sharded by launch.shardings.model_param_shardings "
+                f"(leaves {bad[:5]} are not)")
+
+    def _reduce_model(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        return self.mesh.reduce(t, ("model",), {
+            "sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op])
+
+    def _gather_model(self, t: torch.Tensor) -> torch.Tensor:
+        parts = [torch.empty_like(t) for _ in range(self.mesh.shape["model"])]
+        dist.all_gather(parts, t, group=self.mesh.group("model"))
+        return torch.cat(parts, dim=-1)
 
     def _sharding(self, t) -> NamedSharding:
         return sh.sharding_of(t, self.mesh) if _is_dtensor(t) else \
@@ -185,14 +248,25 @@ class _Placement:
         return out
 
     def full_tree(self) -> Any:
+        """The parameter tree the compute reads."""
         return tree_unflatten(self.treedef, self.full)
 
     def gather_params(self) -> None:
-        """Every split parameter into its whole buffer."""
+        """Every split parameter into its whole buffer (none under the
+        split plan)."""
         for loc, full, s_ in zip(self.p_local, self.full, self.p_sh):
             if full is not loc:
                 full[self.mesh.block(s_, full.shape)].copy_(loc)
                 self.mesh.gather_into(full, s_)
+
+    def sharded(self):
+        """The contexts a call's forward and backward run in: this rank's
+        block of the batch for the MoE routing, its place along
+        ``model``."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(moe_lib.batch_shard(self.shard))
+        stack.enter_context(tp.model_shard(self.model))
+        return stack
 
 
 class _MeshPlan(_Placement):
@@ -219,6 +293,8 @@ class _MeshPlan(_Placement):
                     f"{bad[:5]} differ)")
         self.s_block = [mesh.block(s_, p.shape)
                         for s_, p in zip(self.s_sh, self.leaves)]
+        if self.model is not None:
+            self._local_blocks()
         coord = dict(zip(mesh.axis_names, mesh.coordinate()))
         # a block is counted in the global norm by the one of its holders
         # at index 0 along every axis the state's spec does not split
@@ -232,6 +308,31 @@ class _MeshPlan(_Placement):
     @staticmethod
     def _axes(s: NamedSharding) -> tuple:
         return tuple(a for e in s.spec for a in entry_axes(e))
+
+    def _local_blocks(self) -> None:
+        """Under the split plan the update works on the local parameter
+        blocks: each state block taken inside its parameter's block, and
+        the sharding (``self.s_rel``) that gathers the updated blocks over
+        the state's axes the parameter does not split (``data``)."""
+        self.s_rel = []
+        for i, (s_, p_s, p) in enumerate(zip(self.s_sh, self.p_sh,
+                                             self.leaves)):
+            p_block = self.mesh.block(p_s, p.shape)
+            self.s_block[i] = tuple(slice(b.start - a.start, b.stop - a.start)
+                                    for a, b in zip(p_block, self.s_block[i]))
+            spec = tuple(s_.spec) + (None,) * (p.ndim - len(s_.spec))
+            p_spec = tuple(p_s.spec) + (None,) * (p.ndim - len(p_s.spec))
+            rel = NamedSharding(self.mesh, PartitionSpec(*(
+                _entry_of(tuple(a for a in entry_axes(e)
+                                if a not in entry_axes(pe)))
+                for e, pe in zip(spec, p_spec))))
+            # the state's block must lie inside the parameter's, as the
+            # block of the state's other axes
+            if self.mesh.block(rel, self.p_local[i].shape) != \
+                    self.s_block[i]:
+                raise ValueError(f"leaf {i}: the state's block does not "
+                                 f"split its parameter's over {rel.spec}")
+            self.s_rel.append(rel)
 
     def _entry(self, key: str, per: int):
         """The split the microbatch shardings give dim 1 of the split
@@ -290,7 +391,12 @@ class _MeshPlan(_Placement):
 
     def scatter_params(self) -> None:
         """Every rank's updated blocks into each whole buffer, then this
-        rank's parameter blocks out of it."""
+        rank's parameter blocks out of it; under the split plan the
+        updated blocks straight into each local block."""
+        if self.model is not None:
+            for loc, rel in zip(self.p_local, self.s_rel):
+                self.mesh.gather_into(loc, rel)
+            return
         for loc, full, p_s, s_s in zip(self.p_local, self.full, self.p_sh,
                                        self.s_sh):
             self.mesh.gather_into(full, s_s)
@@ -362,7 +468,7 @@ def make_train_step(cfg: ModelConfig,
         for i in range(n_micro):
             mb = {k: v.reshape(n_micro, n // n_micro, *v.shape[1:])[i]
                   for k, v in batch.items()}
-            with moe_lib.batch_shard(plan.shard if plan else None):
+            with plan.sharded() if plan else contextlib.nullcontext():
                 total, m = loss_fn(cfg, live, mb)
                 if plan is not None:
                     total = plan.weigh(m, mb["targets"])
@@ -464,6 +570,7 @@ class _ServePlan(_Placement):
         super().__init__(cfg, params)
         self.cfg = cfg
         self.gather_params()
+        self.cache_axes = sh.cache_axes_for(cfg, self.mesh)
         self.runner: Optional[GraphRunner] = None
         self.bound: list = []        #: the cache blocks the graphs write
 
@@ -504,26 +611,28 @@ class _ServePlan(_Placement):
             stride=torch.empty(shape, device="meta").stride())
 
     def check_cache(self, cache: dict) -> None:
-        """Each cache leaf must be split over the rows' data axes along
-        its ``batch`` dimension and nowhere else
-        (``launch.shardings.cache_shardings``)."""
-        mod = encdec if self.cfg.is_encoder_decoder else transformer
-        want = entry_axes(self.split.spec[0])
+        """Each cache leaf must be split as
+        ``launch.shardings.cache_shardings`` splits it: over the rows'
+        data axes along its ``batch`` dimension, and under the split plan
+        over ``model`` along its ``kv_heads`` dimension where the rules
+        keep it, nowhere else."""
+        want_rows = entry_axes(self.split.spec[0])
 
-        def one(t, axes):
+        def one(t, ax):
             if not _is_dtensor(t):
                 raise ValueError("a sharded serve step takes the cache as "
                                  "DTensors: shard it with "
                                  "launch.shardings.cache_shardings")
-            spec = tuple(sh.sharding_of(t, self.mesh).spec)
-            got = [entry_axes(spec[d]) if d < len(spec) else ()
-                   for d in range(len(axes))]
-            need = [want if a == "batch" else () for a in axes]
-            if got != need:
+            got = tuple(sh.sharding_of(t, self.mesh).spec)
+            need = tuple(sh.sharding_for(tuple(t.shape), ax, self.mesh,
+                                         self.rules).spec)
+            rows = [entry_axes(got[d]) for d, a in enumerate(ax)
+                    if a == "batch"]
+            if got != need or any(r != want_rows for r in rows):
                 raise ValueError(
-                    f"a cache leaf split {spec} where this rank's rows "
+                    f"a cache leaf split {got} where this rank's rows "
                     f"want {need}: use launch.shardings.cache_shardings")
-        sh._zip_map(one, cache, mod.cache_axes(self.cfg))
+        sh._zip_map(one, cache, self.cache_axes)
 
 
 def _sharded(params: Any) -> bool:
@@ -549,9 +658,10 @@ def make_prefill(cfg: ModelConfig) -> Callable:
     **Sharded** when the parameters are DTensors (``shard_tree``):
     ``batch`` is the global batch, the same on every rank; each rank runs
     its rows (the rules' ``batch`` axes, pruned; all of them where the
-    batch does not divide the data ways) through the unchanged model code
-    on whole parameters, gathered once per parameter set, its MoE layers
-    routing its rows as the whole batch would (``nn.moe.batch_shard``).
+    batch does not divide the data ways) through the model code, on its
+    parameter blocks under the split plan, else on whole parameters
+    gathered once per parameter set, its MoE layers routing its rows as
+    the whole batch would (``nn.moe.batch_shard``).
     Returns the logits as a DTensor split over the data axes.  On the card
     it replays one captured graph per batch shape, the collectives inside;
     on the CPU it runs eagerly.  ``prefill.eager`` runs without a graph
@@ -578,7 +688,7 @@ def make_prefill(cfg: ModelConfig) -> Callable:
         rows = _as_batch(plan.rows(batch), plan.p_local[0].device)
 
         def call(feeds):
-            with moe_lib.batch_shard(plan.shard):
+            with plan.sharded():
                 return run(plan.full_tree(), feeds)
         return plan.output(plan.run(call, rows, graph).clone(), n)
 
@@ -598,9 +708,11 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
 
     **Sharded** when the parameters and the cache are DTensors (the cache
     under ``launch.shardings.cache_shardings``): as :func:`make_prefill`,
-    each rank runs its rows on the whole parameters, gathered once per
-    parameter set, and writes its local cache blocks, which hold its rows'
-    whole cache, in place.  An MoE layer's capacity counts every lane of
+    each rank runs its rows, on its parameter blocks under the split plan
+    (its KV heads' cache blocks), else on the whole parameters gathered
+    once per parameter set (its rows' whole cache), and writes its local
+    cache blocks in place; the logits' vocabulary is gathered whole before
+    the greedy token.  An MoE layer's capacity counts every lane of
     the whole batch (ROADMAP.md R7), its counts exchanged over the data
     axes.  Returns the tokens as a DTensor split over the data axes, and
     the cache.  On the card each call replays one captured graph per
@@ -630,7 +742,7 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
         local = tree_unflatten(treedef, bound)
 
         def call(feeds):
-            with moe_lib.batch_shard(plan.shard):
+            with plan.sharded():
                 logits, _ = decode(cfg, plan.full_tree(), feeds["tokens"],
                                    local, feeds["pos"])
             return {"tokens": torch.argmax(logits, dim=-1).to(torch.int32),

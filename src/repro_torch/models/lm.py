@@ -14,10 +14,10 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import module as module_lib
+from repro_torch.nn import tensor_parallel as tp
 from repro_torch.nn import transformer
 
 
@@ -47,15 +47,17 @@ def train_loss(cfg: ModelConfig, params, batch: dict
 def next_token_loss(logits: torch.Tensor, targets: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(mean cross-entropy of ``logits`` (B, S, V) at ``targets`` (B, S)
-    over the targets >= 0, their count), fp32."""
+    over the targets >= 0, their count), fp32.  Under tensor parallelism
+    ``logits`` are this rank's vocabulary columns (``tp.cross_entropy``
+    combines the ranks' log-sum-exps), so the whole vocabulary's logits
+    never exist."""
     targets = targets.long()
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    # -logp at each target (a target < 0 reads class 0, then counts 0):
-    # nll_loss's gradient writes each row once, where a gather's
-    # backward would add with atomics
-    nll = F.nll_loss(logp.reshape(-1, logp.shape[-1]),
-                     targets.clamp(min=0).reshape(-1),
-                     reduction="none").reshape(targets.shape)
+    # -log softmax at each target (a target < 0 reads class 0, then counts
+    # 0); the gradient writes each element once, where a gather's backward
+    # would add with atomics
+    nll = tp.cross_entropy(
+        logits.to(torch.float32).reshape(-1, logits.shape[-1]),
+        targets.clamp(min=0).reshape(-1)).reshape(targets.shape)
     mask = (targets >= 0).to(torch.float32)
     count = torch.sum(mask)
     return torch.sum(nll * mask) / torch.clamp(count, min=1.0), count

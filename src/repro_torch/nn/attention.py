@@ -16,6 +16,16 @@ and so does the encoder-decoder's :func:`cross_attention` (no TPU kernel
 serves it in the reference either).  ``attn_specs``, ``qkv_project`` and
 ``out_project`` also serve the transformer encoder block's tensor twin
 (``models/transformer.py``).
+
+Under tensor parallelism (:mod:`repro_torch.nn.tensor_parallel`) each
+rank holds its block of the query heads, and of the KV heads where the
+rules split them too; the projections are column-parallel, the output
+projection row-parallel, and every function here works on the local heads
+its weights give.  Where the KV heads are whole on every rank (their
+count does not divide ``model``), each rank's query heads attend with
+their own groups' KV heads (``tp.kv_heads``): prefill and training project
+only those, their weights' gradients summed over ``model``; a decode step
+projects and caches them all, the cache being whole there too.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.nn import tensor_parallel as tp
 from repro_torch.nn.layers import maybe_quantize, matmul_f32, softcap
 from repro_torch.nn.module import ParamSpec
 from repro_torch.nn.rope import apply_rope
@@ -74,11 +85,28 @@ def _project(sub: dict, x: torch.Tensor, quant: Optional[str]
     return y.to(x.dtype)
 
 
-def qkv_project(p: dict, x: torch.Tensor, *, quant: Optional[str] = None
+def _heads(sub: dict, heads) -> dict:
+    """One of k, v cut to the KV heads ``heads`` (:func:`tp.kv_heads`),
+    its whole weights' gradients summed over ``model``: every rank holds
+    them and uses a part."""
+    return {n: tp.copy_to_model(w, "heads")[..., heads, :]
+            for n, w in sub.items()}
+
+
+def qkv_project(p: dict, x: torch.Tensor, *, quant: Optional[str] = None,
+                all_kv: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> q, k, v: (B, S, H, dh) each, in x's dtype (``p``:
-    the :func:`attn_specs` tree)."""
-    return tuple(_project(p[n], x, quant) for n in ("q", "k", "v"))
+    the :func:`attn_specs` tree): the local heads under tensor
+    parallelism, k and v those of the local query heads' groups unless
+    ``all_kv``."""
+    x = tp.copy_to_model(x, "heads")
+    q = _project(p["q"], x, quant)
+    heads = None if all_kv else tp.kv_heads(q.shape[-2],
+                                            p["k"]["kernel"].shape[1])
+    k, v = (_project(p[n] if heads is None else _heads(p[n], heads), x,
+                     quant) for n in ("k", "v"))
+    return q, k, v
 
 
 def out_project(p: dict, y: torch.Tensor, *, quant: Optional[str] = None,
@@ -90,7 +118,8 @@ def out_project(p: dict, y: torch.Tensor, *, quant: Optional[str] = None,
     w = maybe_quantize(p["o"]["kernel"], quant).to(y.dtype)
     h, k, d = w.shape
     out = matmul_f32(y.reshape(*y.shape[:-2], h * k), w.reshape(h * k, d))
-    return out.to(reduce_dtype or out.dtype).to(y.dtype)
+    out = tp.reduce_from_model(out.to(reduce_dtype or out.dtype), "heads")
+    return out.to(y.dtype)
 
 
 # -- masks -------------------------------------------------------------------
@@ -368,7 +397,7 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict,
     ``cache`` in place and returns ``(out, cache)``; the reference returns
     an updated copy with the same values.
     """
-    q, k, v = qkv_project(p, x, quant=quant)
+    q, k, v = qkv_project(p, x, quant=quant, all_kv=True)
     positions = pos[:, None]                                  # (B,1)
     if mrope_sections:
         positions = torch.stack([positions] * 3, dim=1)       # (B,3,1)
@@ -388,8 +417,11 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict,
         k_pos = torch.arange(size, device=x.device).expand(x.shape[0], size)
         valid = k_pos <= now
     k_pos = torch.where(valid, k_pos, INVALID_POS)
-    y = full_attention(q, cache["k"], cache["v"], q_pos=now, k_pos=k_pos,
-                       causal=True, window=None, logit_cap=logit_cap)
+    heads = tp.kv_heads(q.shape[2], k.shape[2])
+    ck, cv = (cache[n] if heads is None else cache[n][:, :, heads]
+              for n in ("k", "v"))
+    y = full_attention(q, ck, cv, q_pos=now, k_pos=k_pos, causal=True,
+                       window=None, logit_cap=logit_cap)
     return out_project(p, y, quant=quant), cache
 
 

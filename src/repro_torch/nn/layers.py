@@ -7,6 +7,13 @@ accumulate in fp32 (:func:`matmul_f32`, the reference's
 ``preferred_element_type=float32``); norms run in fp32.  When a ``quant``
 format is supplied, weights pass through the paper's (wE,wF) quantiser
 first.
+
+Under tensor parallelism (:mod:`repro_torch.nn.tensor_parallel`) the
+products split Megatron's way over the logical axis the rules split: a
+product whose output axis is split is column-parallel (its input's
+gradient summed over ``model``), one whose input axis is split is
+row-parallel (its partial sums all-reduced, a bias added once after), and
+the embedding and the unembedding split over ``vocab``.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.precision import FORMATS, quantize
+from repro_torch.nn import tensor_parallel as tp
 from repro_torch.nn.module import ParamSpec
 
 ACCUM = torch.float32
@@ -135,13 +143,21 @@ def dense_specs(d_in: int, d_out: int, *, axes: tuple = ("embed", "mlp"),
     return out
 
 
-def dense(p: dict, x: torch.Tensor, *, quant: Optional[str] = None
+def dense(p: dict, x: torch.Tensor, *, quant: Optional[str] = None,
+          out_axis: Optional[str] = None, in_axis: Optional[str] = None
           ) -> torch.Tensor:
-    w = maybe_quantize(p["kernel"], quant).to(x.dtype)
-    y = matmul_f32(x, w)
+    """``x @ kernel + bias``.  ``out_axis``/``in_axis``: the logical axes
+    of the kernel's columns and rows; where the rules split the first over
+    ``model`` the product is column-parallel (this rank's columns), where
+    they split the second row-parallel (the partial sums all-reduced, the
+    bias added after)."""
+    dtype = x.dtype
+    x = tp.copy_to_model(x, out_axis)
+    w = maybe_quantize(p["kernel"], quant).to(dtype)
+    y = tp.reduce_from_model(matmul_f32(x, w), in_axis)
     if "bias" in p:
         y = y + p["bias"].to(ACCUM)
-    return y.to(x.dtype)
+    return y.to(dtype)
 
 
 # -- embedding ----------------------------------------------------------------
@@ -153,16 +169,17 @@ def embedding_specs(vocab: int, d: int) -> dict:
 def embed(p: dict, ids: torch.Tensor, *, dtype=torch.bfloat16
           ) -> torch.Tensor:
     """The rows of ``ids``, cast after the gather: the reference casts the
-    whole table first, which gives the same values."""
-    return p["table"][ids].to(dtype)
+    whole table first, which gives the same values.  Vocabulary-parallel
+    where the rules split ``vocab``."""
+    return tp.embedding(p["table"], ids, dtype)
 
 
 def unembed(p: dict, x: torch.Tensor, *, quant: Optional[str] = None
             ) -> torch.Tensor:
     """Project to vocabulary logits (fp32) with the (possibly tied)
-    table."""
+    table: this rank's columns where the rules split ``vocab``."""
     w = maybe_quantize(p["table"], quant).to(x.dtype)
-    return matmul_f32(x, w.T)
+    return matmul_f32(tp.copy_to_model(x, "vocab"), w.T)
 
 
 # -- MLPs ---------------------------------------------------------------------
@@ -182,18 +199,24 @@ def mlp(p: dict, x: torch.Tensor, *, act: str = "silu",
         reduce_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``reduce_dtype``: dtype of the row-parallel output projection whose
     partial sums cross devices (bf16 halves the TP all-reduce bytes): its
-    fp32 sum is rounded to it before x's dtype."""
+    fp32 sum is rounded to it before x's dtype.  Where the rules split
+    ``mlp`` over ``model``, ``wi``/``wg`` are column-parallel and ``wo``
+    row-parallel: each rank's fp32 partial is rounded to ``reduce_dtype``
+    and then summed over ``model``."""
     f = activation(act)
-    wi = maybe_quantize(p["wi"], quant).to(x.dtype)
-    wo = maybe_quantize(p["wo"], quant).to(x.dtype)
+    dtype = x.dtype
+    x = tp.copy_to_model(x, "mlp")
+    wi = maybe_quantize(p["wi"], quant).to(dtype)
+    wo = maybe_quantize(p["wo"], quant).to(dtype)
     h = matmul_f32(x, wi)
     if "wg" in p:
-        wg = maybe_quantize(p["wg"], quant).to(x.dtype)
+        wg = maybe_quantize(p["wg"], quant).to(dtype)
         h = f(matmul_f32(x, wg)) * h
     else:
         h = f(h)
-    out = matmul_f32(h.to(x.dtype), wo)
-    return out.to(reduce_dtype or out.dtype).to(x.dtype)
+    out = matmul_f32(h.to(dtype), wo)
+    out = tp.reduce_from_model(out.to(reduce_dtype or out.dtype), "mlp")
+    return out.to(dtype)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -22,7 +22,13 @@ each layer's gradient lands in its own slice), and with gradients on runs
 each superblock layer under ``torch.utils.checkpoint`` where ``cfg.remat``
 asks for it.  ``cfg.bf16_reduce`` rounds the attention out-projection's
 and the MLP's ``wo`` products to bf16, as the reference does for their
-cross-device sums.  Decoder-only learned positions are not ported: a
+cross-device sums.  Under tensor parallelism
+(:mod:`repro_torch.nn.tensor_parallel`, entered by the sharded steps) the
+layers compute on each rank's heads, MLP columns and vocabulary rows; the
+soft-caps, norms and GeGLU are elementwise or per head and stay local, the
+logits of a full-sequence forward are the rank's vocabulary columns (the
+loss takes them so), and the last position's are gathered whole.
+Decoder-only learned positions are not ported: a
 config that asks for them raises ``NotImplementedError``.  The encoder-decoder (whisper-tiny) is not a
 decoder of this module: it runs through :mod:`repro_torch.models.encdec`.
 """
@@ -38,6 +44,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import attention, layers, module
 from repro_torch.nn import moe as moe_lib
+from repro_torch.nn import tensor_parallel as tp
 from repro_torch.nn import rglru, xlstm
 from repro_torch.nn.module import map_tree
 
@@ -334,7 +341,8 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor
     if cfg.tie_embeddings:
         logits = layers.unembed(params["embed"], x, quant=cfg.quant_format)
     else:
-        logits = layers.dense(params["unembed"], x, quant=cfg.quant_format)
+        logits = layers.dense(params["unembed"], x, quant=cfg.quant_format,
+                              out_axis="vocab")
     return layers.softcap(logits.to(torch.float32), cfg.final_softcap)
 
 
@@ -374,7 +382,10 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     every attention layer serves with the flash kernel on the card.  With
     gradients on and ``cfg.remat`` not "none", each superblock layer runs
     under ``torch.utils.checkpoint`` (non-reentrant), the reference's
-    ``_maybe_remat``; remainder layers do not, as there.
+    ``_maybe_remat``; remainder layers do not, as there.  Under
+    tensor parallelism the full-sequence logits are this rank's vocabulary
+    columns, the last position's (``last_logit_only``) the whole
+    vocabulary.
     """
     _check_supported(cfg)
     x = _embed(cfg, params, tokens)
@@ -401,6 +412,8 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     if last_logit_only:
         x = x[:, -1:, :]
     logits = _logits(cfg, params, x)
+    if last_logit_only:
+        logits = tp.gather_vocab(logits)
     return logits, logits.new_zeros(()) if aux is None else aux
 
 
@@ -414,4 +427,4 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = _embed(cfg, params, tokens)
     for kind, p, c, _ in _layers(cfg, params, cache):
         x, _, _ = apply_block(cfg, kind, p, x, cache=c, pos=pos)
-    return _logits(cfg, params, x)[:, 0, :], cache
+    return tp.gather_vocab(_logits(cfg, params, x)[:, 0, :]), cache

@@ -198,6 +198,7 @@ def test_runtime_imports_neither_jax_nor_repro():
             "import repro_torch.launch.op_inventory\n"
             "import repro_torch.launch.hillclimb\n"
             "import repro_torch.nn.transformer\n"
+            "import repro_torch.nn.tensor_parallel\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

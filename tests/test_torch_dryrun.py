@@ -20,6 +20,10 @@ version there.  Checks:
 * the kernels' fake implementations (fake CUDA tensors, which a CPU
   build of torch makes though it cannot slice them) launch and count nothing,
   while the op inventory and ``FlopCounterMode`` see each op;
+* the split plan (tensor parallelism over ``model``): tiny gemma2-27b
+  and stablelm-3b train cells on data 2 x model 4 record
+  ``model_split`` "compute", their parameter bytes per device the
+  reference's and their FLOPs within 10% of the reference's;
 * item 8.8's cells: tiny prefill and decode cells on data 4 x model 1
   trace "ok", their parameter and cache bytes per device the reference's,
   their FLOPs the reference's (the MoE's as the reference's single-device
@@ -43,6 +47,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ("qwen2.5-3b", "qwen2-moe-a2.7b")
+#: the configs whose compute splits over model (the default rules)
+TP_ARCHS = ("gemma2-27b", "stablelm-3b")
 BATCH, SEQ = 8, 32
 
 PORT = r"""
@@ -71,6 +77,12 @@ elif world == "serve":      # prefill and decode cells on data 4 x model 1
                 cfg=registry.get_tiny(arch),
                 shape=ShapeConfig(f"tiny_{kind}", s, batch, kind),
                 device="cpu")
+elif world == "2x4":        # the split plan, on data 2 x model 4
+    for arch in ("gemma2-27b", "stablelm-3b"):
+        res[arch] = dryrun.run_cell(
+            arch, "tiny_train", {"data": 2, "model": 4}, out_dir,
+            cfg=registry.get_tiny(arch).replace(microbatches=1), shape=shape,
+            device="cpu")
 elif world == "2x2x2":
     res["gemma2-27b"] = dryrun.run_cell(
         "gemma2-27b", "tiny_train", {"pod": 2, "data": 2, "model": 2},
@@ -114,11 +126,13 @@ from repro.launch.steps import make_train_step
 
 out_path, batch, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 out = {}
-for data in (4, 1):
-    mesh = jax.make_mesh((data, 1), ("data", "model"),
-                         devices=jax.devices()[:data],
+for data, model, archs in ((4, 1, ("qwen2.5-3b", "qwen2-moe-a2.7b")),
+                           (1, 1, ("qwen2.5-3b", "qwen2-moe-a2.7b")),
+                           (2, 4, ("gemma2-27b", "stablelm-3b"))):
+    mesh = jax.make_mesh((data, model), ("data", "model"),
+                         devices=jax.devices()[:data * model],
                          axis_types=(AxisType.Auto,) * 2)
-    for arch in ("qwen2.5-3b", "qwen2-moe-a2.7b"):
+    for arch in archs:
         cfg = registry.get_tiny(arch).replace(microbatches=1)
         with jax.set_mesh(mesh):
             _, args, in_sh, _, _ = dr.build_cell(arch, "train_4k", mesh,
@@ -139,7 +153,7 @@ for data in (4, 1):
                 out_shardings=(in_sh[0], in_sh[1], m_sh),
                 donate_argnums=(0, 1)).lower(*args).compile()
         hlo = hlo_parse.analyze(compiled.as_text())
-        out[f"{arch}/{data}x1"] = {
+        out[f"{arch}/{data}x{model}"] = {
             "dot_flops_per_device": hlo.dot_flops,
             "params_bytes_per_device": sh.bytes_per_device(args[0],
                                                            in_sh[0])}
@@ -194,7 +208,7 @@ for data, arch, kind, s in [
 json.dump(out, open(out_path, "w"))
 """
 
-WORLDS = ("4x1", "1x1", "2x2x2", "collectives", "serve")
+WORLDS = ("4x1", "1x1", "2x4", "2x2x2", "collectives", "serve")
 
 
 @pytest.fixture(scope="module")
@@ -286,6 +300,29 @@ def test_flops_per_device_hold_to_the_reference(runs, arch):
             assert got <= want and want > 1.3 * single / 4
             want = single / 4
         assert abs(got - want) <= 0.1 * want, (world, got, want)
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_split_plan_cells_hold_to_the_reference(runs, arch):
+    """Tiny gemma2-27b (its 2 KV heads whole on model 4, its 4 query heads
+    split) and stablelm-3b on data 2 x model 4 take the split plan: the
+    parameter bytes per device the reference's exactly, the FLOPs per
+    device within 10% of the reference's GSPMD program's (each rank
+    computes its heads, MLP columns and vocabulary rows; under the gather
+    plan every rank of a model group repeated the group's compute, about
+    4 x), and the model-axis all-reduces among the collectives."""
+    port, ref = runs
+    rec = port["2x4"][arch]
+    want = ref[f"{arch}/2x4"]
+    assert rec["status"] == "ok", rec.get("traceback", "")[-3000:]
+    assert rec["model_split"] == "compute" and rec["data_ways"] == 2
+    assert rec["params_bytes_per_device"] == want["params_bytes_per_device"]
+    got, flops = rec["flops_per_device"], want["dot_flops_per_device"]
+    assert abs(got - flops) <= 0.1 * flops, (got, flops)
+    assert rec["collectives_by_kind"]["all-reduce"] > 0
+    for world in ("4x1", "1x1"):
+        for other in ARCHS:
+            assert port[world][other]["model_split"] == "gather"
 
 
 def test_collectives_follow_the_cost_model(runs):
