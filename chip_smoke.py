@@ -176,7 +176,11 @@ Phases, each printing one JSON line (``"phase": ...``):
              ``full_attention`` (rtol 1e-4 / atol 1e-5), the lse against
              the plain version, the forward, the backward and SDPA's
              forward and forward + backward timed, K5 at the LM prefill's
-             shape with and without the lse store; Qwen2.5-3B trained at
+             shape with and without the lse store; the training loss at
+             the same microbatch (1,024 positions over 151,936 words):
+             ``lm.next_token_loss`` against ``log_softmax`` and
+             ``nll_loss``, forward and backward timed with the memory
+             each adds (loss 1e-5, gradient 1e-6); Qwen2.5-3B trained at
              full width and depth (3,085,938,688 parameters drawn on the
              card, batch 4 x 1,024 of ``SyntheticTokenPipeline`` tokens in
              4 microbatches, full remat, AdamW in place): the first call
@@ -269,9 +273,12 @@ Phases, each printing one JSON line (``"phase": ...``):
              4 x 1,024 in 4 microbatches: the sharded step (first call,
              then replays of its captured graph, the model-group
              all-reduces inside) against the unsharded one from the same
-             seed, run one after the other (two states do not fit), 3
-             calls, metrics and every parameter and moment value for
-             value; 16 K5 launches per replayed step; peaks within 5%;
+             seed, run one after the other (two states do not fit: the
+             first's parameters and first moments stay on the card, its
+             second moments wait on the host), 3 calls, metrics and every
+             parameter and moment value for value; 16 K5 launches per
+             replayed step; peaks above what each run found on the card
+             within 5%;
              p50 of each.  The prefill cut to 4 layers at 4 x 1,024
              (replayed, 4 K5 launches) against the unsharded one, and 16
              replayed 8-lane ticks against 16 unsharded ones: tokens,
@@ -3805,9 +3812,10 @@ TR_XL_BATCH, TR_XL_STEPS = 8, 3
 #: against the CPU
 TR_XL_LAYERS, TR_XL_EAGER_MICRO = 8, 2
 #: xlstm-1.3b's trained depth: 2 of its 6 superblocks (16 of 48 layers),
-#: so the script keeps its time with phases moe_mesh, tp and dryrun (the
-#: step's first call at full depth took 75.4 s of host time, at 24 layers
-#: 41.5 s)
+#: so the script keeps its time with phases moe_mesh, tp and dryrun: the
+#: step's first call at full depth took 75.4 s of host time, and at 24
+#: layers the whole script took 1,169 s of its 1,200 on an H100 80GB HBM3
+#: (700 W) whose host ran about 30% slower than others
 TR_XL_TRAIN_LAYERS = 16
 #: the sLSTM's backward kernel against its plain reverse loop: (B, S, H,
 #: W) of xlstm-1.3b's training call, and a ragged one (W 36: the
@@ -4503,9 +4511,72 @@ def train_xlstm(torch) -> dict:
                          full["launches_per_step"].items()}}
 
 
+def train_loss_cost(torch) -> dict:
+    """The training loss at Qwen2.5-3B's microbatch (1 x TR_SEQ positions
+    over its vocabulary, fp32 logits, the last target not counted):
+    ``models.lm.next_token_loss``, whose vocabulary-parallel
+    cross-entropy (``nn.tensor_parallel.cross_entropy``) every LM train
+    step runs, against the fused ``log_softmax`` and ``nll_loss`` it
+    replaced, on the same inputs.  Forward and backward: the device time
+    of each, the peak memory each adds over its input, the loss within
+    1e-5 and the gradient within 1e-6 of the other's."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import registry as configs
+    from repro_torch.models import lm
+
+    vocab = configs.get_config(LM_ARCH).vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    logits = 4.0 * torch.randn(1, TR_SEQ, vocab, device="cuda",
+                               generator=gen)
+    targets = torch.randint(0, vocab, (1, TR_SEQ), device="cuda",
+                            generator=gen)
+    targets[:, -1] = -1
+
+    def port(x):
+        return lm.next_token_loss(x, targets)[0]
+
+    def fused(x):
+        t = targets.long().reshape(-1)
+        nll = F.nll_loss(F.log_softmax(x.reshape(-1, vocab), dim=-1),
+                         t.clamp(min=0), reduction="none")
+        mask = (t >= 0).to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+    def run(f):
+        x = logits.detach().requires_grad_()
+        loss = f(x)
+        loss.backward()
+        return loss.detach(), x.grad
+
+    out: dict = {"shape": [TR_SEQ, vocab], "ms": {}, "peak_added_bytes": {}}
+    got = {}
+    for name, f in (("port", port), ("fused", fused)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got[name] = run(f)
+        torch.cuda.synchronize()
+        out["peak_added_bytes"][name] = \
+            torch.cuda.max_memory_allocated() - base
+        out["ms"][name] = device_ms(torch, lambda f=f: run(f),
+                                    label=f"loss {name}")
+    loss_err = abs(float(got["port"][0]) - float(got["fused"][0]))
+    grad_err = float((got["port"][1] - got["fused"][1]).abs().max())
+    check(loss_err <= 1e-5 * abs(float(got["fused"][0]))
+          and grad_err <= 1e-6,
+          f"the training loss against log_softmax and nll_loss: loss "
+          f"{loss_err}, gradient {grad_err}")
+    out.update(loss_abs_err=loss_err, grad_max_abs_err=grad_err,
+               ms_ratio=out["ms"]["port"] / out["ms"]["fused"])
+    del logits, targets, got
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_train_lm(torch) -> dict:
-    """The LM's training on the card: one attention layer's gradients at
-    Qwen2.5-3B's microbatch shape; Qwen2.5-3B trained at full width and
+    """The LM's training on the card: one attention layer's gradients and
+    the loss at Qwen2.5-3B's microbatch shape; Qwen2.5-3B trained at full width and
     depth (3,085,938,688 parameters, batch 4 x 1,024 in 4 microbatches,
     full remat, each step a replayed graph); replay against eager at four
     layers; the card against the CPU at two layers; whisper-tiny's
@@ -4517,6 +4588,7 @@ def phase_train_lm(torch) -> dict:
     t_phase = time.perf_counter()
     att = train_attention(torch)
     emit({"phase": "train_lm", "step": "attention", **att})
+    emit({"phase": "train_lm", "step": "loss", **train_loss_cost(torch)})
     full = train_full(torch, LM_ARCH, LM_PARAMS, TR_BATCH, TR_STEPS,
                       lambda cfg: {"flash_attention":
                                    2 * cfg.n_layers * cfg.microbatches},
@@ -5195,9 +5267,11 @@ def _tp_train(torch, cfg, mesh, batches, sharded: bool) -> dict:
     """TP_CALLS steps of ``cfg`` from seed 0, its parameters and state
     sharded on ``mesh`` where ``sharded`` (``shard_tree`` copies nothing
     on the 1 x 1 mesh): the metrics, the replays' times, the K5 launches
-    of the first replay, the peak device memory, and the final parameters
-    and moments leaf by leaf: copied to the host where ``sharded``, else
-    the live tensors on the card."""
+    of the first replay, the peak device memory above what lay on the
+    card when it started, and the final parameters and moments leaf by
+    leaf, the live tensors on the card but, where ``sharded``, the second
+    moments copied to the host (the other run's peak leaves room for the
+    rest: 51.3 + 18.5 GB at 2 layers)."""
     from repro_torch.configs import registry as configs
     from repro_torch.kernels import registry
     from repro_torch.launch import shardings as sh
@@ -5207,6 +5281,7 @@ def _tp_train(torch, cfg, mesh, batches, sharded: bool) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     p = module.init_tree(transformer.model_specs(cfg), torch.Generator(
         device="cuda").manual_seed(0), device="cuda")
     st = adamw.init_state(p)
@@ -5239,11 +5314,12 @@ def _tp_train(torch, cfg, mesh, batches, sharded: bool) -> dict:
             out["launches"] = {k: v for k, v in
                                registry.launch_counts().items() if v}
         out["metrics"].append({k: float(v) for k, v in m.items()})
-    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
     out["replayed"] = step.runner() is not None
     leaves = [sh.local(t) for t in module.tree_leaves((p, st["mu"],
                                                        st["nu"]))]
-    out["leaves"] = [t.cpu() for t in leaves] if sharded else leaves
+    kept = 2 * len(leaves) // 3 if sharded else len(leaves)
+    out["leaves"] = leaves[:kept] + [t.cpu() for t in leaves[kept:]]
     step.runner().release()
     del p, st, step, leaves
     free_card(torch)
@@ -5292,6 +5368,7 @@ def phase_tp(torch) -> dict:
             seq_len=TR_SEQ, global_batch=TR_BATCH,
             vocab_size=cfg.vocab_size))
         batches = [pipe.batch_at(i) for i in range(TP_CALLS)]
+        t0 = time.perf_counter()
         runs = {label: _tp_train(torch, cfg, mesh, batches, label ==
                                  "sharded")
                 for label in ("sharded", "unsharded")}
@@ -5300,7 +5377,9 @@ def phase_tp(torch) -> dict:
                         runs["unsharded"].pop("leaves")):
             a = a.to(b.device)
             differ += 0 if torch.equal(a, b) else value_diff(torch, a, b)
+            del a, b
         free_card(torch)
+        train_s = time.perf_counter() - t0
         check(runs["sharded"]["metrics"] == runs["unsharded"]["metrics"],
               f"tp: the sharded step's metrics {runs['sharded']['metrics']} "
               f"against the unsharded step's "
@@ -5327,7 +5406,9 @@ def phase_tp(torch) -> dict:
                        f"state of 2 layers at full width is 37 GB",
             "values_differing": differ, "runs": runs, "step_ms_p50": p50,
             "p50_ratio": p50["sharded"] / p50["unsharded"],
-            "peak_ratio": ratio}
+            "peak_ratio": ratio, "seconds": train_s}
+
+        t0 = time.perf_counter()
 
         cfg = full.replace(n_layers=TP_PREFILL_LAYERS)
         params, line = draw(torch, cfg, TP_ARCH, module.param_count(
@@ -5344,7 +5425,8 @@ def phase_tp(torch) -> dict:
               f"{pre['launches_per_replay']} per replay, want {want}")
         tick = serve_tick_pair(torch, cfg, params, sharded, mesh, LM_LANES,
                                LM_MAX_LEN, 48)
-        out["serve"] = {**line, "prefill": pre, "tick": tick}
+        out["serve"] = {**line, "prefill": pre, "tick": tick,
+                        "seconds": time.perf_counter() - t0}
         del params, sharded, batch
     finally:
         torch.use_deterministic_algorithms(saved)

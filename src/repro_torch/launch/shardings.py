@@ -31,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.binding import BindingRules, NamedSharding, \
     PartitionSpec, entry_axes
 from repro_torch.nn import module as module_lib
+from repro_torch.nn import tensor_parallel as tp
 
 
 def rules_for(cfg) -> BindingRules:
@@ -120,25 +121,6 @@ def model_param_shardings(cfg: ModelConfig, mesh):
     return abstract, tree_shardings(abstract, axes, mesh, rules)
 
 
-#: the leaves whose compute the split plan splits over ``model``: (the
-#: end of the leaf's path, its logical axis split); the vocabulary leaves'
-#: paths are whole
-_SPLIT_LEAVES = (
-    *((("mixer", n, leaf), ax) for n, ax in (
-        ("q", "heads"), ("k", "kv_heads"), ("v", "kv_heads"),
-        ("o", "heads")) for leaf in ("kernel", "bias")),
-    *((("mlp", n), "mlp") for n in ("wi", "wg", "wo")),
-    (("embed", "table"), "vocab"),
-    (("unembed", "kernel"), "vocab"),
-)
-
-
-def _split_leaf(path: tuple, axis: str) -> bool:
-    return any(axis == ax and (path == tail if ax == "vocab"
-                               else path[-len(tail):] == tail)
-               for tail, ax in _SPLIT_LEAVES)
-
-
 def spec_shardings(cfg: ModelConfig, mesh) -> Any:
     """A decoder's parameter shardings (``model_param_shardings``'
     second half) from its specs' shapes alone, with no stand-in tensor
@@ -178,7 +160,7 @@ def model_split(cfg: ModelConfig, mesh) -> Optional[frozenset]:
             if any(m != "model" for m in names):
                 return False
             if names:
-                if not _split_leaf(path, name):
+                if not tp.splits_leaf(path, name):
                     return False
                 split.add(name)
             carried.append((name, bool(names)))
@@ -233,8 +215,8 @@ def cache_shardings(cfg: ModelConfig, batch: int, max_len: int, mesh
                           rules_for(cfg))
 
 
-def init_sharded_cache(cfg: ModelConfig, batch: int, max_len: int, mesh,
-                       device=None) -> Any:
+def init_sharded_cache(cfg: ModelConfig, batch: int, max_len: int, mesh
+                       ) -> Any:
     """A decoder's zero decode cache as DTensors under
     :func:`cache_shardings`, each rank allocating only its own blocks: its
     rows, and its KV heads where the split plan splits them."""
@@ -250,9 +232,8 @@ def init_sharded_cache(cfg: ModelConfig, batch: int, max_len: int, mesh,
     if "kv_heads" in split and cfg.n_kv_heads % mesh.shape["model"] == 0:
         local_cfg = cfg.replace(n_kv_heads=cfg.n_kv_heads
                                 // mesh.shape["model"])
-    local = transformer.init_cache(
-        local_cfg, rows.stop - rows.start, max_len,
-        device=device if device is not None else mesh.device_type)
+    local = transformer.init_cache(local_cfg, rows.stop - rows.start,
+                                   max_len, device=mesh.device_type)
 
     def wrap(t, a, s):
         want = tuple(b.stop - b.start for b in mesh.block(s, a.shape))

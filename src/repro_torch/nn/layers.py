@@ -144,17 +144,14 @@ def dense_specs(d_in: int, d_out: int, *, axes: tuple = ("embed", "mlp"),
 
 
 def dense(p: dict, x: torch.Tensor, *, quant: Optional[str] = None,
-          out_axis: Optional[str] = None, in_axis: Optional[str] = None
-          ) -> torch.Tensor:
-    """``x @ kernel + bias``.  ``out_axis``/``in_axis``: the logical axes
-    of the kernel's columns and rows; where the rules split the first over
-    ``model`` the product is column-parallel (this rank's columns), where
-    they split the second row-parallel (the partial sums all-reduced, the
-    bias added after)."""
+          out_axis: Optional[str] = None) -> torch.Tensor:
+    """``x @ kernel + bias``.  ``out_axis``: the logical axis of the
+    kernel's columns; where the rules split it over ``model`` the product
+    is column-parallel (this rank's columns)."""
     dtype = x.dtype
     x = tp.copy_to_model(x, out_axis)
     w = maybe_quantize(p["kernel"], quant).to(dtype)
-    y = tp.reduce_from_model(matmul_f32(x, w), in_axis)
+    y = matmul_f32(x, w)
     if "bias" in p:
         y = y + p["bias"].to(ACCUM)
     return y.to(dtype)

@@ -79,6 +79,34 @@ def is_split(axis: Optional[str]) -> bool:
     return _shard is not None and axis in _shard.split
 
 
+#: the leaves whose compute this module splits over ``model``, the split
+#: plan's (``launch.shardings.model_split``): (the end of the leaf's path,
+#: the logical axis split; the vocabulary leaves' paths are whole).  The
+#: attention's q/k/v are split by ``nn.attention.qkv_project``, its o by
+#: ``out_project``; the MLP's by ``nn.layers.mlp``; the table by
+#: ``nn.layers.embed`` and ``unembed``, the unembedding by ``nn.layers.dense``
+#: at ``out_axis="vocab"``.  A leaf added here needs its layer's split.
+SPLIT_LEAVES = (
+    (("mixer", "q", "kernel"), "heads"), (("mixer", "q", "bias"), "heads"),
+    (("mixer", "k", "kernel"), "kv_heads"),
+    (("mixer", "k", "bias"), "kv_heads"),
+    (("mixer", "v", "kernel"), "kv_heads"),
+    (("mixer", "v", "bias"), "kv_heads"),
+    (("mixer", "o", "kernel"), "heads"),
+    (("mlp", "wi"), "mlp"), (("mlp", "wg"), "mlp"), (("mlp", "wo"), "mlp"),
+    (("embed", "table"), "vocab"),
+    (("unembed", "kernel"), "vocab"),
+)
+
+
+def splits_leaf(path: tuple, axis: str) -> bool:
+    """Whether the leaf at ``path`` (its keys from the tree's root) is
+    one of :data:`SPLIT_LEAVES` split over ``axis``."""
+    return any(axis == ax and (path == tail if ax == "vocab"
+                               else path[-len(tail):] == tail)
+               for tail, ax in SPLIT_LEAVES)
+
+
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, reduce):
@@ -139,33 +167,37 @@ def embedding(table: torch.Tensor, ids: torch.Tensor, dtype) -> torch.Tensor:
 
 class _CrossEntropy(torch.autograd.Function):
     """-log softmax at the targets of (N, V_local) fp32 logits whose
-    columns start at vocabulary id ``lo``; ``reduce`` None on one rank."""
+    columns start at vocabulary id ``lo``; ``reduce`` None on one rank.
+    The ranks' log-sum-exps combine as one over the whole row: on one
+    rank of a group the combination is the rank's own, bit for bit."""
 
     @staticmethod
     def forward(ctx, logits, targets, lo, reduce):
         n_local = logits.shape[-1]
-        m = logits.amax(dim=-1)
-        if reduce is not None:
-            reduce(m, "max")
-        s = torch.exp(logits - m[:, None]).sum(dim=-1)
+        lse_local = torch.logsumexp(logits, dim=-1)
         local = targets - lo
         held = (local >= 0) & (local < n_local)
         idx = local.clamp(0, n_local - 1)
         xt = torch.where(held, logits.gather(1, idx[:, None])[:, 0], 0.0)
+        lse = lse_local
         if reduce is not None:
-            both = reduce(torch.stack([s, xt]), "sum")
-            s, xt = both[0], both[1]
-        lse = m + torch.log(s)
-        ctx.save_for_backward(logits, lse, idx, held)
+            m = reduce(lse_local.clone(), "max")
+            both = reduce(torch.stack([torch.exp(lse_local - m), xt]), "sum")
+            lse, xt = m + torch.log(both[0]), both[1]
+        ctx.save_for_backward(logits, lse_local, lse, idx, held)
         return lse - xt
 
     @staticmethod
     def backward(ctx, g):
-        logits, lse, idx, held = ctx.saved_tensors
-        p = torch.exp(logits - lse[:, None]) * g[:, None]
-        cols = torch.arange(logits.shape[1], device=logits.device)
-        hit = (cols[None, :] == idx[:, None]) & held[:, None]
-        return torch.where(hit, p - g[:, None], p), None, None, None
+        logits, lse_local, lse, idx, held = ctx.saved_tensors
+        # softmax over the whole row: the local one times exp(lse_local -
+        # lse); minus the cotangent at the target, one element a row
+        p = torch.softmax(logits, dim=-1)
+        p.mul_((g * torch.exp(lse_local - lse))[:, None])
+        at = idx[:, None]
+        p.scatter_(1, at, p.gather(1, at)
+                   - torch.where(held, g, 0.0)[:, None])
+        return p, None, None, None
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor

@@ -23,7 +23,10 @@ config:
   lane at its own position (gemma2's window of 8 rolls): the tokens equal,
   the logits of every tick and each rank's block of every cache leaf (its
   rows and, where split, its KV heads) at the bar of
-  ``tests/test_torch_serve_mesh.py``;
+  ``tests/test_torch_serve_mesh.py``; every tick's logits also against
+  the reference's tick run from the port's cache before it, since a bf16
+  cache entry may round the other way in either program (the reference's
+  then waits for the port's results);
 * ``bf16_reduce`` on gemma2: the sharded prefill's logits in bf16 against
   the reference's fp32 logits within max(2%, 2 x the reference's own
   error) of the scale, ``test_bf16_reduce_matches_reference``'s bar;
@@ -127,14 +130,14 @@ def _inputs(path: pathlib.Path) -> dict:
 # ---------------------------------------------------------------------------
 
 REFERENCE = r"""
-import json, sys
+import json, os, sys, time
 import numpy as np
 import jax, jax.numpy as jnp
 from jax.sharding import AxisType
 from repro.configs import registry
 from repro.configs.base import ShapeConfig
 from repro.launch import dryrun as dr, shardings as sh, steps
-from repro.nn import module, transformer
+from repro.nn import attention, module, transformer
 from repro.optim import adamw
 
 inp, out_path, meta = sys.argv[1:4]
@@ -172,6 +175,7 @@ def pinned(cfg, mesh, b):
 
 
 out = {}
+kept_runs = {}
 for mname, shape in meta["meshes"].items():
     mesh = jax.make_mesh(tuple(shape), ("data", "model"), devices=devs[:4],
                          axis_types=(AxisType.Auto,) * 2)
@@ -251,6 +255,7 @@ for mname, shape in meta["meshes"].items():
                 out[f"{tag}/logits{t}"] = np.asarray(logits)
             for k, v in flat(cache).items():
                 out[f"{tag}/cache/{k}"] = v.astype(np.float64)
+            kept_runs[tag] = (mesh, params, p_sh, c_sh, feed_sh, cache, cfg)
         if arch != "gemma2-27b":
             continue
         # bf16_reduce, in bf16 activations
@@ -262,15 +267,72 @@ for mname, shape in meta["meshes"].items():
                         out_shardings=vocab_sh)
             out[f"{tag}/prefill_bf16"] = np.asarray(
                 f(params, {"tokens": toks}), np.float32)
+
+# each tick again with the port's K/V entries: from the port's cache
+# after the tick, the reference's writes of K and V left out (it still
+# writes the positions), so it attends to the same bf16 values as the
+# port's tick did, whichever way the port's sum order rounded them; it
+# waits for the port's results (written when its 4 processes end)
+files = [os.path.join(meta["port_dir"], f"rank{r}.npz") for r in range(4)]
+deadline = time.time() + 500
+while not all(os.path.exists(f) for f in files):
+    if time.time() > deadline:
+        raise SystemExit("the port's ranks wrote no results")
+    time.sleep(0.2)
+ranks = [dict(np.load(f)) for f in files]
+write_at = attention._write_at
+
+
+def keep_kv(cache_arr, val, slot):
+    if jnp.issubdtype(cache_arr.dtype, jnp.floating):
+        return cache_arr
+    return write_at(cache_arr, val, slot)
+
+
+def like(tree, leaves, path=""):
+    if isinstance(tree, dict):
+        return {k: like(tree[k], leaves, path + k + "/") for k in tree}
+    return leaves[path[:-1]]
+
+
+attention._write_at = keep_kv
+for tag, (mesh, params, p_sh, c_sh, feed_sh, cache, cfg) in \
+        kept_runs.items():
+    arch = tag.split("/")[1]
+
+    def tick_kept(p, c, fd, cfg=cfg):
+        return transformer.decode_step(cfg, p, fd["tokens"], c, fd["pos"])[0]
+    run = jax.jit(tick_kept, in_shardings=(p_sh, c_sh, feed_sh),
+                  out_shardings=sh.sharding_for(
+                      (LANES, cfg.vocab_size), ("batch", "vocab"), mesh,
+                      sh.rules_for(cfg)))
+    for t in range(meta["ticks"]):
+        after = "cache" if t == meta["ticks"] - 1 else f"cache_after{t}"
+        whole = {}
+        for leaf, was in flat(cache).items():
+            a = np.zeros(was.shape, np.float64)
+            for r in ranks:
+                a[tuple(slice(lo, hi) for lo, hi in
+                        r[f"{tag}/cache_block/{leaf}"])] = \
+                    r[f"{tag}/{after}/{leaf}"]
+            whole[leaf] = jnp.asarray(a.astype(was.dtype))
+        with jax.set_mesh(mesh):
+            logits = run(params, jax.device_put(like(cache, whole), c_sh),
+                         {"tokens": jnp.asarray(arrays[f"{arch}/tok{t}"]),
+                          "pos": jnp.asarray(arrays[f"pos{t}"])})
+        out[f"{tag}/kept_logits{t}"] = np.asarray(logits)
+attention._write_at = write_at
 np.savez(out_path, **out)
 print("REFERENCE DONE")
 """
 
 
 def _reference(inputs: pathlib.Path, out: pathlib.Path) -> subprocess.Popen:
+    """The reference's programs, then its ticks again from the port's
+    caches, which it waits for in ``out``'s folder."""
     meta = {"archs": ARCHS, "meshes": MESHES, "batch": BATCH, "seq": SEQ,
             "micro": MICRO, "max_len": MAX_LEN, "lanes": LANES,
-            "ticks": TICKS, "opt": OPT}
+            "ticks": TICKS, "opt": OPT, "port_dir": str(out.parent)}
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu")
@@ -296,7 +358,10 @@ def _worker(rank: int, world: int, port: int, inputs: str, out_dir: str):
         res = _rank_checks(rank, np.load(inputs))
     finally:
         dist.destroy_process_group()
-    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **res)
+    # whole or not at all: the reference reads it once it exists
+    tmp = pathlib.Path(out_dir) / f"rank{rank}.part.npz"
+    np.savez(tmp, **res)
+    os.replace(tmp, pathlib.Path(out_dir) / f"rank{rank}.npz")
 
 
 def _rank_checks(rank: int, arrays) -> dict:
@@ -399,6 +464,10 @@ def _serve(tag: str, arch: str, mesh, arrays) -> dict:
                                           "pos": arrays[f"pos{t}"]})
         out[f"{tag}/tok{t}"] = tok.to_local().numpy()
         out[f"{tag}/logits{t}"] = step.logits().to_local().numpy()
+        if t + 1 < TICKS:
+            for k, v in _flat(cache).items():
+                out[f"{tag}/cache_after{t}/{k}"] = \
+                    sh.local(v).to(torch.float64).numpy()
     for k, v in _flat(cache).items():
         out[f"{tag}/cache/{k}"] = sh.local(v).to(torch.float64).numpy()
         out[f"{tag}/cache_block/{k}"] = np.array([
@@ -559,10 +628,11 @@ def _off_bf16(got, want) -> np.ndarray:
     return np.abs(got - want) > atol + RTOL * np.abs(want)
 
 
-def _rounded_other_way(ranks, ref, tag, cfg) -> np.ndarray:
+def _rounded_other_way(ranks, tag, cfg, cache) -> np.ndarray:
     """(ticks, lanes): whether a K/V entry that the lane's tick attends to
     (any layer and KV head, on whichever rank holds it; any slot written
-    up to that tick) holds the other bf16 rounding."""
+    up to that tick) holds the other bf16 rounding of ``cache``'s (the
+    whole leaves of a reference run, by leaf name)."""
     out = np.zeros((TICKS, LANES), bool)
     for r in ranks:
         for i, kind in enumerate(cfg.attn_pattern):
@@ -572,7 +642,7 @@ def _rounded_other_way(ranks, ref, tag, cfg) -> np.ndarray:
                 block = tuple(slice(a, b) for a, b in
                               r[f"{tag}/cache_block/{leaf}"])
                 off = _off_bf16(r[f"{tag}/cache/{leaf}"],
-                                ref[f"{tag}/cache/{leaf}"][block])
+                                cache[leaf][block])
                 slots = off.any(axis=(0, 3, 4))         # (lanes, slots)
                 for j, lane in enumerate(range(block[1].start,
                                                block[1].stop)):
@@ -591,33 +661,34 @@ def test_sharded_prefill_and_ticks_match_reference(runs, mname, arch):
 
     The K/V cache is bf16: a value the two sum orders leave within noise
     of a rounding boundary rounds the other way (one bf16 ulp), and every
-    later tick of that lane attends to it.  So a tick's logits are held at
-    the bar where the lane's cache, up to that tick, holds the reference's
-    bf16 values exactly, and within one bf16 ulp (2^-8) of the scale
-    where it holds such an entry (each such entry is within the cache
-    leaves' own allowance); at most half of the lanes' ticks are of the
-    second kind.  The reference's sharded program makes such entries
-    where its own unsharded one does not, so they are a property of the
-    sum orders, not of the split."""
+    later tick of that lane attends to it; the reference's sharded program
+    makes such entries where its own unsharded one does not.  So every
+    tick's logits are held at the bar against the reference's tick run
+    from the port's own cache before it (the same bf16 entries in), and
+    the logits of a lane whose cache up to that tick holds the
+    reference's values exactly also against the reference's own ticks.
+    The tokens equal the reference's own."""
     tag = f"{mname}/{arch}"
     ref, cfg = runs.ref, _cfg(arch)
     leaves = sorted(k[len(tag) + 7:] for k in ref
                     if k.startswith(f"{tag}/cache/"))
     assert len(leaves) >= 2
-    other = _rounded_other_way(runs.ranks, ref, tag, cfg)
+    other = _rounded_other_way(runs.ranks, tag, cfg, {
+        leaf: ref[f"{tag}/cache/{leaf}"] for leaf in leaves})
     for r in runs.ranks:
         rows = _rows(r, mname, LANES)
         _hold(r[f"{tag}/prefill"], ref[f"{tag}/prefill"][rows], "prefill")
         for t in range(TICKS):
             np.testing.assert_array_equal(r[f"{tag}/tok{t}"],
                                           ref[f"{tag}/tok{t}"][rows])
-            got, want = r[f"{tag}/logits{t}"], ref[f"{tag}/logits{t}"][rows]
+            got = r[f"{tag}/logits{t}"]
+            kept = ref[f"{tag}/kept_logits{t}"][rows]
             for j, lane in enumerate(range(rows.start, rows.stop)):
-                if other[t, lane]:
-                    assert np.abs(got[j] - want[j]).max() <= \
-                        2.0 ** -8 * np.abs(want[j]).max(), (t, lane)
-                else:
-                    _hold(got[j], want[j], f"logits{t} lane {lane}")
+                _hold(got[j], kept[j], f"logits{t} lane {lane}, the "
+                                        f"port's K/V entries")
+                if not other[t, lane]:
+                    _hold(got[j], ref[f"{tag}/logits{t}"][lane],
+                          f"logits{t} lane {lane}")
         for leaf in leaves:
             block = tuple(slice(a, b) for a, b in
                           r[f"{tag}/cache_block/{leaf}"])
@@ -661,3 +732,35 @@ def test_bf16_reduce_sharded_matches_reference(runs, mname):
         rows = _rows(r, mname, LANES)
         assert _scale_err(r[f"{tag}/prefill_bf16"], ref32[rows]) <= max(
             BF16_SCALE_TOL, 2 * ref_err)
+
+
+def _leaves_of(cfg) -> dict:
+    """The config's parameter leaves' axes, by path."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in t:
+                walk(t[k], path + (k,))
+        else:
+            out[path] = tuple(t.axes)
+    walk(transformer.model_specs(cfg), ())
+    return out
+
+
+def test_split_leaves_are_the_configs_model_axis_leaves():
+    """``nn.tensor_parallel.SPLIT_LEAVES`` against the specs of both
+    configs (and with q/k/v biases): every leaf with a ``heads``,
+    ``kv_heads``, ``mlp`` or ``vocab`` axis is in the table under that
+    axis, and every entry of the table names such a leaf."""
+    from repro_torch.nn import tensor_parallel as tp
+    split = {"heads", "kv_heads", "mlp", "vocab"}
+    named = set()
+    for arch in ARCHS:
+        for cfg in (_cfg(arch), _cfg(arch, qkv_bias=True)):
+            for path, axes in _leaves_of(cfg).items():
+                for ax in split.intersection(axes):
+                    assert tp.splits_leaf(path, ax), (arch, path, ax)
+                    named |= {(tail, a) for tail, a in tp.SPLIT_LEAVES
+                              if a == ax and path[-len(tail):] == tail}
+    assert named == set(tp.SPLIT_LEAVES)
