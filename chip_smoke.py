@@ -3811,12 +3811,14 @@ TR_XL_BATCH, TR_XL_STEPS = 8, 3
 #: 1 x 1,024, a quarter of the step's eager host time) and the card
 #: against the CPU
 TR_XL_LAYERS, TR_XL_EAGER_MICRO = 8, 2
-#: xlstm-1.3b's trained depth: 2 of its 6 superblocks (16 of 48 layers),
+#: xlstm-1.3b's trained depth: 1 of its 6 superblocks (8 of 48 layers),
 #: so the script keeps its time with phases moe_mesh, tp and dryrun: the
-#: step's first call at full depth took 75.4 s of host time, and at 24
-#: layers the whole script took 1,169 s of its 1,200 on an H100 80GB HBM3
-#: (700 W) whose host ran about 30% slower than others
-TR_XL_TRAIN_LAYERS = 16
+#: step's first call at full depth took 75.4 s of host time, at 24 layers
+#: the whole script took 1,169 s of its 1,200 on an H100 80GB HBM3 (700 W)
+#: whose host ran about 30% slower than others, and at 16 layers the step
+#: took 43.5 s of a 925.8 s script before phase tp trained
+#: recurrentgemma-9b too
+TR_XL_TRAIN_LAYERS = 8
 #: the sLSTM's backward kernel against its plain reverse loop: (B, S, H,
 #: W) of xlstm-1.3b's training call, and a ragged one (W 36: the
 #: cluster's last block part-filled); the forward kernel with and without
@@ -4479,9 +4481,10 @@ def slstm_backward_kernel(torch) -> dict:
 def train_xlstm(torch) -> dict:
     """xLSTM's training on the card: the sLSTM's backward kernel against
     its plain reverse loop; xlstm-1.3b trained at full width, cut to
-    TR_XL_TRAIN_LAYERS layers (32 forward and 16 backward sLSTM launches
-    a replayed step, nothing else of the port's); replay against eager and the card against the
-    CPU at one superblock, in fp32 and in bf16 activations."""
+    TR_XL_TRAIN_LAYERS layers (16 forward and 8 backward sLSTM launches
+    a replayed step at 8 layers, nothing else of the port's); replay
+    against eager and the card against the CPU at one superblock, in fp32
+    and in bf16 activations."""
     t0 = time.perf_counter()
     kern = slstm_backward_kernel(torch)
     emit({"phase": "train_lm", "step": "slstm backward", **kern,
@@ -4884,6 +4887,25 @@ def _mesh_phase(torch, mesh, t_phase: float) -> dict:
             "step_ms_p50": p50["sharded"]}
 
 
+#: the logical axes the split plan splits over ``model``, by config: the
+#: plan each takes on the 1 x 1 mesh, as on the 16 x 16 one
+SPLIT_AXES = {"gemma2-27b": ["heads", "kv_heads", "mlp", "vocab"],
+              "recurrentgemma-9b": ["heads", "mlp", "vocab"],
+              "qwen2-moe-a2.7b": ["experts", "heads", "kv_heads", "mlp",
+                                  "vocab"]}
+
+
+def check_plan(sh, cfg, mesh) -> list:
+    """The axes of the split plan ``cfg`` takes on ``mesh``
+    (``launch.shardings.model_split``), which must be SPLIT_AXES'."""
+    split = sh.model_split(cfg, mesh)
+    got = None if split is None else sorted(split)
+    check(got == SPLIT_AXES[cfg.name],
+          f"{cfg.name} on the mesh {dict(mesh.shape)} takes the plan {got}, "
+          f"want the split plan over {SPLIT_AXES[cfg.name]}")
+    return got
+
+
 #: phase moe_mesh: qwen2-moe-a2.7b at full width cut to MOE_MESH_LAYERS
 #: layers (1,832,675,328 parameters; two states side by side, 2 x 29 GB),
 #: phase mesh's batch, microbatches and numbers of calls
@@ -4891,13 +4913,16 @@ MOE_MESH_LAYERS = 2
 
 
 def phase_moe_mesh(torch) -> dict:
-    """Expert routing over a sharded batch (ROADMAP.md item 8.6b) on the
-    card: a 1 x 1 (data, model) NCCL mesh; qwen2-moe-a2.7b at full width,
+    """Expert routing over a sharded batch (ROADMAP.md item 8.6b) and the
+    experts split over ``model`` (item 8.9c-i) on the card: a 1 x 1 (data,
+    model) NCCL mesh, where ``model`` keeps extent 1 and qwen2-moe-a2.7b
+    takes the split plan (asserted, with its axes); at full width,
     MOE_MESH_LAYERS layers, its state sharded; under deterministic
     algorithms the sharded step, whose MoE layers route each microbatch's
     rows through ``nn.moe.batch_shard`` (the per-(chunk, expert) counts
     summed over the data axis, the aux loss's probabilities through an
-    all-reduce with a gradient), against the unsharded step from the same
+    all-reduce with a gradient) and combine their experts' outputs through
+    the model-axis all-reduce, against the unsharded step from the same
     seed: 3 calls each, metrics and every parameter and moment value for
     value; K5 launches per replayed sharded step; p50 and peak memory side
     by side."""
@@ -4905,6 +4930,7 @@ def phase_moe_mesh(torch) -> dict:
 
     from repro_torch.configs import registry as configs
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.launch import shardings as sh
     from repro_torch.launch.mesh import single_device_mesh
     from repro_torch.nn import module, transformer
 
@@ -4913,6 +4939,7 @@ def phase_moe_mesh(torch) -> dict:
     full = configs.get_config(MOE_ARCH)
     cfg = full.replace(n_layers=MOE_MESH_LAYERS)
     mesh = single_device_mesh()
+    split = check_plan(sh, cfg, mesh)
     trees: list = []
     saved = torch.are_deterministic_algorithms_enabled()
     try:
@@ -4938,6 +4965,7 @@ def phase_moe_mesh(torch) -> dict:
     peak = {k: state_bytes + v for k, v in pair["peak_extra_bytes"].items()}
     free_card(torch)
     out = {"arch": MOE_ARCH, "layers": MOE_MESH_LAYERS,
+           "split_axes": split,
            "reduced": f"n_layers {MOE_MESH_LAYERS} of {full.n_layers}: the "
                       f"sharded and the unsharded state side by side",
            "parameters": module.param_count(transformer.model_specs(cfg)),
@@ -5157,14 +5185,17 @@ def phase_serve_mesh(torch) -> dict:
     launches per replay and nothing else; LM_LANES-lane ticks of the
     sharded serve step against the unsharded tick; then one eager call of
     each, their peaks for phase dryrun.  qwen2-moe-a2.7b cut to
-    MOE_MESH_LAYERS layers: its tick, the counts exchange inside the
-    graph, its kept share the unsharded tick's.  recurrentgemma-9b cut to
-    one superblock: its tick (the ``h``, ``conv``, ``k``, ``v`` and
-    ``kpos`` leaves).  whisper-tiny: the prefill (encode and decode) and
-    its tick."""
+    MOE_MESH_LAYERS layers: its tick through the split plan (asserted, with
+    its axes: the experts' combine summed over ``model``), the counts
+    exchange inside the graph, its kept share the unsharded tick's.
+    recurrentgemma-9b cut to one superblock: its tick through the split
+    plan (asserted: the RG-LRU's channels and heads split; the ``h``,
+    ``conv``, ``k``, ``v`` and ``kpos`` leaves).  whisper-tiny: the prefill
+    (encode and decode) and its tick."""
     import torch.distributed
 
     from repro_torch.configs import registry as configs
+    from repro_torch.launch import shardings as sh
     from repro_torch.launch.mesh import single_device_mesh
     from repro_torch.models import encdec
     from repro_torch.nn import module, transformer
@@ -5203,9 +5234,10 @@ def phase_serve_mesh(torch) -> dict:
         params, line = draw(torch, cfg, MOE_ARCH, module.param_count(
             transformer.model_specs(cfg)))
         sharded = _shard_params(torch, cfg, params, mesh)
-        out["moe"] = {**line, "tick": serve_tick_pair(
-            torch, cfg, params, sharded, mesh, LM_LANES, LM_MAX_LEN, 43,
-            kept=True)}
+        out["moe"] = {**line, "split_axes": check_plan(sh, cfg, mesh),
+                      "tick": serve_tick_pair(
+                          torch, cfg, params, sharded, mesh, LM_LANES,
+                          LM_MAX_LEN, 43, kept=True)}
         del params, sharded
         free_card(torch)
 
@@ -5214,8 +5246,10 @@ def phase_serve_mesh(torch) -> dict:
         params, line = draw(torch, cfg, RG_ARCH, module.param_count(
             transformer.model_specs(cfg)))
         sharded = _shard_params(torch, cfg, params, mesh)
-        out["recurrent"] = {**line, "tick": serve_tick_pair(
-            torch, cfg, params, sharded, mesh, LM_LANES, LM_MAX_LEN, 44)}
+        out["recurrent"] = {**line, "split_axes": check_plan(sh, cfg, mesh),
+                            "tick": serve_tick_pair(
+                                torch, cfg, params, sharded, mesh, LM_LANES,
+                                LM_MAX_LEN, 44)}
         del params, sharded
         free_card(torch)
 
@@ -5258,7 +5292,8 @@ def phase_serve_mesh(torch) -> dict:
 #: its compute over model (the split plan); the train step cut to one
 #: superblock (a local and a global layer) in 4 microbatches, the prefill
 #: to two superblocks; calls of each train step (the first eager, then
-#: replays)
+#: replays).  recurrentgemma-9b's train step cut to one superblock (two
+#: RG-LRU layers and a local one) in as many microbatches
 TP_ARCH, TP_TRAIN_LAYERS, TP_PREFILL_LAYERS, TP_CALLS = "gemma2-27b", 2, 4, 3
 TP_MICRO = 4
 
@@ -5271,7 +5306,7 @@ def _tp_train(torch, cfg, mesh, batches, sharded: bool) -> dict:
     card when it started, and the final parameters and moments leaf by
     leaf, the live tensors on the card but, where ``sharded``, the second
     moments copied to the host (the other run's peak leaves room for the
-    rest: 51.3 + 18.5 GB at 2 layers)."""
+    rest: 51.3 + 18.5 GB at gemma2-27b's 2 layers)."""
     from repro_torch.configs import registry as configs
     from repro_torch.kernels import registry
     from repro_torch.launch import shardings as sh
@@ -5326,26 +5361,85 @@ def _tp_train(torch, cfg, mesh, batches, sharded: bool) -> dict:
     return out
 
 
-def phase_tp(torch) -> dict:
-    """Tensor parallelism over ``model`` (ROADMAP.md item 8.9a) on the
-    card: gemma2-27b at full width on a 1 x 1 (data, model) NCCL mesh,
-    where ``prune_spec`` keeps ``model`` at extent 1 and the config takes
-    the split plan, under deterministic algorithms.  The train step cut to
-    TP_TRAIN_LAYERS layers, TR_BATCH x TR_SEQ in TP_MICRO microbatches:
-    the sharded step (first call, then replays of its captured graph, the
-    model-group all-reduces inside) against the unsharded one from the
-    same seed, run one after the other (two states do not fit), metrics
-    and every parameter and moment value for value; K5 launches per
-    replayed step; peaks within MESH_PEAK_RATIO of each other; p50 of
-    each, printed.  Then the sharded prefill at TP_PREFILL_LAYERS layers,
-    LM_PREFILL_B x LM_PREFILL_S, against the unsharded one, and
-    SERVE_TICKS replayed LM_LANES-lane ticks against the unsharded ticks:
-    tokens, logits and every cache leaf value for value."""
-    import torch.distributed
-
+def tp_train_pair(torch, arch: str, layers: int, mesh) -> dict:
+    """``arch``'s split-plan train step (its plan asserted) against its
+    unsharded step, ``layers`` layers at full width, TR_BATCH x TR_SEQ in
+    TP_MICRO microbatches, one run after the other from one seed (two
+    states do not fit): metrics and every parameter and moment value for
+    value; K5 launches per replayed step, twice per attending layer and
+    microbatch (the forward and its recompute under remat); peaks within
+    MESH_PEAK_RATIO of each other; the p50 of each, printed."""
     from repro_torch.configs import registry as configs
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.launch import shardings as sh
+    from repro_torch.nn import module, transformer
+
+    t0 = time.perf_counter()
+    full = configs.get_config(arch)
+    cfg = full.replace(n_layers=layers, microbatches=TP_MICRO)
+    split = check_plan(sh, full, mesh)
+    pipe = SyntheticTokenPipeline(DataConfig(
+        seq_len=TR_SEQ, global_batch=TR_BATCH, vocab_size=cfg.vocab_size))
+    batches = [pipe.batch_at(i) for i in range(TP_CALLS)]
+    runs = {label: _tp_train(torch, cfg, mesh, batches, label == "sharded")
+            for label in ("sharded", "unsharded")}
+    differ = 0
+    for a, b in zip(runs["sharded"].pop("leaves"),
+                    runs["unsharded"].pop("leaves")):
+        a = a.to(b.device)
+        differ += 0 if torch.equal(a, b) else value_diff(torch, a, b)
+        del a, b
+    free_card(torch)
+    check(runs["sharded"]["metrics"] == runs["unsharded"]["metrics"],
+          f"tp {arch}: the sharded step's metrics "
+          f"{runs['sharded']['metrics']} against the unsharded step's "
+          f"{runs['unsharded']['metrics']}")
+    check(differ == 0, f"tp {arch}: the sharded step's parameters and "
+                       f"moments differ from the unsharded step's in "
+                       f"{differ} values")
+    want = {"flash_attention": 2 * attention_layers(cfg) * cfg.microbatches}
+    for label, r in runs.items():
+        check(r["replayed"] and r["launches"] == want,
+              f"tp {arch} {label}: a replayed step launched "
+              f"{r['launches']}, want {want} (per attending layer and "
+              f"microbatch, the forward twice under remat)")
+    ratio = runs["sharded"]["peak_bytes"] / runs["unsharded"]["peak_bytes"]
+    check(ratio <= MESH_PEAK_RATIO,
+          f"tp {arch}: the sharded step's peak is {ratio:.4f} of the "
+          f"unsharded step's")
+    p50 = {k: statistics.median(v["step_ms"]) for k, v in runs.items()}
+    print(f"tp {arch}: p50 split {p50['sharded']:.2f} ms, unsharded "
+          f"{p50['unsharded']:.2f} ms, peak ratio {ratio:.4f}", flush=True)
+    n = module.param_count(transformer.model_specs(cfg))
+    return {"arch": arch, "split_axes": split, "layers": cfg.n_layers,
+            "batch": TR_BATCH, "seq": TR_SEQ,
+            "microbatches": cfg.microbatches, "calls": TP_CALLS,
+            "parameters": n,
+            "reduced": f"n_layers {cfg.n_layers} of {full.n_layers}: one "
+                       f"state of {cfg.n_layers} layers at full width is "
+                       f"{16 * n / 1e9:.1f} GB",
+            "values_differing": differ, "runs": runs, "step_ms_p50": p50,
+            "p50_ratio": p50["sharded"] / p50["unsharded"],
+            "peak_ratio": ratio, "seconds": time.perf_counter() - t0}
+
+
+def phase_tp(torch) -> dict:
+    """Tensor parallelism over ``model`` (ROADMAP.md items 8.9a, 8.9d) on
+    the card: a 1 x 1 (data, model) NCCL mesh, where ``prune_spec`` keeps
+    ``model`` at extent 1 and a config takes the split plan it takes on
+    16 x 16, under deterministic algorithms.  The train step
+    (:func:`tp_train_pair`: the first call, then replays of its captured
+    graph, the model-group all-reduces inside) of gemma2-27b at
+    TP_TRAIN_LAYERS layers and of recurrentgemma-9b at one superblock
+    (its RG-LRU layers' channels and heads split, its local layer's one KV
+    head whole), each against the unsharded step, value for value.  Then
+    gemma2-27b's sharded prefill at TP_PREFILL_LAYERS layers, LM_PREFILL_B
+    x LM_PREFILL_S, against the unsharded one, and SERVE_TICKS replayed
+    LM_LANES-lane ticks against the unsharded ticks: tokens, logits and
+    every cache leaf value for value."""
+    import torch.distributed
+
+    from repro_torch.configs import registry as configs
     from repro_torch.launch.mesh import single_device_mesh
     from repro_torch.nn import module, transformer
 
@@ -5357,59 +5451,14 @@ def phase_tp(torch) -> dict:
     out: dict = {"arch": TP_ARCH, "mesh": dict(mesh.shape),
                  "backend": "nccl", "deterministic": True}
     try:
-        split = sh.model_split(full, mesh)
-        check(split is not None and sorted(split) == [
-            "heads", "kv_heads", "mlp", "vocab"],
-              f"{TP_ARCH} on the 1 x 1 mesh takes the plan {split}")
-        out["split_axes"] = sorted(split)
         torch.use_deterministic_algorithms(True)
-        cfg = full.replace(n_layers=TP_TRAIN_LAYERS, microbatches=TP_MICRO)
-        pipe = SyntheticTokenPipeline(DataConfig(
-            seq_len=TR_SEQ, global_batch=TR_BATCH,
-            vocab_size=cfg.vocab_size))
-        batches = [pipe.batch_at(i) for i in range(TP_CALLS)]
-        t0 = time.perf_counter()
-        runs = {label: _tp_train(torch, cfg, mesh, batches, label ==
-                                 "sharded")
-                for label in ("sharded", "unsharded")}
-        differ = 0
-        for a, b in zip(runs["sharded"].pop("leaves"),
-                        runs["unsharded"].pop("leaves")):
-            a = a.to(b.device)
-            differ += 0 if torch.equal(a, b) else value_diff(torch, a, b)
-            del a, b
-        free_card(torch)
-        train_s = time.perf_counter() - t0
-        check(runs["sharded"]["metrics"] == runs["unsharded"]["metrics"],
-              f"tp: the sharded step's metrics {runs['sharded']['metrics']} "
-              f"against the unsharded step's "
-              f"{runs['unsharded']['metrics']}")
-        check(differ == 0, f"tp: the sharded step's parameters and moments "
-                           f"differ from the unsharded step's in {differ} "
-                           f"values")
-        want = {"flash_attention": 2 * cfg.n_layers * cfg.microbatches}
-        for label, r in runs.items():
-            check(r["replayed"] and r["launches"] == want,
-                  f"tp {label}: a replayed step launched {r['launches']}, "
-                  f"want {want} (per layer and microbatch, the forward "
-                  f"twice under remat)")
-        ratio = runs["sharded"]["peak_bytes"] / runs["unsharded"]["peak_bytes"]
-        check(ratio <= MESH_PEAK_RATIO,
-              f"tp: the sharded step's peak is {ratio:.4f} of the "
-              f"unsharded step's")
-        p50 = {k: statistics.median(v["step_ms"]) for k, v in runs.items()}
-        out["train"] = {
-            "layers": cfg.n_layers, "batch": TR_BATCH, "seq": TR_SEQ,
-            "microbatches": cfg.microbatches, "calls": TP_CALLS,
-            "parameters": module.param_count(transformer.model_specs(cfg)),
-            "reduced": f"n_layers {cfg.n_layers} of {full.n_layers}: one "
-                       f"state of 2 layers at full width is 37 GB",
-            "values_differing": differ, "runs": runs, "step_ms_p50": p50,
-            "p50_ratio": p50["sharded"] / p50["unsharded"],
-            "peak_ratio": ratio, "seconds": train_s}
+        out["train"] = tp_train_pair(torch, TP_ARCH, TP_TRAIN_LAYERS, mesh)
+        out["split_axes"] = out["train"]["split_axes"]
+        rg = configs.get_config(RG_ARCH)
+        out["recurrent_train"] = tp_train_pair(
+            torch, RG_ARCH, len(rg.attn_pattern), mesh)
 
         t0 = time.perf_counter()
-
         cfg = full.replace(n_layers=TP_PREFILL_LAYERS)
         params, line = draw(torch, cfg, TP_ARCH, module.param_count(
             transformer.model_specs(cfg)))
@@ -5434,7 +5483,9 @@ def phase_tp(torch) -> dict:
     free_card(torch)
     out["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "tp", **out})
-    return {"train_launches": runs["sharded"]["launches"],
+    return {"train_launches": out["train"]["runs"]["sharded"]["launches"],
+            "recurrent_train_launches":
+                out["recurrent_train"]["runs"]["sharded"]["launches"],
             "prefill_launches": pre["launches_per_replay"]}
 
 
@@ -5446,7 +5497,9 @@ DRY_TINY = ("gemma2-27b", {"pod": 2, "data": 2, "model": 2}, 8, 32)
 #: the split plan's serving cells on the 16 x 16 fake world, which must
 #: fit in 80 GB with nothing gathered
 DRY_TP_CELLS = (("gemma2-27b", "prefill_32k"), ("gemma2-27b", "decode_32k"),
-                ("stablelm-3b", "decode_32k"))
+                ("stablelm-3b", "prefill_32k"), ("stablelm-3b", "decode_32k"),
+                ("recurrentgemma-9b", "decode_32k"),
+                ("qwen2-moe-a2.7b", "decode_32k"))
 #: gemma2-27b's prefill_32k FLOPs per device under the gather plan, where
 #: every rank of a model group of 16 repeated the group's compute (the
 #: dry-run's record on an H100 80GB HBM3 at 700 W, PERF.md section 6); the
@@ -5717,6 +5770,7 @@ def main() -> int:
     by_path["serve_mesh_tick"] = smsh["lm_tick_launches"]
     by_path["serve_mesh_whisper_prefill"] = smsh["whisper_prefill_launches"]
     by_path["tp_train_step"] = tpr["train_launches"]
+    by_path["tp_recurrent_train_step"] = tpr["recurrent_train_launches"]
     by_path["tp_prefill"] = tpr["prefill_launches"]
     rows = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -16,8 +16,9 @@ whole is wrapped as it is, with no copy (every leaf on a 1 x 1 mesh).
 :func:`model_split` decides, from the pruned shardings alone, which plan
 the sharded steps (``launch.steps``) take over ``model``: the split plan,
 which computes on each rank's blocks (``nn.tensor_parallel``), where every
-leaf split over ``model`` is an attention, MLP or vocabulary leaf; else the
-gather plan, which gathers the split leaves whole for the compute.
+leaf split over ``model`` is an attention, MLP, RG-LRU, MoE expert or
+vocabulary leaf (``nn.tensor_parallel.SPLIT_LEAVES``); else the gather
+plan, which gathers the split leaves whole for the compute.
 """
 
 from __future__ import annotations
@@ -139,12 +140,19 @@ def model_split(cfg: ModelConfig, mesh) -> Optional[frozenset]:
 
     The split plan: the mesh has a ``model`` axis, no parameter is split
     over any other, and every leaf the pruned rules split over ``model``
-    is an attention ``q``/``k``/``v``/``o`` kernel or bias over ``heads``
-    or ``kv_heads``, an MLP ``wi``/``wg``/``wo`` over ``mlp``, or
-    ``embed/table`` or ``unembed/kernel`` over ``vocab``; and each of
-    those axes is split in every leaf that has it.  A 1 x 1 mesh keeps
-    ``model`` at extent 1, so a config takes the same plan there as on
-    the production mesh.  An encoder-decoder takes the gather plan."""
+    is one of ``nn.tensor_parallel.SPLIT_LEAVES`` under its axis (an
+    attention ``q``/``k``/``v``/``o`` kernel or bias over ``heads`` or
+    ``kv_heads``; an MLP's or the MoE shared expert's ``wi``/``wg``/``wo``
+    over ``mlp``; an RG-LRU leaf over ``mlp`` or, its gates' kernels,
+    ``heads``; an expert's ``wi``/``wg``/``wo`` over ``experts``;
+    ``embed/table`` or ``unembed/kernel`` over ``vocab``); each of those
+    axes is split in every leaf that has it; and the blocks a layer
+    combines line up: an RG-LRU's heads are split where its channels are
+    (a rank's heads of its block-diagonal gates are then exactly its
+    channels'), and an MoE's experts where its shared expert's columns are
+    (one sum over ``model`` takes both).  A 1 x 1 mesh keeps ``model`` at
+    extent 1, so a config takes the same plan there as on the production
+    mesh.  An encoder-decoder takes the gather plan."""
     if "model" not in mesh.shape or cfg.is_encoder_decoder:
         return None
     from repro_torch.nn import transformer
@@ -168,6 +176,11 @@ def model_split(cfg: ModelConfig, mesh) -> Optional[frozenset]:
     if not walk(spec_shardings(cfg, mesh), axes, ()):
         return None
     if any(name in split and not on for name, on in carried):
+        return None
+    if "rglru" in cfg.attn_pattern and ("heads" in split) != ("mlp" in split):
+        return None
+    if cfg.n_experts and cfg.n_shared_experts and \
+            ("experts" in split) != ("mlp" in split):
         return None
     return frozenset(split)
 
@@ -200,10 +213,12 @@ def cache_shardings(cfg: ModelConfig, batch: int, max_len: int, mesh
     """The decode cache's shardings, by the plan the config takes
     (:func:`model_split`).
 
-    * The split plan computes each rank's KV heads, so its cache takes the
-      binding rules' split, the reference's: ``batch`` over the data axes
-      and ``kv_heads`` over ``model`` (whole where ``prune_spec`` drops
-      it: every rank then projects and writes all the KV heads).
+    * The split plan computes each rank's KV heads and RG-LRU channels,
+      so its cache takes the binding rules' split, the reference's:
+      ``batch`` over the data axes, ``kv_heads`` over ``model`` (whole
+      where ``prune_spec`` drops it: every rank then projects and writes
+      all the KV heads), and an RG-LRU layer's ``h`` and ``conv`` over
+      ``model`` along ``mlp``.
     * The gather plan runs each rank's rows on whole, gathered parameters,
       so its cache keeps only the ``batch`` split and each rank holds its
       rows' whole cache; split over the heads it would be gathered and
@@ -219,7 +234,8 @@ def init_sharded_cache(cfg: ModelConfig, batch: int, max_len: int, mesh
                        ) -> Any:
     """A decoder's zero decode cache as DTensors under
     :func:`cache_shardings`, each rank allocating only its own blocks: its
-    rows, and its KV heads where the split plan splits them."""
+    rows, and its KV heads and RG-LRU channels where the split plan splits
+    them."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.nn import transformer
@@ -229,9 +245,12 @@ def init_sharded_cache(cfg: ModelConfig, batch: int, max_len: int, mesh
                                    rules_for(cfg)), (batch,))[0]
     local_cfg = cfg
     split = model_split(cfg, mesh) or frozenset()
-    if "kv_heads" in split and cfg.n_kv_heads % mesh.shape["model"] == 0:
-        local_cfg = cfg.replace(n_kv_heads=cfg.n_kv_heads
-                                // mesh.shape["model"])
+    ways = mesh.shape.get("model", 1)
+    if "kv_heads" in split and cfg.n_kv_heads % ways == 0:
+        local_cfg = local_cfg.replace(n_kv_heads=cfg.n_kv_heads // ways)
+    if "mlp" in split and "rglru" in cfg.attn_pattern:
+        local_cfg = local_cfg.replace(
+            lru_width=(cfg.lru_width or cfg.d_model) // ways)
     local = transformer.init_cache(local_cfg, rows.stop - rows.start,
                                    max_len, device=mesh.device_type)
 

@@ -23,12 +23,14 @@ state).  Over ``model`` it takes one of two plans, decided once from the
 pruned shardings (``launch.shardings.model_split``; no flag chooses it):
 
 * **the split plan**, where every leaf the rules split over ``model`` is
-  an attention, MLP or vocabulary leaf (gemma2-27b and stablelm-3b, which
-  keep the default rules): each rank computes on its own blocks, as the
-  reference's tensor-parallel program does (``nn.tensor_parallel``:
-  column- and row-parallel projections, the vocabulary split over the
-  ranks, the decode cache split over its KV heads), entered around each
-  microbatch's forward and backward;
+  an attention, MLP, RG-LRU, MoE expert or vocabulary leaf (gemma2-27b,
+  stablelm-3b, recurrentgemma-9b and qwen2-moe-a2.7b): each rank computes
+  on its own blocks, as the reference's tensor-parallel program does
+  (``nn.tensor_parallel``: column- and row-parallel projections, the
+  RG-LRU's channels and the MoE's experts local to a rank, the vocabulary
+  split over the ranks, the decode cache split over its KV heads and
+  RG-LRU channels), entered around each microbatch's forward and
+  backward;
 * **the gather plan**, for every other config: each rank gathers every
   parameter that is split over ``model`` into a whole buffer and runs its
   data block's whole step on it; the same values, other memory and
@@ -52,9 +54,10 @@ Each rank:
 What the port does not copy: the data reduction is an all-reduce of each
 fp32 gradient (each rank keeps it while it updates its blocks), where
 GSPMD reduce-scatters into the gradient's shardings (ROADMAP.md item
-8.9e); and the split plan covers heads, KV heads, MLP and vocabulary
-leaves only, so a config whose rules split ``head_dim``, experts or the
-RG-LRU's leaves over ``model`` takes the gather plan (items 8.9b-8.9d).
+8.9e); and the split plan covers the leaves of
+``nn.tensor_parallel.SPLIT_LEAVES`` only, so a config whose rules split
+``head_dim`` or ``expert_mlp`` over ``model`` takes the gather plan
+(items 8.9b and 8.9c-ii).
 
 An MoE layer's capacity counts the whole microbatch.  Each rank routes its
 rows as the whole microbatch would, exchanging the per-(chunk, expert)
@@ -74,7 +77,8 @@ The pieces the train step has besides are shared with it, not copied
 parameter gather, which serving's plan makes once per parameter set (its
 weights do not change between calls).  The decode cache takes
 ``launch.shardings.cache_shardings``: the rules' split under the split
-plan (rows over the data axes, KV heads over ``model``), the rows' alone
+plan (rows over the data axes, KV heads and RG-LRU channels over
+``model``), the rows' alone
 under the gather plan, each rank then writing its rows' whole cache in
 place where the reference's GSPMD program splits its heads over
 ``model`` as well: the same values, other memory.
@@ -614,8 +618,8 @@ class _ServePlan(_Placement):
         """Each cache leaf must be split as
         ``launch.shardings.cache_shardings`` splits it: over the rows'
         data axes along its ``batch`` dimension, and under the split plan
-        over ``model`` along its ``kv_heads`` dimension where the rules
-        keep it, nowhere else."""
+        over ``model`` along its ``kv_heads`` and ``mlp`` dimensions where
+        the rules keep them, nowhere else."""
         want_rows = entry_axes(self.split.spec[0])
 
         def one(t, ax):
@@ -709,14 +713,15 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
     **Sharded** when the parameters and the cache are DTensors (the cache
     under ``launch.shardings.cache_shardings``): as :func:`make_prefill`,
     each rank runs its rows, on its parameter blocks under the split plan
-    (its KV heads' cache blocks), else on the whole parameters gathered
-    once per parameter set (its rows' whole cache), and writes its local
-    cache blocks in place; the logits' vocabulary is gathered whole before
-    the greedy token.  An MoE layer's capacity counts every lane of
-    the whole batch (ROADMAP.md R7), its counts exchanged over the data
-    axes.  Returns the tokens as a DTensor split over the data axes, and
-    the cache.  On the card each call replays one captured graph per
-    batch shape and cache; on the CPU it runs eagerly.
+    (its KV heads' and RG-LRU channels' cache blocks), else on the whole
+    parameters gathered once per parameter set (its rows' whole cache),
+    and writes its local cache blocks in place; the logits' vocabulary is
+    gathered whole before the greedy token.  An MoE layer's capacity
+    counts every lane of the whole batch (ROADMAP.md R7), its counts
+    exchanged over the data axes.  Returns the tokens as a DTensor split
+    over the data axes, and the cache.  On the card each call replays one
+    captured graph per batch shape and cache; on the CPU it runs
+    eagerly.
     ``serve_step.eager`` runs without a graph anywhere;
     ``serve_step.prepare`` is ``make_prefill``'s; ``serve_step.logits()``
     gives the last sharded call's (B, vocab) fp32 logits as a DTensor."""

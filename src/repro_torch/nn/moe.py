@@ -27,6 +27,20 @@ ascending expert id, from zeros in the activation dtype: the order of the
 reference's scatter-add over the sorted assignments.  An atomic
 ``index_add_`` there would add them in no fixed order, and at bf16 a
 replayed step would then not equal the eager one.
+
+Under tensor parallelism (:mod:`repro_torch.nn.tensor_parallel`, where the
+rules split ``experts`` and the shared expert's ``mlp`` over ``model``)
+each rank of a model group holds its contiguous block of the (padded)
+experts and the shared expert's columns.  The router and the plan run
+whole on every rank, on the same activations, so every rank routes alike;
+the dispatch buffer and the expert products hold the rank's experts only
+(a rank of padding experts alone computes zeros), the shared expert is
+column- then row-parallel, and the rank's combined output, its experts'
+contributions plus its part of the gated shared output, is summed over
+``model``: one all-reduce per layer.  The gradients of the layer's input,
+the router and the shared gate are then partial on each rank, and summed
+over ``model`` (``copy_to_model``); the aux loss, whole on every rank,
+passes 1/ways of its gradient on each (``once_over_model``).
 """
 
 from __future__ import annotations
@@ -38,6 +52,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.nn import tensor_parallel as tp
 from repro_torch.nn.layers import activation, matmul_f32, maybe_quantize
 from repro_torch.nn.module import ParamSpec
 
@@ -267,6 +282,11 @@ def moe(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     microbatch's, on every rank, and its gradient reaches each rank's
     router through the summed probabilities: a caller that sums the ranks'
     gradients weighs it by 1/ways.
+
+    Under tensor parallelism (the module docstring) ``p``'s experts and
+    shared columns are this rank's block: the buffer and the expert
+    activations hold its E/ways experts' rows, and ``y`` is summed over
+    ``model`` (the value of every rank's combine together).
     """
     if not 0 < top_k <= n_experts:
         raise ValueError(f"top_k {top_k} of {n_experts} real experts")
@@ -279,28 +299,37 @@ def moe(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     dt = x.dtype
     f = activation(act)
     q = lambda w: _operand(maybe_quantize(w, quant), dt)  # noqa: E731
-    router = maybe_quantize(p["router"]["kernel"], quant).to(ACCUM)
-    xt = x.reshape(n_l, d)
+    # the router and the shared gate are whole on every rank of a model
+    # group, and their gradients partial where the experts are split
+    router = tp.copy_to_model(maybe_quantize(p["router"]["kernel"], quant)
+                              .to(ACCUM), "experts")
+    xt = tp.copy_to_model(x.reshape(n_l, d), "experts")
     r, counts, psum = _plan(xt, router, n_experts=n_experts, top_k=top_k,
                             capacity_factor=capacity_factor, chunks=t,
                             offset=index * n_l, chunk_size=n // t,
                             shard=shard)
-    e_pad = router.shape[-1]
+    ex = p["experts"]
+    held = tp.block(router.shape[-1], "experts")      # this rank's experts
     rows = r.chunks * r.rows
+    n_rows = (held.stop - held.start) * rows
+    # the slots of this rank's experts, and its assignments' weights: 0
+    # for the other ranks' experts
+    slot = r.slot - held.start * rows
+    keep = r.keep * ((slot >= 0) & (slot < n_rows))
+    slot = slot.clamp(0, n_rows - 1)
 
     # dispatch: a dropped assignment adds an exact 0 to a clamped slot, so
     # the (atomic) index_add_ gives the same buffer in any order
-    buf = torch.zeros(e_pad * rows, d, dtype=dt, device=x.device)
-    buf.index_add_(0, r.slot, xt[r.token] * r.keep[:, None].to(dt))
-    buf = buf.reshape(e_pad, rows, d)
-    ex = p["experts"]
+    buf = torch.zeros(n_rows, d, dtype=dt, device=x.device)
+    buf.index_add_(0, slot, xt[r.token] * keep[:, None].to(dt))
+    buf = buf.reshape(-1, rows, d)
     h = matmul_f32(buf, q(ex["wi"]))
     g = matmul_f32(buf, q(ex["wg"]))
     h = (f(g) * h).to(dt)
-    out = matmul_f32(h, q(ex["wo"])).to(dt)               # (E, T_l·rows, d)
+    out = matmul_f32(h, q(ex["wo"])).to(dt)             # (E_l, T_l·rows, d)
 
-    tok_out = out.reshape(e_pad * rows, d)[r.slot]           # (NK, d)
-    tok_out = tok_out * (r.gate * r.keep)[:, None].to(dt)
+    tok_out = out.reshape(n_rows, d)[slot]                   # (NK, d)
+    tok_out = tok_out * (r.gate * keep)[:, None].to(dt)
     # combine: each token's contributions at their sorted positions, which
     # ascend with the expert id, added in that order
     nk = r.order.numel()
@@ -318,12 +347,15 @@ def moe(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
         gg = matmul_f32(xt, q(sh["wg"]))
         hh = (f(gg) * hh).to(dt)
         sh_out = matmul_f32(hh, q(sh["wo"]))
-        sh_gate = torch.sigmoid(xt.to(ACCUM) @ sh["gate"].to(ACCUM))
+        sh_gate = torch.sigmoid(xt.to(ACCUM) @ tp.copy_to_model(
+            sh["gate"].to(ACCUM), "experts"))
         y = y + (sh_out * sh_gate).to(dt)
+    y = tp.reduce_from_model(y, "experts")
 
     # Switch-style load-balancing loss of each chunk of the whole
-    # microbatch, then their mean (the same value on every data rank)
+    # microbatch, then their mean (the same value on every data rank, and
+    # on every rank of a model group)
     frac_tokens = counts.to(ACCUM) / (n // t * top_k)
     mean_prob = psum / (n // t)
     aux = n_experts * torch.sum(frac_tokens * mean_prob, dim=-1)
-    return y.reshape(b, s, d), torch.mean(aux)
+    return y.reshape(b, s, d), tp.once_over_model(torch.mean(aux), "experts")

@@ -19,6 +19,15 @@ computes any of this: it runs as PyTorch operations on the card.
 A decode step writes its new state into the cache it was given, in place
 (``copy_``): the engine's captured decode step holds that cache, and a
 state rebound in a returned dict would not reach it.
+
+Under tensor parallelism (:mod:`repro_torch.nn.tensor_parallel`, where the
+rules split ``mlp`` and ``heads`` over ``model``) each rank computes its
+block of the channels: ``in_x`` and ``in_gate`` column-parallel, the conv,
+the gates and the recurrence on its own channels (its heads of the
+block-diagonal gates are exactly its channels': ``launch.shardings.
+model_split`` takes the split plan only then), ``out`` row-parallel, its
+partial sums added over ``model``.  The decode cache then holds the rank's
+channels, updated in place as above.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.nn import tensor_parallel as tp
 from repro_torch.nn.layers import matmul_f32, maybe_quantize
 from repro_torch.nn.module import ParamSpec
 
@@ -143,9 +153,14 @@ def rglru_block(p: dict, x: torch.Tensor, *, n_heads: int,
     y = W_out( gelu(W_gate x) * RGLRU(conv4(W_x x)) )
 
     cache (decode): {"h": (B, W) fp32, "conv": (B, cw-1, W)}, written in
-    place and returned; None for the prefill.
+    place and returned; None for the prefill.  ``n_heads`` is the layer's;
+    under tensor parallelism ``p``, the cache and W are the rank's block of
+    the channels, and the gates run on its block of the heads.
     """
     dt = x.dtype
+    heads = tp.block(n_heads, "heads")
+    n_heads = heads.stop - heads.start
+    x = tp.copy_to_model(x, "mlp")
     w_x = maybe_quantize(p["in_x"]["kernel"], quant).to(dt)
     w_g = maybe_quantize(p["in_gate"]["kernel"], quant).to(dt)
     xb = matmul_f32(x, w_x).to(dt)
@@ -160,7 +175,7 @@ def rglru_block(p: dict, x: torch.Tensor, *, n_heads: int,
         y_rec, _ = rglru_scan(p, xc, n_heads=n_heads)
     y = F.gelu(gb, approximate="tanh").to(dt) * y_rec
     w_o = maybe_quantize(p["out"]["kernel"], quant).to(dt)
-    return matmul_f32(y, w_o).to(dt), cache
+    return tp.reduce_from_model(matmul_f32(y, w_o), "mlp").to(dt), cache
 
 
 def init_rglru_cache(batch: int, lru_width: int, conv_width: int = 4,

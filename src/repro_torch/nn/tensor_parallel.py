@@ -6,11 +6,14 @@ programs, and XLA's partitioner splits every matmul that touches a split
 parameter.  The port's sharded steps (``launch.steps``) split the compute
 themselves, Megatron's way, for the leaves the plan allows
 (``launch.shardings.model_split``): attention over ``heads`` and
-``kv_heads``, the MLP over ``mlp``, the embedding and the unembedding over
-``vocab``.  The layers call the functions here with the logical axis a
-product splits over; each applies only where :func:`model_shard` is
-entered and the rules split that axis.  Outside it every function is the
-unsplit computation, so the unsharded path runs the same code.
+``kv_heads``, the MLP and the MoE's shared expert over ``mlp``, the RG-LRU
+over ``mlp`` (its channels) and ``heads`` (its block-diagonal gates, whose
+heads are its channels' own), the MoE's experts over ``experts``, the
+embedding and the unembedding over ``vocab``.  The layers call the
+functions here with the logical axis a product splits over; each applies
+only where :func:`model_shard` is entered and the rules split that axis.
+Outside it every function is the unsplit computation, so the unsharded
+path runs the same code.
 
 * :func:`copy_to_model` — a column-parallel product's input: identity
   forward, its gradient all-reduced over ``model`` backward;
@@ -26,7 +29,11 @@ unsplit computation, so the unsharded path runs the same code.
   ``argmax`` gives the first index of the maximum, as the reference's does;
 * :func:`kv_heads` — the KV heads a rank's query heads attend with where
   the query heads are split and the KV heads are not (``prune_spec``
-  replicates them where their count does not divide ``model``).
+  replicates them where their count does not divide ``model``);
+* :func:`block` — the entries of a split axis a rank holds (the RG-LRU's
+  heads, the MoE's experts);
+* :func:`once_over_model` — a term every rank computes whole (the MoE's
+  load-balancing loss), its gradient taken once over the group's sums.
 
 A module global, as ``nn.moe.batch_shard``: the train step enters it
 around each microbatch's forward and backward (under remat the backward
@@ -47,10 +54,10 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelShard:
     """One rank's place along ``model``: its ``index`` of ``ways``, the
-    logical axes the rules split over it (of "heads", "kv_heads", "mlp"
-    and "vocab"), and the group's collectives: ``reduce(t, op)`` in place
-    (op "sum" or "max"), ``gather(t)`` along the last dimension in rank
-    order."""
+    logical axes the rules split over it (of "heads", "kv_heads", "mlp",
+    "experts" and "vocab"), and the group's collectives: ``reduce(t, op)``
+    in place (op "sum" or "max"), ``gather(t)`` along the last dimension
+    in rank order."""
 
     index: int
     ways: int
@@ -83,9 +90,12 @@ def is_split(axis: Optional[str]) -> bool:
 #: plan's (``launch.shardings.model_split``): (the end of the leaf's path,
 #: the logical axis split; the vocabulary leaves' paths are whole).  The
 #: attention's q/k/v are split by ``nn.attention.qkv_project``, its o by
-#: ``out_project``; the MLP's by ``nn.layers.mlp``; the table by
-#: ``nn.layers.embed`` and ``unembed``, the unembedding by ``nn.layers.dense``
-#: at ``out_axis="vocab"``.  A leaf added here needs its layer's split.
+#: ``out_project``; the MLP's by ``nn.layers.mlp``; the RG-LRU's by
+#: ``nn.rglru.rglru_block`` (in_x/in_gate column-parallel, out row-parallel,
+#: the rest per channel or per head); the MoE's experts and shared expert
+#: by ``nn.moe.moe``; the table by ``nn.layers.embed`` and ``unembed``, the
+#: unembedding by ``nn.layers.dense`` at ``out_axis="vocab"``.  A leaf added
+#: here needs its layer's split.
 SPLIT_LEAVES = (
     (("mixer", "q", "kernel"), "heads"), (("mixer", "q", "bias"), "heads"),
     (("mixer", "k", "kernel"), "kv_heads"),
@@ -94,6 +104,19 @@ SPLIT_LEAVES = (
     (("mixer", "v", "bias"), "kv_heads"),
     (("mixer", "o", "kernel"), "heads"),
     (("mlp", "wi"), "mlp"), (("mlp", "wg"), "mlp"), (("mlp", "wo"), "mlp"),
+    (("mixer", "in_x", "kernel"), "mlp"),
+    (("mixer", "in_gate", "kernel"), "mlp"),
+    (("mixer", "conv", "kernel"), "mlp"), (("mixer", "conv", "bias"), "mlp"),
+    (("mixer", "gate_a", "kernel"), "heads"),
+    (("mixer", "gate_a", "bias"), "mlp"),
+    (("mixer", "gate_x", "kernel"), "heads"),
+    (("mixer", "gate_x", "bias"), "mlp"),
+    (("mixer", "lamb"), "mlp"), (("mixer", "out", "kernel"), "mlp"),
+    (("moe", "experts", "wi"), "experts"),
+    (("moe", "experts", "wg"), "experts"),
+    (("moe", "experts", "wo"), "experts"),
+    (("moe", "shared", "wi"), "mlp"), (("moe", "shared", "wg"), "mlp"),
+    (("moe", "shared", "wo"), "mlp"),
     (("embed", "table"), "vocab"),
     (("unembed", "kernel"), "vocab"),
 )
@@ -149,6 +172,37 @@ def reduce_from_model(x: torch.Tensor, axis: Optional[str]
     if not torch.is_grad_enabled():
         return _shard.reduce(x, "sum")
     return _ReduceFromModel.apply(x, _shard.reduce)
+
+
+def block(n: int, axis: Optional[str]) -> slice:
+    """The entries of ``n`` along the logical ``axis`` that this rank's
+    block holds: its ``ways``-th part in rank order where the entered shard
+    splits the axis, else all of them."""
+    if not is_split(axis):
+        return slice(0, n)
+    per = n // _shard.ways
+    return slice(_shard.index * per, (_shard.index + 1) * per)
+
+
+class _OnceOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ways):
+        ctx.ways = ways
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.ways, None
+
+
+def once_over_model(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+    """``x``, a value every rank of the group computes whole from whole
+    inputs, where the other terms of its layer's gradient are partial and
+    summed over ``model`` (by :func:`copy_to_model`): the same value, its
+    gradient ``1/ways`` on each rank, so the sums count it once."""
+    if not is_split(axis) or not torch.is_grad_enabled():
+        return x
+    return _OnceOverModel.apply(x, _shard.ways)
 
 
 def embedding(table: torch.Tensor, ids: torch.Tensor, dtype) -> torch.Tensor:

@@ -2,17 +2,19 @@
 plan of ``launch.steps``) on a real mesh of processes, held against the
 reference's GSPMD programs with the same shardings.
 
-The configs that keep the default binding rules and no other split, tiny
-gemma2-27b and tiny stablelm-3b at fp32 activations, take the split plan:
-each rank computes on its blocks of the attention heads, the MLP columns
-and the vocabulary rows.  One ``torch.multiprocessing`` spawn of 4 gloo
-processes runs a data 2 x model 2 mesh and then a data 1 x model 4 one;
-the reference runs in one subprocess on 4 XLA host devices in the same
-meshes.  On model 4 tiny gemma2's 2 KV heads do not divide the axis, so
-``prune_spec`` keeps them whole while its 4 query heads split: each rank
-attends with its query head's group.  Both sides read the same numpy
-weights and batches, written by this process.  Checks, on each mesh and
-config:
+The dense configs that take the split plan, tiny gemma2-27b, stablelm-3b
+and recurrentgemma-9b at fp32 activations: each rank computes on its
+blocks of the attention heads, the MLP columns, the RG-LRU's channels (and
+their heads) and the vocabulary rows.  One ``torch.multiprocessing`` spawn
+of 4 gloo processes runs a data 2 x model 2 mesh and then a data 1 x model
+4 one; the reference runs in one subprocess on 4 XLA host devices in the
+same meshes.  On model 4 tiny gemma2's 2 KV heads do not divide the axis,
+so ``prune_spec`` keeps them whole while its 4 query heads split: each
+rank attends with its query head's group; recurrentgemma's one KV head
+stays whole on both meshes (its rules), its local layer's query heads
+split.  Both sides read the same numpy weights and batches, written by
+this process.  ``tests/test_torch_tp_moe.py`` runs tiny qwen2-moe-a2.7b
+through the same machinery.  Checks, on each mesh and config:
 
 * one sharded train step (batch 8 x 16 in 2 microbatches, the data ranks
   holding unequal counts of targets): loss and grad norm, both moments and
@@ -22,7 +24,7 @@ config:
 * the sharded prefill's logits and 4 decode ticks from a zero cache, each
   lane at its own position (gemma2's window of 8 rolls): the tokens equal,
   the logits of every tick and each rank's block of every cache leaf (its
-  rows and, where split, its KV heads) at the bar of
+  rows and, where split, its KV heads or RG-LRU channels) at the bar of
   ``tests/test_torch_serve_mesh.py``; every tick's logits also against
   the reference's tick run from the port's cache before it, since a bf16
   cache entry may round the other way in either program (the reference's
@@ -33,8 +35,13 @@ config:
 * each rank holds only its blocks: its parameter bytes are the reference's
   ``params_bytes_per_device``, the plan computes on the local blocks
   themselves (no whole buffer for a split leaf), the forward of one layer
-  issues exactly one all-reduce over ``model`` after the attention and one
-  after the MLP, and a prefill no all-gather but the last logits'.
+  issues exactly one all-reduce over ``model`` after the attention (or the
+  RG-LRU) and one after the MLP, and a prefill no all-gather but the last
+  logits';
+* the plan every config takes on each mesh (``model_split``): the split
+  plan's axes for the four configs it covers, the gather plan for the
+  rest, and for an RG-LRU whose heads ``prune_spec`` keeps whole while its
+  channels split.
 """
 
 import json
@@ -56,7 +63,7 @@ from repro_torch.nn import module, transformer  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-5, 1e-6
 BF16_SCALE_TOL = 0.02                 # tests/test_torch_lm.py's bf16 bar
-ARCHS = ("gemma2-27b", "stablelm-3b")
+ARCHS = ("gemma2-27b", "stablelm-3b", "recurrentgemma-9b")
 MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
 BATCH, SEQ, MICRO = 8, 16, 2
 LANES, MAX_LEN, TICKS = 4, 16, 4
@@ -102,10 +109,10 @@ def _weights(cfg, seed) -> dict:
     return _flat(module.map_specs(draw, transformer.model_specs(cfg)))
 
 
-def _inputs(path: pathlib.Path) -> dict:
+def _inputs(path: pathlib.Path, archs=ARCHS) -> dict:
     rng = np.random.default_rng(11)
     arrays = {}
-    for i, arch in enumerate(ARCHS):
+    for i, arch in enumerate(archs):
         cfg = _cfg(arch)
         arrays.update({f"{arch}/w/{k}": v
                        for k, v in _weights(cfg, 20 + i).items()})
@@ -271,8 +278,12 @@ for mname, shape in meta["meshes"].items():
 # each tick again with the port's K/V entries: from the port's cache
 # after the tick, the reference's writes of K and V left out (it still
 # writes the positions), so it attends to the same bf16 values as the
-# port's tick did, whichever way the port's sum order rounded them; it
-# waits for the port's results (written when its 4 processes end)
+# port's tick did, whichever way the port's sum order rounded them; a
+# recurrent state (an RG-LRU's h and conv), which the tick reads and
+# rewrites, from the port's cache before the tick.  And each tick with its
+# writes from the port's whole cache before it, for the K/V entries the
+# reference writes from the port's state.  It waits for the port's results
+# (written when its 4 processes end)
 files = [os.path.join(meta["port_dir"], f"rank{r}.npz") for r in range(4)]
 deadline = time.time() + 500
 while not all(os.path.exists(f) for f in files):
@@ -295,42 +306,63 @@ def like(tree, leaves, path=""):
     return leaves[path[:-1]]
 
 
-attention._write_at = keep_kv
-for tag, (mesh, params, p_sh, c_sh, feed_sh, cache, cfg) in \
-        kept_runs.items():
-    arch = tag.split("/")[1]
+# the port's whole cache: before tick t, or where kept its K/V and
+# positions after it
+def port_cache(tag, cache, t, kept, cfg):
+    after = "cache" if t == meta["ticks"] - 1 else f"cache_after{t}"
+    start = flat(transformer.init_cache(cfg, LANES, L))
+    whole = {}
+    for leaf, was in flat(cache).items():
+        a = np.zeros(was.shape, np.float64)
+        before = not kept or leaf.split("/")[-1] not in ("k", "v", "kpos")
+        if before and t == 0:           # the cache the ticks start from
+            whole[leaf] = jnp.asarray(start[leaf].astype(was.dtype))
+            continue
+        at = f"cache_after{t - 1}" if before else after
+        for r in ranks:
+            a[tuple(slice(lo, hi) for lo, hi in
+                    r[f"{tag}/cache_block/{leaf}"])] = r[f"{tag}/{at}/{leaf}"]
+        whole[leaf] = jnp.asarray(a.astype(was.dtype))
+    return like(cache, whole)
 
-    def tick_kept(p, c, fd, cfg=cfg):
-        return transformer.decode_step(cfg, p, fd["tokens"], c, fd["pos"])[0]
-    run = jax.jit(tick_kept, in_shardings=(p_sh, c_sh, feed_sh),
-                  out_shardings=sh.sharding_for(
-                      (LANES, cfg.vocab_size), ("batch", "vocab"), mesh,
-                      sh.rules_for(cfg)))
-    for t in range(meta["ticks"]):
-        after = "cache" if t == meta["ticks"] - 1 else f"cache_after{t}"
-        whole = {}
-        for leaf, was in flat(cache).items():
-            a = np.zeros(was.shape, np.float64)
-            for r in ranks:
-                a[tuple(slice(lo, hi) for lo, hi in
-                        r[f"{tag}/cache_block/{leaf}"])] = \
-                    r[f"{tag}/{after}/{leaf}"]
-            whole[leaf] = jnp.asarray(a.astype(was.dtype))
-        with jax.set_mesh(mesh):
-            logits = run(params, jax.device_put(like(cache, whole), c_sh),
-                         {"tokens": jnp.asarray(arrays[f"{arch}/tok{t}"]),
-                          "pos": jnp.asarray(arrays[f"pos{t}"])})
-        out[f"{tag}/kept_logits{t}"] = np.asarray(logits)
+
+for kept in (True, False):
+    attention._write_at = keep_kv if kept else write_at
+    for tag, (mesh, params, p_sh, c_sh, feed_sh, cache, cfg) in \
+            kept_runs.items():
+        arch = tag.split("/")[1]
+
+        def tick(p, c, fd, cfg=cfg):
+            logits, c = transformer.decode_step(cfg, p, fd["tokens"], c,
+                                                fd["pos"])
+            return logits if kept else c
+        run = jax.jit(tick, in_shardings=(p_sh, c_sh, feed_sh),
+                      out_shardings=sh.sharding_for(
+                          (LANES, cfg.vocab_size), ("batch", "vocab"), mesh,
+                          sh.rules_for(cfg)) if kept else c_sh)
+        for t in range(meta["ticks"]):
+            with jax.set_mesh(mesh):
+                res = run(params, jax.device_put(
+                    port_cache(tag, cache, t, kept, cfg), c_sh),
+                    {"tokens": jnp.asarray(arrays[f"{arch}/tok{t}"]),
+                     "pos": jnp.asarray(arrays[f"pos{t}"])})
+            if kept:
+                out[f"{tag}/kept_logits{t}"] = np.asarray(res)
+                continue
+            for leaf, v in flat(res).items():
+                if leaf.split("/")[-1] in ("k", "v"):
+                    out[f"{tag}/same_state{t}/{leaf}"] = v.astype(np.float64)
 attention._write_at = write_at
 np.savez(out_path, **out)
 print("REFERENCE DONE")
 """
 
 
-def _reference(inputs: pathlib.Path, out: pathlib.Path) -> subprocess.Popen:
+def _reference(inputs: pathlib.Path, out: pathlib.Path, archs=ARCHS
+               ) -> subprocess.Popen:
     """The reference's programs, then its ticks again from the port's
     caches, which it waits for in ``out``'s folder."""
-    meta = {"archs": ARCHS, "meshes": MESHES, "batch": BATCH, "seq": SEQ,
+    meta = {"archs": archs, "meshes": MESHES, "batch": BATCH, "seq": SEQ,
             "micro": MICRO, "max_len": MAX_LEN, "lanes": LANES,
             "ticks": TICKS, "opt": OPT, "port_dir": str(out.parent)}
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -346,16 +378,18 @@ def _reference(inputs: pathlib.Path, out: pathlib.Path) -> subprocess.Popen:
 # the port, in 4 spawned gloo processes
 # ---------------------------------------------------------------------------
 
-def _worker(rank: int, world: int, port: int, inputs: str, out_dir: str):
+def _worker(rank: int, world: int, port: int, inputs: str, out_dir: str,
+            archs=ARCHS, extra=None):
     """One rank of both meshes: its results into ``out_dir/rank<r>.npz``
-    (the train step's whole tensors from rank 0)."""
+    (the train step's whole tensors from rank 0); ``extra(mname, mesh,
+    arrays)``, a caller's further checks on each mesh, adds its own."""
     import torch.distributed as dist
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     try:
-        res = _rank_checks(rank, np.load(inputs))
+        res = _rank_checks(rank, np.load(inputs), archs, extra)
     finally:
         dist.destroy_process_group()
     # whole or not at all: the reference reads it once it exists
@@ -364,7 +398,7 @@ def _worker(rank: int, world: int, port: int, inputs: str, out_dir: str):
     os.replace(tmp, pathlib.Path(out_dir) / f"rank{rank}.npz")
 
 
-def _rank_checks(rank: int, arrays) -> dict:
+def _rank_checks(rank: int, arrays, archs=ARCHS, extra=None) -> dict:
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import shardings as sh
     from repro_torch.optim import adamw
@@ -373,7 +407,9 @@ def _rank_checks(rank: int, arrays) -> dict:
     for mname, shape in MESHES.items():
         mesh = mesh_lib.make_test_mesh(shape, ("data", "model"), "cpu")
         res[f"{mname}/coord"] = np.array(mesh.coordinate())
-        for arch in ARCHS:
+        if extra is not None:
+            res.update(extra(mname, mesh, arrays))
+        for arch in archs:
             tag = f"{mname}/{arch}"
             cfg = _cfg(arch, microbatches=MICRO)
             rules = sh.rules_for(cfg)
@@ -487,19 +523,22 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """(the reference's results, each rank's results): the reference's
-    subprocess and the 4-rank spawn at once."""
-    pytest.importorskip("jax")
+def spawn(work: pathlib.Path, archs=ARCHS, extra=None,
+          arrays=None) -> types.SimpleNamespace:
+    """(the reference's results, each rank's results, the inputs) of
+    ``archs``: the
+    reference's subprocess and the 4-rank spawn at once, in ``work``;
+    ``arrays`` join the inputs both sides read."""
     import torch.multiprocessing as mp
-    work = tmp_path_factory.mktemp("tp")
     inputs = work / "inputs.npz"
-    _inputs(inputs)
-    proc = _reference(inputs, work / "reference.npz")
+    both = _inputs(inputs, archs)
+    if arrays:
+        both.update(arrays)
+        np.savez(inputs, **both)
+    proc = _reference(inputs, work / "reference.npz", archs)
     try:
         mp.start_processes(_worker, args=(4, _free_port(), str(inputs),
-                                          str(work)),
+                                          str(work), archs, extra),
                            nprocs=4, start_method="spawn")
         _, stderr = proc.communicate(timeout=600)
     finally:
@@ -509,7 +548,13 @@ def runs(tmp_path_factory):
     assert proc.returncode == 0, stderr[-3000:]
     ref = dict(np.load(work / "reference.npz"))
     ranks = [dict(np.load(work / f"rank{r}.npz")) for r in range(4)]
-    return types.SimpleNamespace(ref=ref, ranks=ranks)
+    return types.SimpleNamespace(ref=ref, ranks=ranks, arrays=both)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    pytest.importorskip("jax")
+    return spawn(tmp_path_factory.mktemp("tp"))
 
 
 def _bar(got, want):
@@ -541,25 +586,38 @@ def _rows(r: dict, mname: str, n: int) -> slice:
 CASES = [(m, a) for m in MESHES for a in ARCHS]
 
 
+def want_split(cfg, ways: int) -> int:
+    """The leaves the split plan splits on ``ways`` ranks of ``model``, by
+    hand: an attention's q and o (and q's bias), its k and v (and biases)
+    where the KV heads divide the axis; an RG-LRU's ten; an MLP's three,
+    an MoE's three experts and three shared; the table, the unembedding."""
+    kv = cfg.n_kv_heads % ways == 0
+    per = {"rglru": 10,
+           "global": (2 + 2 * kv) * (1 + cfg.qkv_bias) - cfg.qkv_bias}
+    per["local"] = per["global"]
+    ffn = 3 + 3 * bool(cfg.n_shared_experts) if cfg.n_experts else 3
+    kinds = list(cfg.attn_pattern) + [cfg.attn_pattern[j] for j in range(
+        cfg.n_remainder_layers)]
+    return sum(per[k] + ffn for k in kinds) + 1 + (not cfg.tie_embeddings)
+
+
 @pytest.mark.parametrize("mname,arch", CASES)
 def test_split_plan_holds_only_its_blocks(runs, mname, arch):
     """The split plan on every rank: parameter bytes the reference's
     ``params_bytes_per_device``; the compute reads the local blocks
-    themselves, the split leaves' (every attention, MLP and vocabulary
-    leaf of the tiny model but tiny gemma2's K/V on model 4) smaller than
+    themselves, the split leaves' (every attention, MLP, RG-LRU and
+    vocabulary leaf of the tiny model but the KV heads that do not divide
+    the axis: tiny gemma2's on model 4, recurrentgemma's one) smaller than
     whole."""
     tag = f"{mname}/{arch}"
     cfg = _cfg(arch)
-    kv_whole = cfg.n_kv_heads % MESHES[mname][1] != 0
-    n_attn = 4 - 2 * kv_whole
-    want_split = len(cfg.attn_pattern) * (n_attn + 3) + 1 + \
-        (not cfg.tie_embeddings)
     for r in runs.ranks:
         assert str(r[f"{tag}/plan"]) == "compute"
         assert int(r[f"{tag}/params_bytes"]) == \
             int(runs.ref[f"{tag}/params_bytes"])
         assert bool(r[f"{tag}/computes_on_blocks"])
-        assert int(r[f"{tag}/n_split"]) == want_split
+        assert int(r[f"{tag}/n_split"]) == want_split(cfg,
+                                                      MESHES[mname][1])
 
 
 @pytest.mark.parametrize("mname,arch", CASES)
@@ -636,6 +694,8 @@ def _rounded_other_way(ranks, tag, cfg, cache) -> np.ndarray:
     out = np.zeros((TICKS, LANES), bool)
     for r in ranks:
         for i, kind in enumerate(cfg.attn_pattern):
+            if kind not in ("global", "local"):
+                continue
             size = cfg.window if kind == "local" else MAX_LEN
             for n in ("k", "v"):
                 leaf = f"blocks/{i}/{n}"
@@ -654,6 +714,24 @@ def _rounded_other_way(ranks, tag, cfg, cache) -> np.ndarray:
 
 
 @pytest.mark.parametrize("mname,arch", CASES)
+def _tick_entries(cfg, leaf: str, block: tuple, t: int) -> np.ndarray:
+    """Over a rank's block of a K/V leaf: True at the entries tick ``t``
+    writes for its lanes (lane b at position 3 b + t, ``_inputs``; its slot
+    in a local layer's window rolls)."""
+    stacked = leaf.startswith("blocks/")
+    kind = cfg.attn_pattern[int(leaf.split("/")[1])]
+    lanes, slots = block[int(stacked)], block[1 + int(stacked)]
+    size = slots.stop - slots.start
+    mask = np.zeros(tuple(b.stop - b.start for b in block), bool)
+    for j, lane in enumerate(range(lanes.start, lanes.stop)):
+        pos = 3 * lane + t
+        slot = pos % size if kind == "local" and cfg.window else \
+            min(pos, size - 1)
+        mask[(slice(None),) * stacked + (j, slot)] = True
+    return mask
+
+
+@pytest.mark.parametrize("mname,arch", CASES)
 def test_sharded_prefill_and_ticks_match_reference(runs, mname, arch):
     """Each rank's rows of the prefill's and every tick's logits, whole
     over the vocabulary, and the tokens; after 4 ticks each rank's block
@@ -667,7 +745,11 @@ def test_sharded_prefill_and_ticks_match_reference(runs, mname, arch):
     from the port's own cache before it (the same bf16 entries in), and
     the logits of a lane whose cache up to that tick holds the
     reference's values exactly also against the reference's own ticks.
-    The tokens equal the reference's own."""
+    The K/V entries alike: the ones every tick writes against the ones the
+    reference's tick writes from the port's whole cache before it, and
+    the ones a lane wrote while its cache held the reference's values
+    (every entry of the leaf but those) also against the reference's own
+    cache.  The tokens equal the reference's own."""
     tag = f"{mname}/{arch}"
     ref, cfg = runs.ref, _cfg(arch)
     leaves = sorted(k[len(tag) + 7:] for k in ref
@@ -692,8 +774,24 @@ def test_sharded_prefill_and_ticks_match_reference(runs, mname, arch):
         for leaf in leaves:
             block = tuple(slice(a, b) for a, b in
                           r[f"{tag}/cache_block/{leaf}"])
-            _hold(r[f"{tag}/cache/{leaf}"], ref[f"{tag}/cache/{leaf}"][block],
-                  leaf, bf16=leaf.split("/")[-1] in ("k", "v"))
+            got, want = r[f"{tag}/cache/{leaf}"], \
+                ref[f"{tag}/cache/{leaf}"][block]
+            if leaf.split("/")[-1] not in ("k", "v"):
+                _hold(got, want, leaf)
+                continue
+            held = np.ones(got.shape, bool)
+            for t in range(TICKS):
+                mask = _tick_entries(cfg, leaf, block, t)
+                after = "cache" if t == TICKS - 1 else f"cache_after{t}"
+                _hold(r[f"{tag}/{after}/{leaf}"][mask],
+                      ref[f"{tag}/same_state{t}/{leaf}"][block][mask],
+                      f"{leaf} tick {t}, from the port's cache", bf16=True)
+                lane_dim = int(leaf.startswith("blocks/"))
+                for j, lane in enumerate(range(rows.start, rows.stop)):
+                    if other[t, lane]:
+                        held[(slice(None),) * lane_dim + (j,)] &= \
+                            ~mask[(slice(None),) * lane_dim + (j,)]
+            _hold(got[held], want[held], leaf, bf16=True)
     assert other.sum() <= other.size // 2, other
 
 
@@ -710,6 +808,28 @@ def test_cache_blocks_split_the_kv_heads(runs):
             assert r[f"{mname}/{arch}/cache/blocks/0/k"].shape[3] == want
     kpos = runs.ref["2x2/gemma2-27b/cache/blocks/0/kpos"]
     assert kpos.max() >= 8 and kpos.shape[-1] == 8
+
+
+def test_cache_blocks_split_the_rglru_channels(runs):
+    """Recurrentgemma's decode cache under the split plan: each rank's
+    ``h`` and ``conv`` of every RG-LRU layer (stacked and remainder) hold
+    its block of the 64 channels, 32 on model 2 and 16 on model 4, at its
+    model index, and moved; its local layer's one KV head stays whole."""
+    arch, cfg = "recurrentgemma-9b", _cfg("recurrentgemma-9b")
+    width = cfg.lru_width
+    for mname, (_, ways) in MESHES.items():
+        tag = f"{mname}/{arch}"
+        for r in runs.ranks:
+            m = int(r[f"{mname}/coord"][1])
+            for leaf in ("blocks/0/h", "blocks/1/conv", "extra/0/h",
+                         "extra/1/conv"):
+                got = r[f"{tag}/cache/{leaf}"]
+                lo, hi = r[f"{tag}/cache_block/{leaf}"][-1]
+                assert got.shape[-1] == width // ways, (leaf, got.shape)
+                assert (lo, hi) == (m * width // ways,
+                                    (m + 1) * width // ways)
+                assert np.abs(got).max() > 0, leaf
+            assert r[f"{tag}/cache/blocks/2/k"].shape[3] == cfg.n_kv_heads
 
 
 def _scale_err(got, want) -> float:
@@ -748,15 +868,24 @@ def _leaves_of(cfg) -> dict:
     return out
 
 
+#: the configs the split plan covers, and the logical axes it splits
+SPLIT_PLANS = {"gemma2-27b": {"heads", "kv_heads", "mlp", "vocab"},
+               "stablelm-3b": {"heads", "kv_heads", "mlp", "vocab"},
+               "recurrentgemma-9b": {"heads", "mlp", "vocab"},
+               "qwen2-moe-a2.7b": {"heads", "kv_heads", "mlp", "vocab",
+                                   "experts"}}
+
+
 def test_split_leaves_are_the_configs_model_axis_leaves():
-    """``nn.tensor_parallel.SPLIT_LEAVES`` against the specs of both
-    configs (and with q/k/v biases): every leaf with a ``heads``,
-    ``kv_heads``, ``mlp`` or ``vocab`` axis is in the table under that
-    axis, and every entry of the table names such a leaf."""
+    """``nn.tensor_parallel.SPLIT_LEAVES`` against the specs of the four
+    configs of the split plan (and with q/k/v biases): every leaf with a
+    ``heads``, ``kv_heads``, ``mlp``, ``experts`` or ``vocab`` axis is in
+    the table under that axis, and every entry of the table names such a
+    leaf."""
     from repro_torch.nn import tensor_parallel as tp
-    split = {"heads", "kv_heads", "mlp", "vocab"}
+    split = {"heads", "kv_heads", "mlp", "experts", "vocab"}
     named = set()
-    for arch in ARCHS:
+    for arch in SPLIT_PLANS:
         for cfg in (_cfg(arch), _cfg(arch, qkv_bias=True)):
             for path, axes in _leaves_of(cfg).items():
                 for ax in split.intersection(axes):
@@ -764,3 +893,48 @@ def test_split_leaves_are_the_configs_model_axis_leaves():
                     named |= {(tail, a) for tail, a in tp.SPLIT_LEAVES
                               if a == ax and path[-len(tail):] == tail}
     assert named == set(tp.SPLIT_LEAVES)
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 2), (1, 4), (16, 16)])
+def test_every_config_takes_its_plan(mesh_shape):
+    """``launch.shardings.model_split`` at full width on 1 x 1, data 2 x
+    model 2, data 1 x model 4 and 16 x 16: the split plan's axes for
+    gemma2-27b, stablelm-3b, recurrentgemma-9b and qwen2-moe-a2.7b, the
+    gather plan (None) for every other config of the registry: mixtral's
+    experts split within (``expert_mlp``), qwen2.5-3b's, qwen2-7b's,
+    qwen2-vl-2b's and xlstm-1.3b's ``head_dim``, whisper-tiny an
+    encoder-decoder."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import shardings as sh
+    mesh = mesh_lib.Mesh(dict(zip(("data", "model"), mesh_shape)))
+    gather = {"mixtral-8x7b", "qwen2.5-3b", "qwen2-7b", "qwen2-vl-2b",
+              "xlstm-1.3b", "whisper-tiny"}
+    assert set(registry.ARCH_IDS) == gather | set(SPLIT_PLANS)
+    for arch in registry.ARCH_IDS:
+        got = sh.model_split(registry.get_config(arch), mesh)
+        want = SPLIT_PLANS.get(arch)
+        assert (got if got is None else set(got)) == want, (arch, got)
+
+
+def test_misaligned_blocks_keep_the_gather_plan():
+    """Where the blocks a layer combines would not line up, the gather
+    plan: tiny recurrentgemma-9b on model 8 (its 4 heads kept whole by
+    ``prune_spec``, its 64 channels split, so a rank's channels would not
+    be its gates' heads), or with 2 heads on model 4; tiny qwen2-moe-a2.7b
+    on 16 x 16 (its 8 experts whole, its shared expert's 64 columns
+    split).  On model 4 both take the split plan, where tiny qwen2-moe's
+    last rank holds only padding experts (6 and 7 of 8)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import shardings as sh
+    rg, moe = (registry.get_tiny(a) for a in ("recurrentgemma-9b",
+                                              "qwen2-moe-a2.7b"))
+    on = lambda **shape: mesh_lib.Mesh(shape)  # noqa: E731
+    assert sh.model_split(rg, on(data=1, model=8)) is None
+    assert sh.model_split(rg.replace(n_heads=2, head_dim=32),
+                          on(data=1, model=4)) is None
+    assert sh.model_split(moe, on(data=16, model=16)) is None
+    assert set(sh.model_split(rg, on(data=1, model=4))) == \
+        SPLIT_PLANS["recurrentgemma-9b"]
+    assert set(sh.model_split(moe, on(data=1, model=4))) == \
+        SPLIT_PLANS["qwen2-moe-a2.7b"]
+    assert moe.n_experts_padded // 4 * 3 >= moe.n_experts
