@@ -3811,14 +3811,12 @@ TR_XL_BATCH, TR_XL_STEPS = 8, 3
 #: 1 x 1,024, a quarter of the step's eager host time) and the card
 #: against the CPU
 TR_XL_LAYERS, TR_XL_EAGER_MICRO = 8, 2
-#: xlstm-1.3b's trained depth: 1 of its 6 superblocks (8 of 48 layers),
+#: xlstm-1.3b's trained depth: 2 of its 6 superblocks (16 of 48 layers),
 #: so the script keeps its time with phases moe_mesh, tp and dryrun: the
-#: step's first call at full depth took 75.4 s of host time, at 24 layers
-#: the whole script took 1,169 s of its 1,200 on an H100 80GB HBM3 (700 W)
-#: whose host ran about 30% slower than others, and at 16 layers the step
-#: took 43.5 s of a 925.8 s script before phase tp trained
-#: recurrentgemma-9b too
-TR_XL_TRAIN_LAYERS = 8
+#: step's first call at full depth took 75.4 s of host time, and at 24
+#: layers the whole script took 1,169 s of its 1,200 on an H100 80GB HBM3
+#: (700 W) whose host ran about 30% slower than others
+TR_XL_TRAIN_LAYERS = 16
 #: the sLSTM's backward kernel against its plain reverse loop: (B, S, H,
 #: W) of xlstm-1.3b's training call, and a ragged one (W 36: the
 #: cluster's last block part-filled); the forward kernel with and without
@@ -4481,8 +4479,8 @@ def slstm_backward_kernel(torch) -> dict:
 def train_xlstm(torch) -> dict:
     """xLSTM's training on the card: the sLSTM's backward kernel against
     its plain reverse loop; xlstm-1.3b trained at full width, cut to
-    TR_XL_TRAIN_LAYERS layers (16 forward and 8 backward sLSTM launches
-    a replayed step at 8 layers, nothing else of the port's); replay
+    TR_XL_TRAIN_LAYERS layers (32 forward and 16 backward sLSTM launches
+    a replayed step at 16 layers, nothing else of the port's); replay
     against eager and the card against the CPU at one superblock, in fp32
     and in bf16 activations."""
     t0 = time.perf_counter()

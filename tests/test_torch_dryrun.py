@@ -160,6 +160,19 @@ for data, model, archs in ((4, 1, ("qwen2.5-3b", "qwen2-moe-a2.7b")),
             "dot_flops_per_device": hlo.dot_flops,
             "params_bytes_per_device": sh.bytes_per_device(args[0],
                                                            in_sh[0])}
+        if arch != "qwen2-moe-a2.7b":
+            continue
+        # the MoE layer's products in the step's first forward, each alone
+        # (not the backward's recompute): the router, the experts' and the
+        # shared expert's
+        lines = compiled.as_text().splitlines()
+        for name in ("nd,de->ne", "ecd,edf->ecf", "ecf,efd->ecd",
+                     "nd,df->nf", "nf,fd->nd"):
+            keep = [line for line in lines if " dot(" not in line or (
+                'op_name="jit(train_step)/jvp()/' in line
+                and f"/{name}/" in line)]
+            out[f"{arch}/{data}x{model}"][f"forward/{name}"] = \
+                hlo_parse.analyze("\n".join(keep)).dot_flops
 
 # the prefill and decode cells on data 4 x model 1, as the reference's
 # build_cell lays them out at the tiny shapes
@@ -321,10 +334,12 @@ def test_split_plan_cells_hold_to_the_reference(runs, arch):
     qwen2.5-3b (``head_dim`` over ``model``) the gather plan.
 
     The MoE's FLOPs as in :func:`test_flops_per_device_hold_to_the_reference`
-    under data 4: the reference's GSPMD program repeats part of the expert
-    products on both data ranks (its count is 17% above its single-device
-    count over 8), where the port runs each data rank's kept rows on each
-    model rank's experts once; so it is held within 10% of the reference's
+    under data 4: the reference's GSPMD program repeats its MoE layers'
+    first forward on both data ranks (its count is 17% above its
+    single-device count over 8; ROADMAP.md R11,
+    :func:`test_reference_repeats_the_moe_forward_on_both_data_ranks`),
+    where the port runs each data rank's kept rows on each model rank's
+    experts once; so it is held within 10% of the reference's
     single-device count over 8 (the router, whole on every rank, above
     it), and to at most its data 2 x model 4 count."""
     port, ref = runs
@@ -344,6 +359,25 @@ def test_split_plan_cells_hold_to_the_reference(runs, arch):
         for other in ARCHS:
             assert port[world][other]["model_split"] == (
                 "compute" if other in TP_ARCHS else "gather")
+
+
+def test_reference_repeats_the_moe_forward_on_both_data_ranks(runs):
+    """ROADMAP.md R11: the reference's GSPMD train step for tiny
+    qwen2-moe-a2.7b on data 2 x model 4 runs its MoE layer's first forward
+    on the whole batch on both data ranks: each expert and shared-expert
+    product (``src/repro/nn/moe.py:123-126``, ``:139-142``) counts 2/8 of
+    its single-device FLOPs a device, the router (``:91``) all of them,
+    where its backward's products count 1/8.  So
+    :func:`test_split_plan_cells_hold_to_the_reference` holds the port's
+    MoE, which runs each data rank's rows once, to the single-device count
+    over 8."""
+    _, ref = runs
+    one, split = ref["qwen2-moe-a2.7b/1x1"], ref["qwen2-moe-a2.7b/2x4"]
+    for name in ("ecd,edf->ecf", "ecf,efd->ecd", "nd,df->nf", "nf,fd->nd"):
+        assert one[f"forward/{name}"] > 0, name
+        assert split[f"forward/{name}"] == 2 * one[f"forward/{name}"] / 8, \
+            name
+    assert split["forward/nd,de->ne"] == one["forward/nd,de->ne"] > 0
 
 
 def test_collectives_follow_the_cost_model(runs):

@@ -19,6 +19,9 @@ fp32 activations.  Checks:
   reference's cache: its rows of every leaf, whole under the gather plan
   (qwen2.5-3b, whisper-tiny), and under the split plan its KV heads
   (qwen2-moe-a2.7b) and RG-LRU channels (recurrentgemma-9b) as well;
+  and recurrentgemma's recurrent state after every step against the
+  state the reference's step writes from the port's cache (the
+  reference's subprocess then waits for the port's results);
 * one MoE tick at batch 8 and capacity factor 0.5 (capacity 1 per expert
   over the 16 assignments): the tokens equal and the logits at the bar,
   and data rank 1 drops assignments it would keep counting its own lanes
@@ -33,6 +36,7 @@ at most max(2, 1/1,000 of the leaf) outside the bar, each within one
 bf16 ulp.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -57,6 +61,9 @@ RTOL, ATOL = 1e-5, 1e-6
 ARCHS = ("qwen2.5-3b", "qwen2-moe-a2.7b", "recurrentgemma-9b",
          "whisper-tiny")
 MOE_ARCH = "qwen2-moe-a2.7b"
+#: the config with a recurrent state (an RG-LRU's h and conv), whose ticks
+#: the reference runs again from the port's cache
+RECURRENT_ARCH = "recurrentgemma-9b"
 BATCH, SEQ, MAX_LEN, STEPS = 4, 16, 16, 4
 #: the overflow tick: 8 lanes, capacity max(1, int(8 x 2 / 6 x 0.5)) = 1
 TICK_BATCH, TICK_CF = 8, 0.5
@@ -140,7 +147,7 @@ def _inputs(path: pathlib.Path) -> dict:
 # ---------------------------------------------------------------------------
 
 REFERENCE = r"""
-import json, sys
+import json, os, sys, time
 import numpy as np
 import jax, jax.numpy as jnp
 from jax.sharding import AxisType
@@ -148,7 +155,7 @@ from repro.configs import registry
 from repro.configs.base import ShapeConfig
 from repro.launch import dryrun as dr, shardings as sh, steps
 from repro.models import encdec
-from repro.nn import transformer
+from repro.nn import attention, transformer
 
 inp, out_path, meta = sys.argv[1:4]
 arrays = dict(np.load(inp))
@@ -232,6 +239,8 @@ for arch in meta["archs"]:
             out[f"{arch}/tok{t}"] = np.asarray(tok)
         for k, v in flat(cache).items():
             out[f"{arch}/cache/{k}"] = v.astype(np.float64)
+        if arch == meta["recurrent_arch"]:
+            rerun = (cfg, params, p_sh, c_sh, tok_sh, dec, cache)
 
 # the MoE overflow tick: its tokens and its logits
 arch = meta["moe_arch"]
@@ -259,15 +268,104 @@ with jax.set_mesh(mesh):
                                 mesh, rules)))(params, cache, batch)
     out["tick/tokens"], out["tick/logits"] = np.asarray(tok), \
         np.asarray(logits)
+
+# the recurrent config's steps again, each from the port's cache: its K/V
+# entries and positions after the step (the reference's writes of K and V
+# left out, so it attends to the port's bf16 values, whichever way they
+# rounded), its recurrent state before it, and the port's bf16 attention
+# output in place of its own (kept: the reference's own, from that
+# state); the state each step writes is kept.  It waits for the port's
+# results (written when its 4 processes end)
+files = [os.path.join(meta["port_dir"], f"rank{r}.npz") for r in range(4)]
+deadline = time.time() + 500
+while not all(os.path.exists(f) for f in files):
+    if time.time() > deadline:
+        raise SystemExit("the port's ranks wrote no results")
+    time.sleep(0.2)
+ranks = [dict(np.load(f)) for f in files]
+arch = meta["recurrent_arch"]
+cfg, params, p_sh, c_sh, tok_sh, dec, cache = rerun
+write_at = attention._write_at
+
+
+def keep_kv(cache_arr, val, slot):
+    if jnp.issubdtype(cache_arr.dtype, jnp.floating):
+        return cache_arr
+    return write_at(cache_arr, val, slot)
+
+
+def like(tree, leaves, path=""):
+    if isinstance(tree, dict):
+        return {k: like(tree[k], leaves, path + k + "/") for k in tree}
+    return leaves[path[:-1]]
+
+
+def port_whole(key, shape):
+    a = np.zeros(shape, np.float64)
+    for r in ranks:
+        a[tuple(slice(lo, hi) for lo, hi in r[key + "_block"])] = r[key]
+    return a
+
+
+full_attention, seen = attention.full_attention, []
+
+
+def attend(port_y):
+    def run(q, k, v, **kw):
+        y = full_attention(q, k, v, **kw)
+        jax.debug.callback(lambda a: seen.append(np.asarray(a, np.float64)),
+                           y)
+        return jnp.asarray(port_y).astype(y.dtype)
+    return run
+
+
+attention._write_at = keep_kv
+start = flat(transformer.init_cache(cfg, B, L))
+for t in range(meta["steps"]):
+    # its one attention layer: (B, 1, heads, head_dim)
+    attention.full_attention = attend(port_whole(
+        f"{arch}/attn{t}", (B, 1, cfg.n_heads, cfg.head_dim)))
+    step = jax.jit(steps.make_serve_step(cfg),
+                   in_shardings=(p_sh, c_sh, in_shardings(cfg, dec)),
+                   out_shardings=(tok_sh, c_sh))
+    whole = {}
+    for leaf, was in flat(cache).items():
+        before = leaf.split("/")[-1] not in ("k", "v", "kpos")
+        if before and t == 0:
+            whole[leaf] = jnp.asarray(start[leaf].astype(was.dtype))
+            continue
+        at = f"cache_after{t - 1}" if before else \
+            "cache" if t == meta["steps"] - 1 else f"cache_after{t}"
+        a = np.zeros(was.shape, np.float64)
+        for r in ranks:
+            a[tuple(slice(lo, hi) for lo, hi in
+                    r[f"{arch}/cache_block/{leaf}"])] = \
+                r[f"{arch}/{at}/{leaf}"]
+        whole[leaf] = jnp.asarray(a.astype(was.dtype))
+    with jax.set_mesh(mesh):
+        _, res = step(params, jax.device_put(like(cache, whole), c_sh), {
+            "tokens": jnp.asarray(arrays[f"{arch}/tok{t}"]),
+            "pos": jnp.asarray(arrays[f"pos{t}"])})
+    jax.effects_barrier()
+    assert len(seen) == t + 1, len(seen)
+    out[f"{arch}/same_attn{t}"] = seen[t]
+    for leaf, v in flat(res).items():
+        if leaf.split("/")[-1] in ("h", "conv"):
+            out[f"{arch}/same_state{t}/{leaf}"] = v.astype(np.float64)
+attention._write_at = write_at
+attention.full_attention = full_attention
 np.savez(out_path, **out)
 print("REFERENCE DONE")
 """
 
 
 def _reference(inputs: pathlib.Path, out: pathlib.Path) -> subprocess.Popen:
+    """The reference's programs, then the recurrent config's ticks again
+    from the port's caches, which it waits for in ``out``'s folder."""
     meta = {"archs": ARCHS, "moe_arch": MOE_ARCH, "batch": BATCH,
             "seq": SEQ, "max_len": MAX_LEN, "steps": STEPS,
-            "tick_batch": TICK_BATCH, "tick_cf": TICK_CF}
+            "tick_batch": TICK_BATCH, "tick_cf": TICK_CF,
+            "recurrent_arch": RECURRENT_ARCH, "port_dir": str(out.parent)}
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu")
@@ -293,7 +391,10 @@ def _worker(rank: int, world: int, port: int, inputs: str, out_dir: str):
         res = _rank_checks(np.load(inputs))
     finally:
         dist.destroy_process_group()
-    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **res)
+    # whole or not at all: the reference reads it once it exists
+    tmp = pathlib.Path(out_dir) / f"rank{rank}.part.npz"
+    np.savez(tmp, **res)
+    os.replace(tmp, pathlib.Path(out_dir) / f"rank{rank}.npz")
 
 
 def _rank_checks(arrays) -> dict:
@@ -325,10 +426,25 @@ def _rank_checks(arrays) -> dict:
                                                         mesh))
         step = steps.make_serve_step(cfg)
         for t in range(STEPS):
-            tok, cache = step(params, cache, {
-                "tokens": arrays[f"{arch}/tok{t}"],
-                "pos": arrays[f"pos{t}"]})
+            with _attention_outputs(arch == RECURRENT_ARCH) as ys:
+                tok, cache = step(params, cache, {
+                    "tokens": arrays[f"{arch}/tok{t}"],
+                    "pos": arrays[f"pos{t}"]})
             res[f"{arch}/tok{t}"] = tok.to_local().numpy()
+            if arch != RECURRENT_ARCH:
+                continue
+            # its one attention layer's output: this rank's rows and heads
+            (y,) = ys
+            d, m = mesh.coordinate()
+            h = y.shape[2]
+            res[f"{arch}/attn{t}"] = y.to(torch.float64).numpy()
+            res[f"{arch}/attn{t}_block"] = np.array([
+                [d * len(y), (d + 1) * len(y)], [0, 1], [m * h, (m + 1) * h],
+                [0, y.shape[3]]])
+            if t + 1 < STEPS:
+                for k, v in _flat(cache).items():
+                    res[f"{arch}/cache_after{t}/{k}"] = \
+                        sh.local(v).to(torch.float64).numpy()
         for k, v in _flat(cache).items():
             res[f"{arch}/cache/{k}"] = sh.local(v).to(torch.float64).numpy()
             res[f"{arch}/cache_block/{k}"] = np.array([
@@ -336,6 +452,25 @@ def _rank_checks(arrays) -> dict:
                                                       v.shape)])
     res.update(_overflow_tick(mesh, arrays))
     return res
+
+
+@contextlib.contextmanager
+def _attention_outputs(on: bool):
+    """The outputs of ``nn.attention.full_attention`` inside, in order,
+    where ``on``."""
+    from repro_torch.nn import attention
+    ys, full = [], attention.full_attention
+
+    def record(*a, **kw):
+        y = full(*a, **kw)
+        ys.append(y.detach().clone())
+        return y
+    if on:
+        attention.full_attention = record
+    try:
+        yield ys
+    finally:
+        attention.full_attention = full
 
 
 def _overflow_tick(mesh, arrays) -> dict:
@@ -418,6 +553,26 @@ def _hold(got, want, what: str = "", bf16: bool = False) -> None:
         assert not off.any(), (what, off.sum(), np.abs(got - want).max())
 
 
+def _off(got, want) -> np.ndarray:
+    """Where ``got`` lies outside the bar of :func:`_hold` (a bf16 value
+    that rounded the other way does: it differs by an ulp)."""
+    atol = ATOL * max(1.0, float(np.abs(want).max(initial=0.0)))
+    return np.abs(got - want) > atol + RTOL * np.abs(want)
+
+
+def _hold_rows(got, want, what: str) -> np.ndarray:
+    """A bf16 attention output (B, 1, heads, head_dim) against ``want``:
+    at most one (lane, head) row outside :func:`_hold`'s bar, each of its
+    elements within one bf16 ulp of the row's largest magnitude (a
+    probability that rounds the other way moves its whole row, by that
+    ulp times the values); whether each lane has such a row."""
+    off = _off(got, want).any(axis=(1, 3))                  # (B, heads)
+    assert off.sum() <= 1, (what, off.sum())
+    scale = np.abs(want).max(axis=3, keepdims=True)
+    assert (np.abs(got - want) <= 2.0 ** -7 * scale).all(), what
+    return off.any(axis=1)
+
+
 def sh_mesh():
     """The 2 x 2 (data, model) mesh's shape, for the plans."""
     from repro_torch.launch.mesh import Mesh
@@ -451,12 +606,21 @@ def test_sharded_decode_matches_reference(runs, arch):
     under the gather plan, its KV heads or RG-LRU channels of them under
     the split plan.
 
-    A bf16 K/V entry may round the other way (:func:`_hold`); a lane's
-    later layers then read other values, so the fp32 recurrent state
-    (recurrentgemma's ``h`` and remainder ``conv``) of a lane whose K/V
-    entries hold such a rounding is not held to the reference's own run:
-    ``tests/test_torch_tp.py`` holds it tick by tick, from the port's own
-    cache, on this mesh.  At most one lane in two."""
+    The K/V entries and the attention's probabilities and output are
+    bf16, and a value within noise of a rounding boundary may round the
+    other way (:func:`_hold`); a lane's later layers then read other
+    values.  So recurrentgemma's attention output of every step is held
+    against the reference's step from the port's cache (:func:`_hold_rows`),
+    and
+    its recurrent state (``h``, ``conv``) after every step at the bar
+    against the state that step writes from the port's cache and the
+    port's attention output, every lane.  Every leaf of every lane is held
+    against the reference's own cache but, under the split plan, the
+    recurrent state of a lane whose K/V entries or attention output held
+    the other rounding (recurrentgemma's lane 1: at step 2 a V entry is
+    one ulp off and a probability of its head 3 rounds the other way, its
+    remainder layers' state then 1.7e-3 off the reference's own).  At
+    most one lane in two."""
     ref = runs.ref
     leaves = sorted(k[len(arch) + 7:] for k in ref
                     if k.startswith(f"{arch}/cache/"))
@@ -472,6 +636,12 @@ def test_sharded_decode_matches_reference(runs, arch):
                             if k.startswith(f"{arch}/cache/"))
         assert got_leaves == leaves
         blocks, other = {}, np.zeros(rows.stop - rows.start, bool)
+        for t in range(STEPS * (arch == RECURRENT_ARCH)):
+            block = tuple(slice(a, b) for a, b in r[f"{arch}/attn{t}_block"])
+            assert block[0] == rows, block
+            got, want = r[f"{arch}/attn{t}"], \
+                ref[f"{arch}/same_attn{t}"][block]
+            other |= _hold_rows(got, want, f"attention output, step {t}")
         for leaf in leaves:
             block = tuple(slice(a, b) for a, b in
                           r[f"{arch}/cache_block/{leaf}"])
@@ -486,15 +656,22 @@ def test_sharded_decode_matches_reference(runs, arch):
                 got = r[f"{arch}/cache/{leaf}"]
                 want = ref[f"{arch}/cache/{leaf}"][block]
                 _hold(got, want, leaf, bf16=True)
-                off = np.abs(got - want) > ATOL * max(
-                    1.0, float(np.abs(want).max())) + RTOL * np.abs(want)
-                other |= off.any(axis=tuple(d for d in range(off.ndim)
-                                            if d != at))
+                other |= _off(got, want).any(axis=tuple(
+                    d for d in range(got.ndim) if d != at))
         rounded += int(other.sum())
         for leaf, (block, at) in blocks.items():
-            if leaf.split("/")[-1] in ("k", "v"):
+            name = leaf.split("/")[-1]
+            if name in ("k", "v"):
                 continue
-            lanes = (slice(None),) * at + (~other,)
+            lanes = (slice(None),) * (at + 1)
+            if name in ("h", "conv"):
+                for t in range(STEPS):
+                    after = "cache" if t == STEPS - 1 else f"cache_after{t}"
+                    _hold(r[f"{arch}/{after}/{leaf}"],
+                          ref[f"{arch}/same_state{t}/{leaf}"][block],
+                          f"{leaf} step {t}, from the port's cache")
+                if split is not None:
+                    lanes = (slice(None),) * at + (~other,)
             _hold(r[f"{arch}/cache/{leaf}"][lanes],
                   ref[f"{arch}/cache/{leaf}"][block][lanes], leaf)
     # each lane is counted by both ranks of its model group
