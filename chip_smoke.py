@@ -4786,7 +4786,9 @@ def mesh_states(torch, cfg, mesh, sharded_only: bool = False) -> list:
 
 def phase_mesh(torch) -> dict:
     """The sharded pieces on the card: a 1 x 1 (data, model) NCCL mesh;
-    Qwen2.5-3B at full width, 4 layers, its parameters and AdamW state
+    Qwen2.5-3B at full width, 4 layers, through the split plan over its
+    head width (asserted, with its axes; on one rank the attention's
+    exchanges are identities), its parameters and AdamW state
     sharded by ``model_param_shardings`` and ``state_axes``
     (``shard_tree``: no copy on this mesh), the batch by ``input_axes``;
     the sharded step replayed against the unsharded one from the same
@@ -4817,6 +4819,7 @@ def _mesh_phase(torch, mesh, t_phase: float) -> dict:
 
     full = configs.get_config(LM_ARCH)
     cfg = full.replace(n_layers=MESH_LAYERS)
+    split = check_plan(sh, cfg, mesh)
     specs = transformer.model_specs(cfg)
     o_sh = sh.state_shardings(sh.model_param_shardings(cfg, mesh)[0],
                               module.axes_tree(specs), mesh,
@@ -4861,7 +4864,7 @@ def _mesh_phase(torch, mesh, t_phase: float) -> dict:
     free_card(torch)
     reshard = mesh_reshard(torch, mesh)
     n = module.param_count(specs)
-    out = {"arch": LM_ARCH, "layers": MESH_LAYERS,
+    out = {"arch": LM_ARCH, "layers": MESH_LAYERS, "split_axes": split,
            "reduced": f"n_layers {MESH_LAYERS} of {full.n_layers}: the "
                       f"sharded and the unsharded state side by side (2 x "
                       f"{16 * module.param_count(transformer.model_specs(full)) / 1e9:.1f}"
@@ -4890,7 +4893,9 @@ def _mesh_phase(torch, mesh, t_phase: float) -> dict:
 SPLIT_AXES = {"gemma2-27b": ["heads", "kv_heads", "mlp", "vocab"],
               "recurrentgemma-9b": ["heads", "mlp", "vocab"],
               "qwen2-moe-a2.7b": ["experts", "heads", "kv_heads", "mlp",
-                                  "vocab"]}
+                                  "vocab"],
+              "qwen2.5-3b": ["head_dim", "mlp", "vocab"],
+              "qwen2-vl-2b": ["head_dim", "mlp", "vocab"]}
 
 
 def check_plan(sh, cfg, mesh) -> list:
@@ -4982,8 +4987,9 @@ def phase_moe_mesh(torch) -> dict:
 
 #: phase serve_mesh: the sharded prefill's first call, then SERVE_RUNS
 #: replays beside as many unsharded calls; SERVE_TICKS replayed ticks of
-#: each path from one zero cache; whisper-tiny's tick cache length
-SERVE_RUNS, SERVE_TICKS, SERVE_ED_LEN = 5, 16, 64
+#: each path from one zero cache; whisper-tiny's tick cache length;
+#: qwen2-vl-2b's layers (its split prefill with patches)
+SERVE_RUNS, SERVE_TICKS, SERVE_ED_LEN, SERVE_VLM_LAYERS = 5, 16, 64, 4
 
 
 def _shard_params(torch, cfg, params, mesh):
@@ -5182,7 +5188,11 @@ def phase_serve_mesh(torch) -> dict:
     prefill at LM_PREFILL_B x LM_PREFILL_S against ``lm.prefill``, 36 K5
     launches per replay and nothing else; LM_LANES-lane ticks of the
     sharded serve step against the unsharded tick; then one eager call of
-    each, their peaks for phase dryrun.  qwen2-moe-a2.7b cut to
+    each, their peaks for phase dryrun; all of it through the split plan
+    over the head width (asserted, with its axes).  qwen2-vl-2b cut to
+    SERVE_VLM_LAYERS layers: its split prefill of VLM_PREFILL_B x (1,024
+    patches + VLM_PREFILL_S tokens) against ``lm.prefill``, one K5
+    launch a layer.  qwen2-moe-a2.7b cut to
     MOE_MESH_LAYERS layers: its tick through the split plan (asserted, with
     its axes: the experts' combine summed over ``model``), the counts
     exchange inside the graph, its kept share the unsharded tick's.
@@ -5207,6 +5217,7 @@ def phase_serve_mesh(torch) -> dict:
     try:
         torch.use_deterministic_algorithms(True)
         cfg = configs.get_config(LM_ARCH)
+        lm_split = check_plan(sh, cfg, mesh)
         params, line = draw(torch, cfg, LM_ARCH, LM_PARAMS)
         sharded = _shard_params(torch, cfg, params, mesh)
         gen = torch.Generator(device="cuda").manual_seed(41)
@@ -5223,8 +5234,31 @@ def phase_serve_mesh(torch) -> dict:
                                LM_MAX_LEN, 42)
         peaks = serve_eager_peaks(torch, cfg, sharded, mesh, LM_LANES,
                                   LM_MAX_LEN, batch)
-        out["lm"] = {**line, "prefill": pre, "tick": tick,
-                     "eager": peaks}
+        out["lm"] = {**line, "split_axes": lm_split, "prefill": pre,
+                     "tick": tick, "eager": peaks}
+        del params, sharded, batch
+        free_card(torch)
+
+        t_vlm = time.perf_counter()
+        cfg = configs.get_config(VLM_ARCH).replace(n_layers=SERVE_VLM_LAYERS)
+        params, line = draw(torch, cfg, VLM_ARCH, module.param_count(
+            transformer.model_specs(cfg)))
+        sharded = _shard_params(torch, cfg, params, mesh)
+        gen = torch.Generator(device="cuda").manual_seed(47)
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (VLM_PREFILL_B, VLM_PREFILL_S), generator=gen,
+            device="cuda"), "patches": torch.randn(
+            VLM_PREFILL_B, cfg.n_patches, cfg.d_model, generator=gen,
+            device="cuda")}
+        pre = serve_prefill_pair(torch, cfg, params, sharded, batch)
+        want = {"flash_attention": cfg.n_layers}
+        check(pre["launches_per_replay"] == want,
+              f"sharded qwen2-vl-2b prefill launched "
+              f"{pre['launches_per_replay']} per replay, want {want}")
+        out["vlm"] = {**line, "split_axes": check_plan(sh, cfg, mesh),
+                      "reduced": f"n_layers {SERVE_VLM_LAYERS} of 28",
+                      "n_patches": cfg.n_patches, "prefill": pre,
+                      "seconds": time.perf_counter() - t_vlm}
         del params, sharded, batch
         free_card(torch)
 
@@ -5282,6 +5316,8 @@ def phase_serve_mesh(torch) -> dict:
             "lm_tick_launches": out["lm"]["tick"]["launches_per_replay"],
             "whisper_prefill_launches":
                 out["encdec"]["prefill"]["launches_per_replay"],
+            "vlm_prefill_launches":
+                out["vlm"]["prefill"]["launches_per_replay"],
             "lm_prefill_ms_p50": out["lm"]["prefill"]["ms_p50"],
             "eager": out["lm"]["eager"]}
 
@@ -5497,12 +5533,21 @@ DRY_TINY = ("gemma2-27b", {"pod": 2, "data": 2, "model": 2}, 8, 32)
 DRY_TP_CELLS = (("gemma2-27b", "prefill_32k"), ("gemma2-27b", "decode_32k"),
                 ("stablelm-3b", "prefill_32k"), ("stablelm-3b", "decode_32k"),
                 ("recurrentgemma-9b", "decode_32k"),
-                ("qwen2-moe-a2.7b", "decode_32k"))
+                ("qwen2-moe-a2.7b", "decode_32k"),
+                ("qwen2-7b", "prefill_32k"), ("qwen2-7b", "decode_32k"),
+                ("qwen2.5-3b", "decode_32k"), ("qwen2-vl-2b", "decode_32k"))
 #: gemma2-27b's prefill_32k FLOPs per device under the gather plan, where
 #: every rank of a model group of 16 repeated the group's compute (the
 #: dry-run's record on an H100 80GB HBM3 at 700 W, PERF.md section 6); the
 #: split plan's are held within 10% of a 16th
 DRY_GEMMA_PREFILL_GATHER_FLOPS = 5032.5e12
+#: qwen2-7b's prefill_32k FLOPs per device where the split plan splits its
+#: head width, reckoned from the gather plan's 1,717.3e12 (the same
+#: record): K5's formula counts 4 B H S^2 D a layer, 862.0e12 over 28
+#: layers at B 2, H 28, S 32,768, D 128; the linear rest, 855.3e12, split
+#: 16 ways; the attention on the heaviest rank's 4 of the 56 (batch x
+#: head) rows (rank 0, the one traced).  Held to at most 1.1 x
+DRY_QWEN7_PREFILL_ROWS_FLOPS = (1717.3e12 - 862.0e12) / 16 + 862.0e12 * 4 / 56
 
 
 def phase_dryrun(torch, mesh_out: dict, serve_out: dict) -> dict:
@@ -5517,7 +5562,12 @@ def phase_dryrun(torch, mesh_out: dict, serve_out: dict) -> dict:
     reference test's tiny 2 x 2 x 2 cell; Qwen2.5-3B's sharded prefill and
     serve step at full depth (phase serve_mesh's shapes) traced on the
     1 x 1 fake world, their predicted peaks and launches beside phase
-    serve_mesh's eager calls."""
+    serve_mesh's eager calls, all three through the split plan over the
+    head width (asserted); the split plan's serving cells on 16 x 16
+    (DRY_TP_CELLS), each fitting with nothing gathered, gemma2-27b's
+    prefill FLOPs within 10% of a 16th of the gather plan's and qwen2-7b's
+    at most 1.1 x the split by rows (DRY_QWEN7_PREFILL_ROWS_FLOPS), its
+    exchanges among the model axis's collectives."""
     import shutil
     import tempfile
 
@@ -5566,6 +5616,10 @@ def phase_dryrun(torch, mesh_out: dict, serve_out: dict) -> dict:
               f"{r.get('error')}\n{r.get('traceback', '')[-3000:]}")
     check(not fake_launched, "the dry-run's fake kernels moved the launch "
                              "counters")
+    plans = [r["model_split"] for r in (rec, *serve.values())]
+    check(plans == ["compute"] * 3, f"{LM_ARCH}'s traced step, prefill and "
+                                    f"tick took the plans {plans}, want the "
+                                    f"split plan (compute)")
     for r in tp_cells:
         check(r["model_split"] == "compute" and r["fits"]
               and r["gather_bytes_per_device"] == 0,
@@ -5577,6 +5631,13 @@ def phase_dryrun(torch, mesh_out: dict, serve_out: dict) -> dict:
     check(abs(got_flops - want_flops) <= 0.1 * want_flops,
           f"gemma2-27b prefill_32k traced {got_flops} FLOP per device, want "
           f"{want_flops} within 10%")
+    qwen7 = next(r for r in tp_cells
+                 if (r["arch"], r["shape"]) == ("qwen2-7b", "prefill_32k"))
+    check(qwen7["flops_per_device"] <= 1.1 * DRY_QWEN7_PREFILL_ROWS_FLOPS
+          and qwen7["collectives_by_axis"]["model"].get("all-to-all", 0) > 0,
+          f"qwen2-7b prefill_32k traced {qwen7['flops_per_device']} FLOP "
+          f"per device (want at most 1.1 x {DRY_QWEN7_PREFILL_ROWS_FLOPS}) "
+          f"and {qwen7['collectives_by_axis']} over the axes")
     # the card's eager step: the same step on the state it traced
     mesh = single_device_mesh()
     try:
@@ -5668,8 +5729,10 @@ def phase_dryrun(torch, mesh_out: dict, serve_out: dict) -> dict:
                "flops_per_device", "params_bytes_per_device",
                "cache_bytes_per_device", "cache_bytes_per_device_rules",
                "gather_bytes_per_device", "collectives_by_kind",
-               "collective_bytes_by_link", "kernel_launches", "memory")}
+               "collectives_by_axis", "collective_bytes_by_link",
+               "traced_rank", "kernel_launches", "memory")}
                for r in tp_cells],
+           "qwen2_7b_prefill_rows_flops": DRY_QWEN7_PREFILL_ROWS_FLOPS,
            "seconds": time.perf_counter() - t_phase}
     emit({"phase": "dryrun", **out})
     return out
@@ -5767,6 +5830,7 @@ def main() -> int:
     by_path["serve_mesh_prefill"] = smsh["lm_prefill_launches"]
     by_path["serve_mesh_tick"] = smsh["lm_tick_launches"]
     by_path["serve_mesh_whisper_prefill"] = smsh["whisper_prefill_launches"]
+    by_path["serve_mesh_vlm_prefill"] = smsh["vlm_prefill_launches"]
     by_path["tp_train_step"] = tpr["train_launches"]
     by_path["tp_recurrent_train_step"] = tpr["recurrent_train_launches"]
     by_path["tp_prefill"] = tpr["prefill_launches"]
@@ -5873,7 +5937,10 @@ def main() -> int:
                        "replayed sharded Qwen2.5-3B prefill at 4 x 1,024 "
                        "on a 1 x 1 NCCL mesh, ['serve_mesh_whisper_"
                        "prefill'] one whisper-tiny prefill (encode and "
-                       "decode)",
+                       "decode), ['serve_mesh_vlm_prefill'] one "
+                       "qwen2-vl-2b prefill at 4 layers with patches; "
+                       "the Qwen models' through the split plan over "
+                       "the head width",
                 "prefill_ms_p50": smsh["lm_prefill_ms_p50"]}
         if name in NO_LIBRARY:
             rows[-1]["library_ms_null_because"] = NO_LIBRARY[name]

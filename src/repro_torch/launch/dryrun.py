@@ -32,7 +32,11 @@ bytes live on the device at once (the arguments included), where XLA
 gives temp bytes.  Each record names the plan the sharded step takes over
 ``model`` (``model_split``, ``launch.shardings.model_split``): "compute"
 splits the compute over it as the reference's tensor-parallel program
-does, its model-axis all-reduces among the collectives; "gather" gathers
+does, its model-axis all-reduces (and, where the head width is split,
+all-to-alls) among the collectives, each axis's wire bytes by kind in
+``collectives_by_axis``, and the rank it traced in ``traced_rank`` (rank
+0, the first of its model group, which holds the most rows where the
+attention's rows split raggedly); "gather" gathers
 every split parameter into a whole buffer and runs each data rank's rows
 on them, so a large model's peak can exceed 80 GB where the reference's
 program fits: that is the finding, not a fault of the dry-run.  A
@@ -65,6 +69,7 @@ import traceback
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import registry
 from repro_torch.configs.base import SHAPES, ShapeConfig, supports_shape
@@ -230,6 +235,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: Union[str, dict],
                 arch, shape_name, mesh, cfg=base_cfg, shape=shape,
                 device=device)
             split = sh.model_split(cell_cfg, mesh) is not None
+            groups = {a: dist.get_process_group_ranks(mesh.group(a))
+                      for a in axes if mesh.shape[a] > 1}
+            traced = dict(zip(axes, mesh.coordinate()))
             params, state, batch = args[0], args[1:-1], args[-1]
             tracker = MemTracker()
             tracker.track_external(*(sh.local(t) for t in
@@ -295,7 +303,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: Union[str, dict],
             "flops_per_device": float(flops.get_total_flops()),
             "collective_bytes_per_device": report.collective_bytes,
             "collectives_by_kind": report.by_kind(),
+            "collectives_by_axis": report.by_axis(groups),
             "collective_bytes_by_link": report.by_link(),
+            "traced_rank": {"rank": 0, "coordinate": traced},
             "n_collective_ops": len(report.collectives),
             "kernel_launches": report.kernel_launches,
             "n_ops": report.n_ops,

@@ -107,6 +107,7 @@ class CollectiveOp:
     operand_bytes: int
     group_size: int
     nodes: int                    #: the 8-card nodes its group's ranks span
+    ranks: tuple = ()             #: its group's ranks
 
     @property
     def wire_bytes(self) -> float:
@@ -130,6 +131,18 @@ class OpReport:
         out: dict[str, float] = {}
         for c in self.collectives:
             out[c.kind] = out.get(c.kind, 0.0) + c.wire_bytes
+        return out
+
+    def by_axis(self, groups: dict) -> dict:
+        """{axis: {kind: wire bytes}} of the collectives over each mesh
+        axis's group, ``groups`` {axis: its group's ranks}; a group of
+        several axes under its ranks' tuple."""
+        named = {tuple(sorted(r)): a for a, r in groups.items()}
+        out: dict[str, dict] = {}
+        for c in self.collectives:
+            axis = named.get(tuple(sorted(c.ranks)), str(c.ranks))
+            kinds = out.setdefault(axis, {})
+            kinds[c.kind] = kinds.get(c.kind, 0.0) + c.wire_bytes
         return out
 
     def by_link(self) -> dict:
@@ -173,7 +186,8 @@ class OpInventory(TorchDispatchMode):
         result = _nbytes(out if result_at < 0 else args[result_at])
         nodes = len({r // CARDS_PER_NODE for r in ranks})
         self._collectives.append(CollectiveOp(kind, name, result, operand,
-                                              len(ranks), nodes))
+                                              len(ranks), nodes,
+                                              tuple(ranks)))
 
     def report(self) -> OpReport:
         return OpReport(list(self._collectives), dict(self._launches),

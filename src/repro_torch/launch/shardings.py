@@ -141,17 +141,23 @@ def model_split(cfg: ModelConfig, mesh) -> Optional[frozenset]:
     The split plan: the mesh has a ``model`` axis, no parameter is split
     over any other, and every leaf the pruned rules split over ``model``
     is one of ``nn.tensor_parallel.SPLIT_LEAVES`` under its axis (an
-    attention ``q``/``k``/``v``/``o`` kernel or bias over ``heads`` or
-    ``kv_heads``; an MLP's or the MoE shared expert's ``wi``/``wg``/``wo``
-    over ``mlp``; an RG-LRU leaf over ``mlp`` or, its gates' kernels,
-    ``heads``; an expert's ``wi``/``wg``/``wo`` over ``experts``;
-    ``embed/table`` or ``unembed/kernel`` over ``vocab``); each of those
-    axes is split in every leaf that has it; and the blocks a layer
-    combines line up: an RG-LRU's heads are split where its channels are
-    (a rank's heads of its block-diagonal gates are then exactly its
-    channels'), and an MoE's experts where its shared expert's columns are
-    (one sum over ``model`` takes both).  A 1 x 1 mesh keeps ``model`` at
-    extent 1, so a config takes the same plan there as on the production
+    attention ``q``/``k``/``v``/``o`` kernel or bias over ``heads`` and
+    ``kv_heads``, or over ``head_dim``, the head width, where the rules
+    split that instead: Qwen2.5-3B, Qwen2-7B, Qwen2-VL-2B, whose KV heads
+    do not divide ``model``; an MLP's or the MoE shared expert's
+    ``wi``/``wg``/``wo`` over ``mlp``; an RG-LRU leaf over ``mlp`` or,
+    its gates' kernels, ``heads``; an expert's ``wi``/``wg``/``wo`` over
+    ``experts``; ``embed/table`` or ``unembed/kernel`` over ``vocab``);
+    each of those axes is split in every leaf that has it; and the blocks
+    a layer combines line up: an RG-LRU's heads are split where its
+    channels are (a rank's heads of its block-diagonal gates are then
+    exactly its channels'), and an MoE's experts where its shared
+    expert's columns are (one sum over ``model`` takes both).  The head
+    width is split only where every layer is attention: xlstm-1.3b's
+    mLSTM ``q``/``k``/``v`` end their paths as the attention's do, but its
+    head width also runs through the sLSTM's recurrence, whose leaves the
+    table does not hold.  A 1 x 1 mesh keeps ``model`` at extent 1, so a
+    config takes the same plan there as on the production
     mesh.  An encoder-decoder takes the gather plan."""
     if "model" not in mesh.shape or cfg.is_encoder_decoder:
         return None
@@ -181,6 +187,9 @@ def model_split(cfg: ModelConfig, mesh) -> Optional[frozenset]:
         return None
     if cfg.n_experts and cfg.n_shared_experts and \
             ("experts" in split) != ("mlp" in split):
+        return None
+    if "head_dim" in split and not set(cfg.attn_pattern) <= {"global",
+                                                              "local"}:
         return None
     return frozenset(split)
 
@@ -213,11 +222,12 @@ def cache_shardings(cfg: ModelConfig, batch: int, max_len: int, mesh
     """The decode cache's shardings, by the plan the config takes
     (:func:`model_split`).
 
-    * The split plan computes each rank's KV heads and RG-LRU channels,
-      so its cache takes the binding rules' split, the reference's:
-      ``batch`` over the data axes, ``kv_heads`` over ``model`` (whole
-      where ``prune_spec`` drops it: every rank then projects and writes
-      all the KV heads), and an RG-LRU layer's ``h`` and ``conv`` over
+    * The split plan computes each rank's KV heads (or head-width
+      columns) and RG-LRU channels, so its cache takes the binding rules'
+      split, the reference's: ``batch`` over the data axes, ``kv_heads``
+      or ``head_dim`` over ``model`` (``kv_heads`` whole where
+      ``prune_spec`` drops it: every rank then projects and writes all
+      the KV heads), and an RG-LRU layer's ``h`` and ``conv`` over
       ``model`` along ``mlp``.
     * The gather plan runs each rank's rows on whole, gathered parameters,
       so its cache keeps only the ``batch`` split and each rank holds its
@@ -234,8 +244,8 @@ def init_sharded_cache(cfg: ModelConfig, batch: int, max_len: int, mesh
                        ) -> Any:
     """A decoder's zero decode cache as DTensors under
     :func:`cache_shardings`, each rank allocating only its own blocks: its
-    rows, and its KV heads and RG-LRU channels where the split plan splits
-    them."""
+    rows, and its KV heads, head-width columns and RG-LRU channels where
+    the split plan splits them."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.nn import transformer
@@ -248,6 +258,9 @@ def init_sharded_cache(cfg: ModelConfig, batch: int, max_len: int, mesh
     ways = mesh.shape.get("model", 1)
     if "kv_heads" in split and cfg.n_kv_heads % ways == 0:
         local_cfg = local_cfg.replace(n_kv_heads=cfg.n_kv_heads // ways)
+    if "head_dim" in split:
+        local_cfg = local_cfg.replace(
+            head_dim=cfg.resolved_head_dim // ways)
     if "mlp" in split and "rglru" in cfg.attn_pattern:
         local_cfg = local_cfg.replace(
             lru_width=(cfg.lru_width or cfg.d_model) // ways)

@@ -24,13 +24,15 @@ pruned shardings (``launch.shardings.model_split``; no flag chooses it):
 
 * **the split plan**, where every leaf the rules split over ``model`` is
   an attention, MLP, RG-LRU, MoE expert or vocabulary leaf (gemma2-27b,
-  stablelm-3b, recurrentgemma-9b and qwen2-moe-a2.7b): each rank computes
-  on its own blocks, as the reference's tensor-parallel program does
+  stablelm-3b, recurrentgemma-9b, qwen2-moe-a2.7b, and over the head
+  width qwen2.5-3b, qwen2-7b and qwen2-vl-2b): each rank computes on its
+  own blocks, as the reference's tensor-parallel program does
   (``nn.tensor_parallel``: column- and row-parallel projections, the
-  RG-LRU's channels and the MoE's experts local to a rank, the vocabulary
-  split over the ranks, the decode cache split over its KV heads and
-  RG-LRU channels), entered around each microbatch's forward and
-  backward;
+  attention on a rank's block of whole-width rows where the head width is
+  split, the RG-LRU's channels and the MoE's experts local to a rank, the
+  vocabulary split over the ranks, the decode cache split over its KV
+  heads or head width and RG-LRU channels), entered around each
+  microbatch's forward and backward;
 * **the gather plan**, for every other config: each rank gathers every
   parameter that is split over ``model`` into a whole buffer and runs its
   data block's whole step on it; the same values, other memory and
@@ -56,8 +58,9 @@ fp32 gradient (each rank keeps it while it updates its blocks), where
 GSPMD reduce-scatters into the gradient's shardings (ROADMAP.md item
 8.9e); and the split plan covers the leaves of
 ``nn.tensor_parallel.SPLIT_LEAVES`` only, so a config whose rules split
-``head_dim`` or ``expert_mlp`` over ``model`` takes the gather plan
-(items 8.9b and 8.9c-ii).
+``expert_mlp`` over ``model`` (mixtral-8x7b, item 8.9c-ii), or a head
+width that runs through the sLSTM (xlstm-1.3b, item 8.9b's other part),
+takes the gather plan.
 
 An MoE layer's capacity counts the whole microbatch.  Each rank routes its
 rows as the whole microbatch would, exchanging the per-(chunk, expert)
@@ -77,11 +80,11 @@ The pieces the train step has besides are shared with it, not copied
 parameter gather, which serving's plan makes once per parameter set (its
 weights do not change between calls).  The decode cache takes
 ``launch.shardings.cache_shardings``: the rules' split under the split
-plan (rows over the data axes, KV heads and RG-LRU channels over
-``model``), the rows' alone
-under the gather plan, each rank then writing its rows' whole cache in
-place where the reference's GSPMD program splits its heads over
-``model`` as well: the same values, other memory.
+plan (rows over the data axes, KV heads or head width and RG-LRU
+channels over ``model``), the rows' alone under the gather plan, each
+rank then writing its rows' whole cache in place where the reference's
+GSPMD program splits its heads over ``model`` as well: the same values,
+other memory.
 """
 
 from __future__ import annotations
@@ -176,7 +179,8 @@ class _Placement:
                 index=dict(zip(mesh.axis_names,
                                mesh.coordinate()))["model"],
                 ways=mesh.shape["model"], split=split,
-                reduce=self._reduce_model, gather=self._gather_model)
+                reduce=self._reduce_model, gather=self._gather_model,
+                all_to_all=self._all_to_all_model)
             self.full = self.p_local
         else:
             self.full = [loc if tuple(loc.shape) == tuple(p.shape) else
@@ -214,6 +218,18 @@ class _Placement:
         parts = [torch.empty_like(t) for _ in range(self.mesh.shape["model"])]
         dist.all_gather(parts, t, group=self.mesh.group("model"))
         return torch.cat(parts, dim=-1)
+
+    def _all_to_all_model(self, t: torch.Tensor, send: list, recv: list
+                          ) -> torch.Tensor:
+        """``tp.ModelShard.all_to_all`` over the ``model`` group: ``t``
+        itself on a group of one."""
+        if self.mesh.shape["model"] == 1:
+            return t
+        out = t.new_empty(sum(recv))
+        dist.all_to_all_single(out, t, output_split_sizes=recv,
+                               input_split_sizes=send,
+                               group=self.mesh.group("model"))
+        return out
 
     def _sharding(self, t) -> NamedSharding:
         return sh.sharding_of(t, self.mesh) if _is_dtensor(t) else \
@@ -618,8 +634,8 @@ class _ServePlan(_Placement):
         """Each cache leaf must be split as
         ``launch.shardings.cache_shardings`` splits it: over the rows'
         data axes along its ``batch`` dimension, and under the split plan
-        over ``model`` along its ``kv_heads`` and ``mlp`` dimensions where
-        the rules keep them, nowhere else."""
+        over ``model`` along its ``kv_heads``, ``head_dim`` and ``mlp``
+        dimensions where the rules keep them, nowhere else."""
         want_rows = entry_axes(self.split.spec[0])
 
         def one(t, ax):

@@ -25,7 +25,13 @@ its weights give.  Where the KV heads are whole on every rank (their
 count does not divide ``model``), each rank's query heads attend with
 their own groups' KV heads (``tp.kv_heads``): prefill and training project
 only those, their weights' gradients summed over ``model``; a decode step
-projects and caches them all, the cache being whole there too.
+projects and caches them all, the cache being whole there too.  Where the
+rules split the head width (``head_dim``) instead, each rank projects its
+columns of every head; prefill and training trade them for whole-width
+rows, a block of the (batch x head) rows a rank, attend there with K5 and
+trade back (:func:`_attend_rows`), and a decode step sums its one token's
+partial scores over ``model`` (:func:`full_attention`'s ``partial``),
+caching its columns.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.nn import tensor_parallel as tp
 from repro_torch.nn.layers import maybe_quantize, matmul_f32, softcap
 from repro_torch.nn.module import ParamSpec
-from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.rope import apply_rope, rotate
 
 ACCUM = torch.float32
 NEG_INF = -2.3819763e38  # large negative, safe in bf16/f32
@@ -93,14 +99,21 @@ def _heads(sub: dict, heads) -> dict:
             for n, w in sub.items()}
 
 
+def _split_axis() -> str:
+    """The logical axis the projections split over ``model``: the head
+    width where the rules split it, else the heads."""
+    return "head_dim" if tp.is_split("head_dim") else "heads"
+
+
 def qkv_project(p: dict, x: torch.Tensor, *, quant: Optional[str] = None,
                 all_kv: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> q, k, v: (B, S, H, dh) each, in x's dtype (``p``:
     the :func:`attn_specs` tree): the local heads under tensor
-    parallelism, k and v those of the local query heads' groups unless
+    parallelism (or the local columns of every head, where ``head_dim`` is
+    split), k and v those of the local query heads' groups unless
     ``all_kv``."""
-    x = tp.copy_to_model(x, "heads")
+    x = tp.copy_to_model(x, _split_axis())
     q = _project(p["q"], x, quant)
     heads = None if all_kv else tp.kv_heads(q.shape[-2],
                                             p["k"]["kernel"].shape[1])
@@ -118,7 +131,8 @@ def out_project(p: dict, y: torch.Tensor, *, quant: Optional[str] = None,
     w = maybe_quantize(p["o"]["kernel"], quant).to(y.dtype)
     h, k, d = w.shape
     out = matmul_f32(y.reshape(*y.shape[:-2], h * k), w.reshape(h * k, d))
-    out = tp.reduce_from_model(out.to(reduce_dtype or out.dtype), "heads")
+    out = tp.reduce_from_model(out.to(reduce_dtype or out.dtype),
+                               _split_axis())
     return out.to(y.dtype)
 
 
@@ -148,7 +162,8 @@ def mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    q_pos: torch.Tensor, k_pos: torch.Tensor,
                    causal: bool = True, window: Optional[int] = None,
-                   logit_cap: float = 0.0) -> torch.Tensor:
+                   logit_cap: float = 0.0, partial: bool = False
+                   ) -> torch.Tensor:
     """Materialised-scores attention (the decode step's, and a caller's
     positions up to ``block_size``).
 
@@ -157,19 +172,27 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rounded to v's dtype before they meet v, as the reference rounds them
     (the flash kernel keeps them in fp32: at bf16 the decode step and
     prefill differ by that rounding).
+
+    ``partial``: q, k and v are this rank's columns of the head width
+    (``head_dim`` split over ``model``): the fp32 scores are summed over
+    ``model`` before the scale, the soft-cap, the mask and the softmax,
+    and the output is this rank's columns.
     """
     b, s, h, d = q.shape
     n_kv = k.shape[2]
     qr = q.reshape(b, s, n_kv, h // n_kv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qr.to(ACCUM), k.to(ACCUM))
+    if partial:
+        scores = tp.reduce_from_model(scores, "head_dim")
+        d *= tp.ways("head_dim")
     # sqrt(d) rounds to the same fp32 as the reference's jnp.sqrt
-    scores = torch.einsum("bskgd,btkd->bkgst", qr.to(ACCUM),
-                          k.to(ACCUM)) / math.sqrt(d)
+    scores = scores / math.sqrt(d)
     scores = softcap(scores, logit_cap)
     bias = mask_bias(q_pos, k_pos, causal=causal, window=window)
     scores = scores + bias[:, None, None, :, :]
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w.to(ACCUM), v.to(ACCUM))
-    return out.reshape(b, s, h, d).to(v.dtype)
+    return out.reshape(b, s, h, -1).to(v.dtype)
 
 
 # -- blockwise streaming attention, with its gradient -----------------------
@@ -339,19 +362,99 @@ def self_attention(p: dict, x: torch.Tensor,
     pos = positions
     if pos is None:
         pos = torch.arange(s, device=x.device).expand(b, s)
-    q, k = apply_rope(q, k, pos, theta=rope_theta, fraction=rope_fraction,
-                      mrope_sections=mrope_sections)
+    rope_kw = dict(theta=rope_theta, fraction=rope_fraction,
+                   mrope_sections=mrope_sections)
     kw = dict(causal=causal, window=window, logit_cap=logit_cap)
-    if positions is None:
-        y = flash_ops.attention(q, k, v, **kw)
+    if tp.ways("head_dim") > 1:
+        y = _attend_rows(q, k, v, pos, positions is not None, rope_kw, kw,
+                         block_size)
     else:
-        pos_1d = positions if positions.dim() == 2 else positions[:, 0, :]
-        kw.update(q_pos=pos_1d, k_pos=pos_1d)
-        if block_size is not None and s > block_size:
-            y = blockwise_attention(q, k, v, block_size=block_size, **kw)
-        else:
-            y = full_attention(q, k, v, **kw)
+        q, k = apply_rope(q, k, pos, **rope_kw)
+        y = _attend(q, k, v, None if positions is None else pos, kw,
+                    block_size)
     return out_project(p, y, quant=quant, reduce_dtype=reduce_dtype)
+
+
+def _attend(q, k, v, positions, kw: dict, block_size: Optional[int]
+            ) -> torch.Tensor:
+    """Rotated q (B, S, H, D), k and v (B, S, K, D) -> (B, S, H, D): K5
+    where ``positions`` is None (``arange(S)``), else the reference's
+    paths at them ((B, S), or (B, 3, S) for M-RoPE)."""
+    if positions is None:
+        return flash_ops.attention(q, k, v, **kw)
+    pos_1d = positions if positions.dim() == 2 else positions[:, 0, :]
+    kw = dict(kw, q_pos=pos_1d, k_pos=pos_1d)
+    if block_size is not None and q.shape[1] > block_size:
+        return blockwise_attention(q, k, v, block_size=block_size, **kw)
+    return full_attention(q, k, v, **kw)
+
+
+def _runs(lo: int, hi: int, per: int) -> list:
+    """(group, count) of each group of ``per`` consecutive rows that the
+    rows [lo, hi) meet, in order."""
+    out = []
+    while lo < hi:
+        g = lo // per
+        end = min(hi, (g + 1) * per)
+        out.append((g, end - lo))
+        lo = end
+    return out
+
+
+def _repeat(t: torch.Tensor, runs: list, first: int = 0) -> torch.Tensor:
+    """Row ``g - first`` of ``t`` ``count`` times for each (g, count) of
+    ``runs``: views and one copy (its gradient a sum, with no atomics)."""
+    return torch.cat([t[g - first:g - first + 1].expand(n, *t.shape[1:])
+                      for g, n in runs])
+
+
+def _as_rows(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, c) -> its (batch x head) rows (B * H, S, c)."""
+    b, s, h, c = t.shape
+    return t.permute(0, 2, 1, 3).reshape(b * h, s, c)
+
+
+def _as_seqs(r: torch.Tensor, h: int) -> torch.Tensor:
+    """(B * H, S, c) rows -> (B, S, H, c), contiguous."""
+    n, s, c = r.shape
+    return r.reshape(n // h, h, s, c).permute(0, 2, 1, 3).contiguous()
+
+
+def _attend_rows(q, k, v, pos, given: bool, rope_kw: dict, kw: dict,
+                 block_size: Optional[int]) -> torch.Tensor:
+    """Attention where ``head_dim`` is split over ``model``: q (B, S, H,
+    c), k and v (B, S, K, c) are this rank's columns of every head ->
+    this rank's columns of the output (B, S, H, c).
+
+    One all-to-all trades them for this rank's block of the (batch x
+    query-head) rows at whole D (``tp.row_ranges``, ragged where the rows
+    do not divide the ways) and the (batch x KV-head) rows those attend
+    with (``tp.kv_ranges``); RoPE or M-RoPE runs there, on whole D, and
+    the attention on those rows alone, each query row with its own KV
+    row: K5 at ``arange(S)``, the reference's paths at a caller's
+    positions (``given``).  One all-to-all trades the output back.  On
+    one rank of ``model`` the exchange is the identity and
+    :func:`self_attention` runs the unsplit path itself."""
+    b, s, h, _ = q.shape
+    n_kv = k.shape[2]
+    rows = tp.row_ranges(b * h)
+    kv = tp.kv_ranges(rows, h, n_kv)
+    (lo, hi), (klo, khi) = rows[tp.index()], kv[tp.index()]
+    qr, kr, vr = tp.to_rows([_as_rows(q), _as_rows(k), _as_rows(v)],
+                            [rows, kv, kv])
+    if hi == lo:
+        y = qr
+    else:
+        q_pos = _repeat(pos, _runs(lo, hi, h))
+        q1 = rotate(qr[:, :, None], q_pos, **rope_kw)
+        k1 = rotate(kr[:, :, None], _repeat(pos, _runs(klo, khi, n_kv)),
+                    **rope_kw)
+        # a query row's KV row: rows of one group are consecutive
+        groups = _runs(lo, hi, h // n_kv)
+        y = _attend(q1, _repeat(k1, groups, klo),
+                    _repeat(vr[:, :, None], groups, klo),
+                    q_pos if given else None, kw, block_size)[:, :, 0]
+    return _as_seqs(tp.to_cols(y, rows, b * h), h)
 
 
 # -- KV caches ---------------------------------------------------------------
@@ -398,11 +501,21 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict,
     an updated copy with the same values.
     """
     q, k, v = qkv_project(p, x, quant=quant, all_kv=True)
+    split = tp.is_split("head_dim")
+    if split:
+        # RoPE pairs dim i with dim i + D/2, another rank's: the token's q
+        # and k whole, in one gather
+        h = q.shape[2]
+        qk = tp.gather(torch.cat([q, k], dim=2), "head_dim")
+        q, k = qk[:, :, :h], qk[:, :, h:]
     positions = pos[:, None]                                  # (B,1)
     if mrope_sections:
         positions = torch.stack([positions] * 3, dim=1)       # (B,3,1)
     q, k = apply_rope(q, k, positions, theta=rope_theta,
                       fraction=rope_fraction, mrope_sections=mrope_sections)
+    if split:
+        cols = tp.block(q.shape[-1], "head_dim")
+        q, k = q[..., cols], k[..., cols]
     size = cache["k"].shape[1]
     slot = pos % size if window else torch.clamp(pos, max=size - 1)
     _write_at(cache["k"], k[:, 0], slot)
@@ -421,7 +534,7 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict,
     ck, cv = (cache[n] if heads is None else cache[n][:, :, heads]
               for n in ("k", "v"))
     y = full_attention(q, ck, cv, q_pos=now, k_pos=k_pos, causal=True,
-                       window=None, logit_cap=logit_cap)
+                       window=None, logit_cap=logit_cap, partial=split)
     return out_project(p, y, quant=quant), cache
 
 

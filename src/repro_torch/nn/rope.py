@@ -76,15 +76,22 @@ def text_positions_3d(positions: torch.Tensor) -> torch.Tensor:
     return torch.stack([positions, positions, positions], dim=1)
 
 
+def rotate(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
+           fraction: float = 1.0,
+           mrope_sections: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Rotate one of q, k with the configured scheme: x (..., S, H, D) at
+    positions (..., S), or (B, 3, S) for M-RoPE."""
+    if mrope_sections:
+        if positions.dim() == 2:  # (B, S) text-only fallback
+            positions = text_positions_3d(positions)
+        return mrope(x, positions, sections=mrope_sections, theta=theta)
+    return rope(x, positions, theta=theta, fraction=fraction)
+
+
 def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, *,
                theta: float, fraction: float = 1.0,
                mrope_sections: Optional[Sequence[int]] = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Rotate q and k with the configured scheme."""
-    if mrope_sections:
-        if positions.dim() == 2:  # (B, S) text-only fallback
-            positions = text_positions_3d(positions)
-        return (mrope(q, positions, sections=mrope_sections, theta=theta),
-                mrope(k, positions, sections=mrope_sections, theta=theta))
-    return (rope(q, positions, theta=theta, fraction=fraction),
-            rope(k, positions, theta=theta, fraction=fraction))
+    kw = dict(theta=theta, fraction=fraction, mrope_sections=mrope_sections)
+    return rotate(q, positions, **kw), rotate(k, positions, **kw)

@@ -24,7 +24,9 @@ asks for it.  ``cfg.bf16_reduce`` rounds the attention out-projection's
 and the MLP's ``wo`` products to bf16, as the reference does for their
 cross-device sums.  Under tensor parallelism
 (:mod:`repro_torch.nn.tensor_parallel`, entered by the sharded steps) the
-layers compute on each rank's heads, MLP columns and vocabulary rows; the
+layers compute on each rank's heads (or head-width columns), MLP columns
+and vocabulary rows, and the decode cache holds the rank's KV heads or
+head-width columns of the post-RoPE k and of v; the
 soft-caps, norms and GeGLU are elementwise or per head and stay local, the
 logits of a full-sequence forward are the rank's vocabulary columns (the
 loss takes them so), and the last position's are gathered whole.
@@ -413,7 +415,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         x = x[:, -1:, :]
     logits = _logits(cfg, params, x)
     if last_logit_only:
-        logits = tp.gather_vocab(logits)
+        logits = tp.gather(logits, "vocab")
     return logits, logits.new_zeros(()) if aux is None else aux
 
 
@@ -427,4 +429,4 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = _embed(cfg, params, tokens)
     for kind, p, c, _ in _layers(cfg, params, cache):
         x, _, _ = apply_block(cfg, kind, p, x, cache=c, pos=pos)
-    return tp.gather_vocab(_logits(cfg, params, x)[:, 0, :]), cache
+    return tp.gather(_logits(cfg, params, x)[:, 0, :], "vocab"), cache

@@ -21,9 +21,10 @@ version there.  Checks:
   build of torch makes though it cannot slice them) launch and count nothing,
   while the op inventory and ``FlopCounterMode`` see each op;
 * the split plan (tensor parallelism over ``model``): tiny gemma2-27b,
-  stablelm-3b, recurrentgemma-9b and qwen2-moe-a2.7b train cells on data
-  2 x model 4 record ``model_split`` "compute", their parameter bytes per
-  device the reference's and their FLOPs within 10% of the reference's;
+  stablelm-3b, recurrentgemma-9b, qwen2-moe-a2.7b and qwen2.5-3b (its
+  head width split) train cells on data 2 x model 4 record
+  ``model_split`` "compute", their parameter bytes per device the
+  reference's and their FLOPs within 10% of the reference's;
 * item 8.8's cells: tiny prefill and decode cells on data 4 x model 1
   trace "ok", their parameter and cache bytes per device the reference's,
   their FLOPs the reference's (the MoE's as the reference's single-device
@@ -49,7 +50,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ("qwen2.5-3b", "qwen2-moe-a2.7b")
 #: the configs whose compute splits over model (the split plan)
 TP_ARCHS = ("gemma2-27b", "stablelm-3b", "recurrentgemma-9b",
-            "qwen2-moe-a2.7b")
+            "qwen2-moe-a2.7b", "qwen2.5-3b")
 BATCH, SEQ = 8, 32
 
 PORT = r"""
@@ -80,7 +81,7 @@ elif world == "serve":      # prefill and decode cells on data 4 x model 1
                 device="cpu")
 elif world == "2x4":        # the split plan, on data 2 x model 4
     for arch in ("gemma2-27b", "stablelm-3b", "recurrentgemma-9b",
-                 "qwen2-moe-a2.7b"):
+                 "qwen2-moe-a2.7b", "qwen2.5-3b"):
         res[arch] = dryrun.run_cell(
             arch, "tiny_train", {"data": 2, "model": 4}, out_dir,
             cfg=registry.get_tiny(arch).replace(microbatches=1), shape=shape,
@@ -131,7 +132,8 @@ out = {}
 for data, model, archs in ((4, 1, ("qwen2.5-3b", "qwen2-moe-a2.7b")),
                            (1, 1, ("qwen2.5-3b", "qwen2-moe-a2.7b")),
                            (2, 4, ("gemma2-27b", "stablelm-3b",
-                                   "recurrentgemma-9b", "qwen2-moe-a2.7b"))):
+                                   "recurrentgemma-9b", "qwen2-moe-a2.7b",
+                                   "qwen2.5-3b"))):
     mesh = jax.make_mesh((data, model), ("data", "model"),
                          devices=jax.devices()[:data * model],
                          axis_types=(AxisType.Auto,) * 2)
@@ -322,16 +324,19 @@ def test_flops_per_device_hold_to_the_reference(runs, arch):
 def test_split_plan_cells_hold_to_the_reference(runs, arch):
     """Tiny gemma2-27b (its 2 KV heads whole on model 4, its 4 query heads
     split), stablelm-3b, recurrentgemma-9b (its one KV head whole, its
-    RG-LRU channels and heads split) and qwen2-moe-a2.7b (its 8 experts
-    split 2 a rank) on data 2 x model 4 take the split plan: the parameter
-    bytes per device the reference's exactly, the FLOPs per device within
-    10% of the reference's GSPMD program's (each rank computes its heads,
-    MLP columns, RG-LRU channels, experts and vocabulary rows; under the
-    gather plan every rank of a model group repeated the group's compute,
-    about 4 x), and the model-axis all-reduces among the collectives.  On
-    data 4 x model 1 and on 1 x 1 ``model`` keeps extent 1 and each
-    config takes its production plan: qwen2-moe-a2.7b the split plan,
-    qwen2.5-3b (``head_dim`` over ``model``) the gather plan.
+    RG-LRU channels and heads split), qwen2-moe-a2.7b (its 8 experts
+    split 2 a rank) and qwen2.5-3b (its head width of 16 split 4 a rank)
+    on data 2 x model 4 take the split plan: the parameter bytes per
+    device the reference's exactly, the FLOPs per device within 10% of
+    the reference's GSPMD program's (each rank computes its heads or
+    head-width columns, MLP columns, RG-LRU channels, experts and
+    vocabulary rows, and qwen2.5-3b's its 4 of the data rank's 16 (batch
+    x head) rows, which divide the 4 ranks; under the gather plan every
+    rank of a model group repeated the group's compute, about 4 x), and
+    the model-axis all-reduces among the collectives, with qwen2.5-3b's
+    all-to-alls (its q/k/v and output exchanges).  On data 4 x model 1
+    and on 1 x 1 ``model`` keeps extent 1 and each config takes its
+    production plan, the split plan (qwen2.5-3b's over ``head_dim``).
 
     The MoE's FLOPs as in :func:`test_flops_per_device_hold_to_the_reference`
     under data 4: the reference's GSPMD program repeats its MoE layers'
@@ -355,6 +360,8 @@ def test_split_plan_cells_hold_to_the_reference(runs, arch):
         flops = single / 8
     assert abs(got - flops) <= 0.1 * flops, (got, flops)
     assert rec["collectives_by_kind"]["all-reduce"] > 0
+    assert ("all-to-all" in rec["collectives_by_kind"]) == \
+        (arch == "qwen2.5-3b")
     for world in ("4x1", "1x1"):
         for other in ARCHS:
             assert port[world][other]["model_split"] == (

@@ -16,17 +16,20 @@ Checks:
 * (b) ``compressed_psum`` over ``data`` equals the reference's under
   ``jax.shard_map`` bit for bit, the two data ranks' inputs at scales
   100x apart (the max-scale bound bites);
-* (c) the sharded train step on tiny Qwen2.5-3B (fp32 activations), batch
-  8 in 2 microbatches, the two data ranks holding different numbers of
-  counted targets, equals the reference's ``make_train_step`` jitted with
-  the same shardings: metrics, parameters and both moments (and the error
-  feedback) within rtol 1e-5 / atol 1e-6 after 2 steps, with and without
+* (c) the sharded train step on tiny Qwen2.5-3B (fp32 activations; the
+  split plan over its head width), batch 8 in 2 microbatches, the two
+  data ranks holding different numbers of counted targets, equals the
+  reference's ``make_train_step`` jitted with the same shardings:
+  metrics, parameters and both moments (and the error feedback) within
+  rtol 1e-5 / atol 1e-6 after 2 steps, with and without
   ``grad_compression``;
 * (d) ``reshard_checkpoint`` of that run's checkpoint onto a 4 x 1 mesh
   (in the spawn) and onto a 1 x 1 CPU mesh (here) equals the saved leaves
   bit for bit;
 * (e) the MoE tiny config under data = 2: its sharded step against the
-  reference's at the bar of (c), and one MoE layer whose token chunks
+  reference's at the bar of (c), tiny mixtral-8x7b's alike (it takes the
+  gather plan: every rank gathers its split parameters whole), and one
+  MoE layer whose token chunks
   overflow across the two data ranks' boundary, each rank routing its
   rows: the assignments it keeps (read off the outputs of probe weights,
   see :func:`_probe_layer`) exactly the reference's on the whole
@@ -60,6 +63,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-5, 1e-6
 BF16_SCALE_TOL = 0.02                 # tests/test_torch_lm.py's bf16 bar
 ARCH, MOE_ARCH = "qwen2.5-3b", "qwen2-moe-a2.7b"
+#: a config that takes the gather plan on 2 x 2 (its experts' weights split
+#: over ``data`` by ``expert_embed``, their hidden over ``model``)
+GATHER_ARCH = "mixtral-8x7b"
 BATCH, SEQ, MICRO, STEPS = 8, 24, 2, 2
 #: the overflow layer: 96 tokens in 3 chunks of 32, so the middle chunk
 #: straddles the data ranks' boundary at token 48; capacity 5 of its ~10.7
@@ -149,6 +155,8 @@ def _inputs(path: pathlib.Path) -> dict:
     arrays = {f"w/{k}": v for k, v in _weights(cfg, 0).items()}
     moe = registry.get_tiny(MOE_ARCH)
     arrays.update({f"moe/{k}": v for k, v in _weights(moe, 1).items()})
+    arrays.update({f"gather/{k}": v for k, v in _weights(
+        registry.get_tiny(GATHER_ARCH), 2).items()})
     for i, b in enumerate(_batches(cfg, 2)):
         for k, v in b.items():
             arrays[f"b{i}/{k}"] = v
@@ -308,31 +316,34 @@ for comp in (False, True):
             out[f"{tag}/{name}/{k}"] = v
     out[f"{tag}/step"] = np.asarray(state["step"])
 
-# (e) the MoE step under data = 2, and the overflow layer on the whole batch
-mcfg = registry.get_tiny(meta["moe_arch"]).replace(
-    activation_dtype="float32", microbatches=meta["micro"])
-mab, mp_sh = sh.model_param_shardings(mcfg, m22)
-mo_sh = sh.tree_shardings(adamw.abstract_state(mab), adamw.state_axes(
-    module.axes_tree(transformer.model_specs(mcfg))), m22, sh.rules_for(mcfg))
-params = jax.device_put(nest("moe", mcfg), mp_sh)
-state = jax.device_put(adamw.init_state(params), mo_sh)
-step = jax.jit(steps.make_train_step(
-    mcfg, adamw.AdamWConfig(**meta["opt"]), microbatch_shardings=micro_sh,
-    grad_shardings=mo_sh["mu"]), in_shardings=(mp_sh, mo_sh, in_sh),
-    out_shardings=(mp_sh, mo_sh, sh.replicated(m22)))
-for i in range(meta["steps"]):
-    batch = {k: jnp.asarray(arrays[f"b{i}/{k}"])
-             for k in ("tokens", "targets")}
-    params, state, m = step(params, state, batch)
-    for k, v in m.items():
-        out[f"moe/m{i}/{k}"] = np.asarray(v)
-    for k, v in flat(state["mu"]).items():
-        out[f"moe/mu{i}/{k}"] = v
-for name, tree in (("params", params), ("mu", state["mu"]),
-                   ("nu", state["nu"])):
-    for k, v in flat(tree).items():
-        out[f"moe/{name}/{k}"] = v
-out["moe/step"] = np.asarray(state["step"])
+# (e) the MoE step under data = 2, the gather plan's config alike, and the
+# overflow layer on the whole batch
+for tag, arch in (("moe", meta["moe_arch"]), ("gather", meta["gather_arch"])):
+    mcfg = registry.get_tiny(arch).replace(
+        activation_dtype="float32", microbatches=meta["micro"])
+    mab, mp_sh = sh.model_param_shardings(mcfg, m22)
+    mo_sh = sh.tree_shardings(adamw.abstract_state(mab), adamw.state_axes(
+        module.axes_tree(transformer.model_specs(mcfg))), m22,
+        sh.rules_for(mcfg))
+    params = jax.device_put(nest(tag, mcfg), mp_sh)
+    state = jax.device_put(adamw.init_state(params), mo_sh)
+    step = jax.jit(steps.make_train_step(
+        mcfg, adamw.AdamWConfig(**meta["opt"]), microbatch_shardings=micro_sh,
+        grad_shardings=mo_sh["mu"]), in_shardings=(mp_sh, mo_sh, in_sh),
+        out_shardings=(mp_sh, mo_sh, sh.replicated(m22)))
+    for i in range(meta["steps"]):
+        batch = {k: jnp.asarray(arrays[f"b{i}/{k}"])
+                 for k in ("tokens", "targets")}
+        params, state, m = step(params, state, batch)
+        for k, v in m.items():
+            out[f"{tag}/m{i}/{k}"] = np.asarray(v)
+        for k, v in flat(state["mu"]).items():
+            out[f"{tag}/mu{i}/{k}"] = v
+    for name, tree in (("params", params), ("mu", state["mu"]),
+                       ("nu", state["nu"])):
+        for k, v in flat(tree).items():
+            out[f"{tag}/{name}/{k}"] = v
+    out[f"{tag}/step"] = np.asarray(state["step"])
 from repro.nn import moe as ref_moe
 probe = {}
 for k, v in arrays.items():
@@ -351,6 +362,7 @@ print("REFERENCE DONE")
 
 def _reference(inputs: pathlib.Path, out: pathlib.Path) -> subprocess.Popen:
     meta = {"meshes": MESH_SHAPES, "arch": ARCH, "moe_arch": MOE_ARCH,
+            "gather_arch": GATHER_ARCH,
             "micro": MICRO, "batch": BATCH, "seq": SEQ, "opt": OPT,
             "steps": STEPS, "overflow": OVERFLOW}
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -477,9 +489,28 @@ def _rank_checks(rank, arrays, out_dir: pathlib.Path) -> dict:
     res["reshard41_step"] = np.array(got_step)
     res["reshard41_leaves"] = np.array(len(saved))
 
-    # (e) MoE under data = 2: the sharded step, then the overflow layer
-    moe = registry.get_tiny(MOE_ARCH).replace(activation_dtype="float32",
-                                              microbatches=MICRO)
+    # (e) MoE under data = 2: the sharded step; the gather plan's config
+    # alike; then the overflow layer
+    res["moe_error"] = np.array("")
+    try:
+        res.update(_moe_steps("moe", MOE_ARCH, mesh, arrays, batches, rank))
+    except NotImplementedError as e:
+        res["moe_error"] = np.array(str(e))
+    res.update(_moe_steps("gather", GATHER_ARCH, mesh, arrays, batches,
+                          rank))
+    res.update(_overflow_layer(mesh, arrays))
+    return res
+
+
+def _moe_steps(tag: str, arch: str, mesh, arrays, batches, rank) -> dict:
+    """The sharded step of ``arch``'s tiny MoE config, its weights the
+    inputs' ``tag/``, on ``batches``: each step's metrics and first moments,
+    then (rank 0) the whole parameters and both moments."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    res = {}
+    moe = registry.get_tiny(arch).replace(activation_dtype="float32",
+                                          microbatches=MICRO)
     mrules = sh.rules_for(moe)
     mab, m_sh = sh.model_param_shardings(moe, mesh)
     mo_sh = sh.state_shardings(
@@ -487,34 +518,28 @@ def _rank_checks(rank, arrays, out_dir: pathlib.Path) -> dict:
     mmicro = {k: sh.sharding_for((MICRO, BATCH // MICRO, SEQ),
                                  (None, "batch", None), mesh, mrules)
               for k in ("tokens", "targets")}
-    mw = module.params_from_numpy(_nest(_group(arrays, "moe"), moe))
+    mw = module.params_from_numpy(_nest(_group(arrays, tag), moe))
     mparams = sh.shard_tree(mw, m_sh)
     mstate = sh.shard_tree(adamw.init_state(mw), mo_sh)
-    res["moe_error"] = np.array("")
-    try:
-        step = steps.make_train_step(
-            moe, adamw.AdamWConfig(**OPT), microbatch_shardings=mmicro,
-            grad_shardings=mo_sh["mu"])
-        for i, b in enumerate(batches):
-            mparams, mstate, m = step(mparams, mstate, b)
-            for k, v in m.items():
-                res[f"moe/m{i}/{k}"] = v.numpy()
-            mu = module.map_tree(lambda t: t.full_tensor(), mstate["mu"])
-            if rank == 0:
-                for k, v in _flat(mu).items():
-                    res[f"moe/mu{i}/{k}"] = v.numpy()
-    except NotImplementedError as e:
-        res["moe_error"] = np.array(str(e))
-    else:
-        whole = {"params": mparams, "mu": mstate["mu"], "nu": mstate["nu"]}
-        whole = {k: module.map_tree(lambda t: t.full_tensor(), v)
-                 for k, v in whole.items()}
+    step = steps.make_train_step(
+        moe, adamw.AdamWConfig(**OPT), microbatch_shardings=mmicro,
+        grad_shardings=mo_sh["mu"])
+    for i, b in enumerate(batches):
+        mparams, mstate, m = step(mparams, mstate, b)
+        for k, v in m.items():
+            res[f"{tag}/m{i}/{k}"] = v.numpy()
+        mu = module.map_tree(lambda t: t.full_tensor(), mstate["mu"])
         if rank == 0:
-            for name, tree in whole.items():
-                for k, v in _flat(tree).items():
-                    res[f"moe/{name}/{k}"] = v.numpy()
-            res["moe/step"] = mstate["step"].full_tensor().numpy()
-    res.update(_overflow_layer(mesh, arrays))
+            for k, v in _flat(mu).items():
+                res[f"{tag}/mu{i}/{k}"] = v.numpy()
+    whole = {"params": mparams, "mu": mstate["mu"], "nu": mstate["nu"]}
+    whole = {k: module.map_tree(lambda t: t.full_tensor(), v)
+             for k, v in whole.items()}
+    if rank == 0:
+        for name, tree in whole.items():
+            for k, v in _flat(tree).items():
+                res[f"{tag}/{name}/{k}"] = v.numpy()
+        res[f"{tag}/step"] = mstate["step"].full_tensor().numpy()
     return res
 
 
@@ -624,7 +649,7 @@ def _bar(got, want):
     return np.abs(got - want) > ATOL + RTOL * np.abs(want)
 
 
-@pytest.mark.parametrize("tag", ["plain", "comp", "moe"])
+@pytest.mark.parametrize("tag", ["plain", "comp", "moe", "gather"])
 def test_sharded_step_matches_reference(runs, tag):
     """Metrics after each step, and the state after two, against the
     reference's at rtol 1e-5 / atol 1e-6, every element but two kinds,
@@ -647,7 +672,10 @@ def test_sharded_step_matches_reference(runs, tag):
     (94% without compression, 99.8% with it: the tiny model has many
     gradients near zero).  ``moe`` is the MoE tiny config under data = 2,
     without compression: each rank routes its rows as the whole microbatch
-    would (the aux loss among the metrics)."""
+    would (the aux loss among the metrics).  ``gather`` is tiny
+    mixtral-8x7b alike, which takes the gather plan (asserted): every
+    rank gathers its split parameters whole; tiny Qwen2.5-3B (``plain``,
+    ``comp``) takes the split plan over its head width."""
     from repro_torch.optim.adamw import AdamWConfig
     ref, got = runs.ref, runs.ranks[0]
     for i in range(STEPS):
@@ -662,7 +690,13 @@ def test_sharded_step_matches_reference(runs, tag):
     lr_sum = sum(float(ref[f"{tag}/m{i}/lr"]) for i in range(STEPS))
     leaves = [k[len(f"{tag}/params/"):] for k in ref
               if k.startswith(f"{tag}/params/")]
-    arch, seed = (MOE_ARCH, 1) if tag == "moe" else (ARCH, 0)
+    arch, seed = {"moe": (MOE_ARCH, 1), "gather": (GATHER_ARCH, 2)}.get(
+        tag, (ARCH, 0))
+    from repro_torch.launch.mesh import Mesh
+    shape, axes = MESH_SHAPES["2x2"]
+    split = sh.model_split(registry.get_tiny(arch),
+                           Mesh(dict(zip(axes, shape))))
+    assert (split is None) == (tag == "gather"), split
     assert len(leaves) == len(_weights(registry.get_tiny(arch), seed))
     held = total = 0
     for leaf in leaves:

@@ -17,8 +17,9 @@ fp32 activations.  Checks:
   lane at its own position (recurrentgemma's window rolls): the tokens
   equal, and each rank's cache block at the bar against that block of the
   reference's cache: its rows of every leaf, whole under the gather plan
-  (qwen2.5-3b, whisper-tiny), and under the split plan its KV heads
-  (qwen2-moe-a2.7b) and RG-LRU channels (recurrentgemma-9b) as well;
+  (whisper-tiny), and under the split plan its head-width columns
+  (qwen2.5-3b), KV heads (qwen2-moe-a2.7b) and RG-LRU channels
+  (recurrentgemma-9b) as well;
   and recurrentgemma's recurrent state after every step against the
   state the reference's step writes from the port's cache (the
   reference's subprocess then waits for the port's results);
@@ -604,7 +605,7 @@ def test_sharded_decode_matches_reference(runs, arch):
     reference's, and after them each rank's cache block is that block of
     every leaf of the reference's cache: its rows, whole over ``model``
     under the gather plan, its KV heads or RG-LRU channels of them under
-    the split plan.
+    the split plan (qwen2.5-3b's head-width columns).
 
     The K/V entries and the attention's probabilities and output are
     bf16, and a value within noise of a rounding boundary may round the
