@@ -257,7 +257,15 @@ Phases, each printing one JSON line (``"phase": ...``):
              8-lane serve step (replayed) against 16 unsharded ticks from
              the same zero cache, tokens, logits and every cache leaf value
              for value; p50 of each beside the other; one eager call of
-             each, its peak memory and launches for phase dryrun.
+             each, its peak memory and launches for phase dryrun; all
+             of it through the split plan over the head width.
+             qwen2-vl-2b cut to 4 layers: its prefill of 4 x (1,024
+             patches + 1,024 tokens) against ``lm.prefill`` value for
+             value, 4 K5 launches per replay.  For both, the attention's
+             path over the head width's rows (which one rank does not
+             take) called alone at their prefill shapes in a model shard
+             that splits ``head_dim`` one way, against the unsplit RoPE
+             and K5 value for value, one K5 launch a call.
              qwen2-moe-a2.7b cut to 2 layers: its tick, the counts
              exchange inside the graph, held the same way, its kept share
              the unsharded tick's.  recurrentgemma-9b cut to one
@@ -295,10 +303,13 @@ Phases, each printing one JSON line (``"phase": ...``):
              depth) traced on the 1 x 1 fake world, each predicted peak
              within 15% of phase serve_mesh's eager call's and its
              launches equal to that call's; the split plan's serving
-             cells on the 16 x 16 fake world (gemma2-27b ``prefill_32k``
-             and ``decode_32k``, stablelm-3b ``decode_32k``): each fits
-             in 80 GB with nothing gathered, gemma2-27b's prefill FLOPs
-             per device within 10% of a sixteenth of the gather plan's.
+             cells on the 16 x 16 fake world (``DRY_TP_CELLS``: ten
+             ``prefill_32k`` and ``decode_32k`` cells of seven configs),
+             traced by the dry-run's CLI in one process each, all at once
+             beside the rest of the phase: each fits in 80 GB with nothing
+             gathered, gemma2-27b's prefill FLOPs per device within 10% of
+             a sixteenth of the gather plan's, qwen2-7b's at most 1.1 x
+             the split by rows.
 
 Then the script's seconds, the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and
@@ -5050,6 +5061,67 @@ def serve_prefill_pair(torch, cfg, params, sharded, batch: dict) -> dict:
             "ms": ms, "unsharded_route": "eager (make_prefill unsharded)"}
 
 
+def split_rows_pair(torch, cfg, sharded, b: int, s: int, seed: int) -> dict:
+    """The attention's path where the split plan splits the head width
+    (``nn.attention._attend_rows``) on the card, which the 1 x 1 mesh's
+    layers do not take (one rank attends unsplit): inside the sharded
+    prefill's own model shard, which splits ``head_dim`` one way, so its
+    two exchanges are all-to-alls over the NCCL group of one.  q, k and v
+    at ``cfg``'s prefill shape (``b`` x ``s`` positions, ``arange``; the
+    activation dtype) drawn from ``seed``; the rows' RoPE or M-RoPE, K5 on
+    (B x H, S, 1, D) with each query row's own KV row, the exchange back,
+    against the unsplit path (``apply_rope``, then K5 on (B, S, H, D)
+    over the KV heads) on the same tensors, value for value; its K5
+    launches in one call."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import steps
+    from repro_torch.nn import attention
+    from repro_torch.nn import tensor_parallel as tp
+    from repro_torch.nn.rope import apply_rope
+
+    plan = steps.make_prefill(cfg).prepare(sharded)
+    shard = plan.model
+    check(shard is not None and shard.ways == 1
+          and "head_dim" in shard.split,
+          f"{cfg.name}: the prefill's model shard {shard} does not split "
+          f"head_dim one way")
+    h, n_kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = getattr(torch, cfg.activation_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").to(dt)
+               for n in (h, n_kv, n_kv))
+    pos = torch.arange(s, device="cuda").expand(b, s)
+    rope_kw = dict(theta=cfg.rope_theta, fraction=cfg.rope_fraction,
+                   mrope_sections=cfg.mrope_sections or None)
+    kw = dict(causal=True, window=None, logit_cap=cfg.attn_softcap)
+    with torch.no_grad():
+        registry.reset_launch_counts()
+        with tp.model_shard(shard):
+            got = attention._attend_rows(q, k, v, pos, False, rope_kw, kw,
+                                         None)
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in registry.launch_counts().items() if c}
+        qr, kr = apply_rope(q, k, pos, **rope_kw)
+        want = flash_ops.attention(qr, kr, v, **kw)
+    differ = value_diff(torch, got, want)
+    err = float((got.float() - want.float()).abs().max())
+    check(tuple(got.shape) == tuple(want.shape) and differ == 0
+          and bool(torch.isfinite(got).all()),
+          f"{cfg.name} attention over the head width's rows: "
+          f"{tuple(got.shape)} against {tuple(want.shape)}, {differ} values "
+          f"differing, max abs err {err}")
+    check(launches == {"flash_attention": 1},
+          f"{cfg.name} attention over the head width's rows launched "
+          f"{launches}, want one K5 and nothing else")
+    plan.release()
+    return {"call": f"q ({b}, {s}, {h}, {d}), k/v ({b}, {s}, {n_kv}, {d}) "
+                    f"{cfg.activation_dtype}, as ({b * h}, {s}, 1, {d}) rows",
+            "model_shard": {"ways": shard.ways, "split": sorted(shard.split)},
+            "values_differing": differ, "max_abs_err": err,
+            "launches": launches}
+
+
 def serve_tick_pair(torch, cfg, params, sharded, mesh, lanes: int,
                     max_len: int, seed: int, enc=None, kept=False) -> dict:
     """SERVE_TICKS ticks of the sharded serve step (DTensor parameters,
@@ -5192,7 +5264,9 @@ def phase_serve_mesh(torch) -> dict:
     over the head width (asserted, with its axes).  qwen2-vl-2b cut to
     SERVE_VLM_LAYERS layers: its split prefill of VLM_PREFILL_B x (1,024
     patches + VLM_PREFILL_S tokens) against ``lm.prefill``, one K5
-    launch a layer.  qwen2-moe-a2.7b cut to
+    launch a layer.  For both Qwen models the attention's path over the
+    head width's rows, which one rank does not take, called alone in the
+    prefill's model shard at their prefill shapes (:func:`split_rows_pair`).  qwen2-moe-a2.7b cut to
     MOE_MESH_LAYERS layers: its tick through the split plan (asserted, with
     its axes: the experts' combine summed over ``model``), the counts
     exchange inside the graph, its kept share the unsharded tick's.
@@ -5230,12 +5304,14 @@ def phase_serve_mesh(torch) -> dict:
               f"sharded Qwen2.5-3B prefill launched "
               f"{pre['launches_per_replay']} per replay, want {want} and "
               f"nothing else")
+        rows = split_rows_pair(torch, cfg, sharded, LM_PREFILL_B,
+                               LM_PREFILL_S, 48)
         tick = serve_tick_pair(torch, cfg, params, sharded, mesh, LM_LANES,
                                LM_MAX_LEN, 42)
         peaks = serve_eager_peaks(torch, cfg, sharded, mesh, LM_LANES,
                                   LM_MAX_LEN, batch)
         out["lm"] = {**line, "split_axes": lm_split, "prefill": pre,
-                     "tick": tick, "eager": peaks}
+                     "split_rows": rows, "tick": tick, "eager": peaks}
         del params, sharded, batch
         free_card(torch)
 
@@ -5255,9 +5331,12 @@ def phase_serve_mesh(torch) -> dict:
         check(pre["launches_per_replay"] == want,
               f"sharded qwen2-vl-2b prefill launched "
               f"{pre['launches_per_replay']} per replay, want {want}")
+        rows = split_rows_pair(torch, cfg, sharded, VLM_PREFILL_B,
+                               cfg.n_patches + VLM_PREFILL_S, 49)
         out["vlm"] = {**line, "split_axes": check_plan(sh, cfg, mesh),
                       "reduced": f"n_layers {SERVE_VLM_LAYERS} of 28",
                       "n_patches": cfg.n_patches, "prefill": pre,
+                      "split_rows": rows,
                       "seconds": time.perf_counter() - t_vlm}
         del params, sharded, batch
         free_card(torch)
@@ -5318,6 +5397,8 @@ def phase_serve_mesh(torch) -> dict:
                 out["encdec"]["prefill"]["launches_per_replay"],
             "vlm_prefill_launches":
                 out["vlm"]["prefill"]["launches_per_replay"],
+            "split_rows_launches": out["lm"]["split_rows"]["launches"],
+            "vlm_split_rows_launches": out["vlm"]["split_rows"]["launches"],
             "lm_prefill_ms_p50": out["lm"]["prefill"]["ms_p50"],
             "eager": out["lm"]["eager"]}
 
@@ -5548,6 +5629,9 @@ DRY_GEMMA_PREFILL_GATHER_FLOPS = 5032.5e12
 #: 16 ways; the attention on the heaviest rank's 4 of the 56 (batch x
 #: head) rows (rank 0, the one traced).  Held to at most 1.1 x
 DRY_QWEN7_PREFILL_ROWS_FLOPS = (1717.3e12 - 862.0e12) / 16 + 862.0e12 * 4 / 56
+#: the longest wait for one 16 x 16 cell's CLI process (each traced in
+#: 3-7 s alone on the card's host)
+DRY_CELL_TIMEOUT_S = 300
 
 
 def phase_dryrun(torch, mesh_out: dict, serve_out: dict) -> dict:
@@ -5588,6 +5672,14 @@ def phase_dryrun(torch, mesh_out: dict, serve_out: dict) -> dict:
     free_card(torch)
     cfg = configs.get_config(LM_ARCH).replace(n_layers=MESH_LAYERS)
     out_dir = Path(tempfile.mkdtemp(prefix=".smoke_dryrun_", dir=ROOT))
+    # the 16 x 16 cells, one CLI process each, beside the rest
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+         "--shape", shp, "--mesh", "single", "--out", str(out_dir)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, PYTHONPATH=str(SRC),
+                            OMP_NUM_THREADS="1"))
+        for a, shp in DRY_TP_CELLS]
     try:
         launches0 = registry.launch_counts()
         rec = dryrun.run_cell(
@@ -5605,10 +5697,20 @@ def phase_dryrun(torch, mesh_out: dict, serve_out: dict) -> dict:
             arch, "tiny_train", world, out_dir,
             cfg=configs.get_tiny(arch).replace(microbatches=2),
             shape=ShapeConfig("tiny_train", s, b, "train"))
-        tp_cells = [dryrun.run_cell(a, shp, "single", out_dir)
-                    for a, shp in DRY_TP_CELLS]
         fake_launched = registry.launch_counts() != launches0
+        tp_cells = []
+        for (a, shp), proc in zip(DRY_TP_CELLS, procs):
+            log, _ = proc.communicate(timeout=DRY_CELL_TIMEOUT_S)
+            path = out_dir / f"{a}__{shp}__single.json"
+            check(path.exists(), f"dry-run CLI of {a} {shp} exited "
+                                 f"{proc.returncode} with no record: "
+                                 f"{log[-3000:]}")
+            tp_cells.append(json.loads(path.read_text()))
     finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(out_dir, ignore_errors=True)
     for r in (rec, tiny, *serve.values(), *tp_cells):
         check(r.get("status") == "ok",
@@ -5831,6 +5933,8 @@ def main() -> int:
     by_path["serve_mesh_tick"] = smsh["lm_tick_launches"]
     by_path["serve_mesh_whisper_prefill"] = smsh["whisper_prefill_launches"]
     by_path["serve_mesh_vlm_prefill"] = smsh["vlm_prefill_launches"]
+    by_path["serve_mesh_split_rows"] = smsh["split_rows_launches"]
+    by_path["serve_mesh_vlm_split_rows"] = smsh["vlm_split_rows_launches"]
     by_path["tp_train_step"] = tpr["train_launches"]
     by_path["tp_recurrent_train_step"] = tpr["recurrent_train_launches"]
     by_path["tp_prefill"] = tpr["prefill_launches"]
@@ -5940,7 +6044,12 @@ def main() -> int:
                        "decode), ['serve_mesh_vlm_prefill'] one "
                        "qwen2-vl-2b prefill at 4 layers with patches; "
                        "the Qwen models' through the split plan over "
-                       "the head width",
+                       "the head width; ['serve_mesh_split_rows'] and "
+                       "['serve_mesh_vlm_split_rows'] one call of the "
+                       "attention's path over the head width's rows "
+                       "(nn.attention._attend_rows) at Qwen2.5-3B's and "
+                       "qwen2-vl-2b's prefill shapes in a model shard "
+                       "that splits head_dim one way",
                 "prefill_ms_p50": smsh["lm_prefill_ms_p50"]}
         if name in NO_LIBRARY:
             rows[-1]["library_ms_null_because"] = NO_LIBRARY[name]

@@ -221,10 +221,7 @@ class _Placement:
 
     def _all_to_all_model(self, t: torch.Tensor, send: list, recv: list
                           ) -> torch.Tensor:
-        """``tp.ModelShard.all_to_all`` over the ``model`` group: ``t``
-        itself on a group of one."""
-        if self.mesh.shape["model"] == 1:
-            return t
+        """``tp.ModelShard.all_to_all`` over the ``model`` group."""
         out = t.new_empty(sum(recv))
         dist.all_to_all_single(out, t, output_split_sizes=recv,
                                input_split_sizes=send,

@@ -75,16 +75,14 @@ class ModelShard:
     ``gather(t)`` along the last dimension in rank order, and
     ``all_to_all(t, send, recv)``: a flat ``t`` whose first ``send[j]``
     elements after those of lower ranks go to rank ``j``, returning the
-    ``recv[i]`` elements from each rank ``i`` in rank order (``t`` itself
-    on a group of one)."""
+    ``recv[i]`` elements from each rank ``i`` in rank order."""
 
     index: int
     ways: int
     split: frozenset
     reduce: Callable[[torch.Tensor, str], torch.Tensor]
     gather: Callable[[torch.Tensor], torch.Tensor]
-    all_to_all: Optional[Callable[[torch.Tensor, list, list],
-                                  torch.Tensor]] = None
+    all_to_all: Callable[[torch.Tensor, list, list], torch.Tensor]
 
 
 _shard: Optional[ModelShard] = None
@@ -375,15 +373,29 @@ def _exchange_cols(shard, ys, ranges, totals):
     recv = [sum(rg[j][1] - rg[j][0] for rg in ranges) * s * c
             for j in range(w)]
     got = shard.all_to_all(blocks.reshape(-1), [sum(mine) * s * c] * w,
-                           recv)
-    outs = [ys[0].new_zeros((n, s, c)) for n in totals]
-    at = 0
+                           recv).view(-1, s, c)
+    # each tensor's rows from the ranks in rank order are contiguous, but
+    # for a KV row that a rank shares with its lower neighbours: those
+    # rows are set aside and summed in, the rest concatenated
+    keep, shared, idx = [[] for _ in ys], [[] for _ in ys], [[] for _ in ys]
+    ends, at = [0] * len(ys), 0
     for j in range(w):
-        for out, rg in zip(outs, ranges):
+        for i, rg in enumerate(ranges):
             lo, hi = rg[j]
-            size = (hi - lo) * s * c
-            out[lo:hi] += got[at:at + size].view(hi - lo, s, c)
-            at += size
+            over = min(max(ends[i] - lo, 0), hi - lo)
+            shared[i].append(got[at:at + over])
+            idx[i].extend(range(lo, lo + over))
+            keep[i].append(got[at + over:at + hi - lo])
+            ends[i] = max(ends[i], hi)
+            at += hi - lo
+    outs = []
+    for i, n in enumerate(totals):
+        out = torch.cat(keep[i])
+        assert out.shape[0] == n, (out.shape, n)
+        if idx[i]:
+            out.index_add_(0, torch.tensor(idx[i], device=out.device),
+                           torch.cat(shared[i]))
+        outs.append(out)
     return outs
 
 

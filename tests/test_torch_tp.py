@@ -819,25 +819,19 @@ def test_sharded_prefill_and_ticks_match_reference(runs, mname, arch):
     the logits of a lane whose cache up to that tick holds the
     reference's values exactly also against the reference's own ticks.
     The K/V entries alike: the ones every tick writes against the ones the
-    reference's tick computes from the port's cache (in a full cache from
-    the port's entries of the tick's earlier layers too, which it reads:
-    the reference writes them into the slot no tick attends to; a
-    window's against its tick from the port's whole cache before it);
-    and every entry against the reference's own cache, each within one
-    bf16 ulp, with at most max(2, 1/1,000 of the leaf) outside the bar,
-    but for the ones a lane wrote while its cache held the other rounding
-    (tiny qwen2-moe on model 4: lane 3's layer-0 V entry of tick 1 rounds
-    the other way, and two of its layer-1 V entries of tick 2 follow it,
-    each one ulp off), which a full cache holds to the reference's from
-    the port's entries alone: downstream of an entry rounded the other
-    way an entry near zero may sit further off its own value than an ulp
-    (tiny qwen2-vl-2b on model 4: lane 3's layer-1 V entry of tick 3, one
-    ulp off, moves a layer-2 V entry of 0.00099 by two).  The recurrent
-    state (an RG-LRU's ``h`` and ``conv``) after every tick at the bar
-    against the state the reference's tick writes from the port's state
-    before it and the port's K/V entries of the tick, and after the last
-    against the reference's own.  The tokens equal the reference's
-    own."""
+    reference's tick writes from the port's whole cache before it, and in
+    a full cache also against the ones it computes from the port's
+    entries of the tick's earlier layers too (written into the slot no
+    tick attends to); and every entry against the reference's own cache,
+    each within one bf16 ulp, with at most max(2, 1/1,000 of the leaf)
+    outside the bar but for the ones a lane wrote while its cache held
+    the other rounding (tiny qwen2-moe on model 4: lane 3's layer-0 V
+    entry of tick 1 rounds the other way, and two of its layer-1 V
+    entries of tick 2 follow it, each one ulp off).  The recurrent state
+    (an RG-LRU's ``h`` and ``conv``) after every tick at the bar against
+    the state the reference's tick writes from the port's state before it
+    and the port's K/V entries of the tick, and after the last against
+    the reference's own.  The tokens equal the reference's own."""
     tag = f"{mname}/{arch}"
     ref, cfg = runs.ref, _cfg(arch)
     leaves = sorted(k[len(tag) + 7:] for k in ref
@@ -872,27 +866,29 @@ def test_sharded_prefill_and_ticks_match_reference(runs, mname, arch):
                           ref[f"{tag}/same_state{t}/{leaf}"][block],
                           f"{leaf} tick {t}, from the port's state")
                 continue
+            off = _off_bf16(got, want)
+            assert (np.abs(got - want)[off] <= 2.0 ** -7 * np.abs(want)[off]
+                    ).all(), leaf
             held = np.ones(got.shape, bool)
             lane_dim = int(leaf.startswith("blocks/"))
-            shadow = f"{tag}/shadow0/{leaf}" in ref
             for t in range(TICKS):
                 mask = _tick_entries(cfg, leaf, block, t)
                 after = "cache" if t == TICKS - 1 else f"cache_after{t}"
-                if shadow:      # from the port's entries of this tick too
-                    from_port = ref[f"{tag}/shadow{t}/{leaf}"][
-                        block[:lane_dim + 1] + block[lane_dim + 2:]].ravel()
-                else:
-                    from_port = ref[f"{tag}/same_state{t}/{leaf}"][block][
-                        mask]
-                _hold(r[f"{tag}/{after}/{leaf}"][mask], from_port,
+                entries = r[f"{tag}/{after}/{leaf}"][mask]
+                _hold(entries,
+                      ref[f"{tag}/same_state{t}/{leaf}"][block][mask],
                       f"{leaf} tick {t}, from the port's cache", bf16=True)
+                if f"{tag}/shadow{t}/{leaf}" in ref:
+                    # and from the port's entries of the tick's earlier
+                    # layers too
+                    _hold(entries, ref[f"{tag}/shadow{t}/{leaf}"][
+                        block[:lane_dim + 1] + block[lane_dim + 2:]].ravel(),
+                        f"{leaf} tick {t}, from the port's entries",
+                        bf16=True)
                 for j, lane in enumerate(range(rows.start, rows.stop)):
                     if other[t, lane]:
                         held[(slice(None),) * lane_dim + (j,)] &= \
                             ~mask[(slice(None),) * lane_dim + (j,)]
-            off = _off_bf16(got, want) & (held if shadow else True)
-            assert (np.abs(got - want)[off] <= 2.0 ** -7 * np.abs(want)[off]
-                    ).all(), leaf
             _hold(got[held], want[held], leaf, bf16=True)
     assert other.sum() <= other.size // 2, other
 

@@ -270,3 +270,4 @@ def test_k5_runs_on_the_ranks_rows_at_whole_width(runs, mname, arch):
             n = cfg.n_layers if key == "k5_prefill" else 1
             shape = [len(rows), s if key == "k5_prefill" else tpt.SEQ, 1, d]
             assert calls == [shape + [grad]] * n, (key, calls)
+

@@ -172,7 +172,7 @@ def _probe(mname, mesh, arrays) -> dict:
         return mesh.reduce(t, ("model",))
     shard = tp.ModelShard(index=m, ways=m_ways,
                           split=frozenset({"experts", "mlp"}),
-                          reduce=reduce, gather=None)
+                          reduce=reduce, gather=None, all_to_all=None)
     rows = x.shape[0] // d_ways
     data = moe_lib.BatchShard(index=coord["data"], ways=d_ways,
                               reduce=lambda t: mesh.reduce(t, ("data",)))
